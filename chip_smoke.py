@@ -6,13 +6,20 @@
 Phases, one line each (any failure raises and exits nonzero):
 
 1. the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build the NODE Euler kernel (csrc/node_euler.cu) with nvcc;
+2. build the NODE Euler kernel (csrc/node_euler.cu) with nvcc, printing
+   ptxas's registers, shared memory and spills per kernel, and count the
+   tensor-core (HMMA) instructions in its SASS;
 3. hold the kernel against its plain PyTorch version on the card, forward
-   and gradients, at the rows the main path gives it (128 and 32768) and
-   at a ragged 1000, for the unicycle (3, 2) and pvtol (6, 2) dimensions;
+   and gradients, at the rows the main path gives it (128 and 32768), at
+   the tile edges (1, 16, 17, 127, 129), at a ragged 1000 and at the
+   switch between the small and large tiles and one either side, for the
+   unicycle (3, 2) and pvtol (6, 2) dimensions;
 4. time the kernel and the plain version (CUDA events, median of 30 runs,
    both replayed from a CUDA graph and issued from Python) beside the
-   card's least time for the work (its bound);
+   card's least time for the work (its bound, on the tensor cores and on
+   the CUDA cores); the host's time per call; a sweep of every tile
+   configuration over 128 to 32768 rows, each checked against the plain
+   version;
 5. the main path: train the unicycle preset at its full widths through the
    port's ``run_episode`` (launch counts reset just before, read just
    after); profile 10 more steps (device busy share, top device ops); then
@@ -28,12 +35,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -46,7 +55,11 @@ from nlbac_tpu_torch.replay import sample
 from nlbac_tpu_torch.train import create_replays, make_episode_runner
 from nlbac_tpu_torch.tree import tree_leaves, tree_map
 
-# H100 SXM data-sheet peaks (dense): float32 outside the tensor cores, HBM3.
+# H100 SXM data-sheet peaks (dense): TF32 on the tensor cores, float32
+# outside them, HBM3. The kernel takes three TF32 passes for float32
+# accuracy, so its bound is the work at a third of the TF32 rate.
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # Kernel vs plain version on the card, both float32 (torch.allclose form):
@@ -58,6 +71,8 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 UPDATE_RTOL, UPDATE_ATOL = 1e-3, 1e-4
 EPISODES, EPISODE_STEPS = 5, 300
 SEED = 0
+SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
+HOST_CALLS = 1000
 
 
 def phase(msg: str) -> None:
@@ -94,8 +109,10 @@ def work(params, rows, n_s, n_u):
     return flops, nbytes
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak_flops=PEAK_TF32_FLOPS / TF32_PASSES):
+    """(ms, what bounds it): the larger of the work's time at
+    ``peak_flops`` and its bytes' time at the memory rate."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -136,12 +153,21 @@ def time_ms(fn, runs=30, inner=10):
     return median(graph.replay), median(issue)
 
 
+def check_rows():
+    """The row counts phase 3 checks: the main path's, the 16-row tile's
+    edges, a ragged count, and both sides of the small/large tile
+    switch."""
+    switch = node_kernel.SMALL_TILE_MAX_ROWS
+    return sorted({1, 16, 17, 127, 128, 129, 1000, switch - 1, switch,
+                   switch + 1, 32768})
+
+
 def check_kernel(dev, gen):
     """Kernel vs plain version: forward and gradients. Returns the largest
     forward error."""
     worst = 0.0
-    for (n_s, n_u), rows in (((3, 2), 128), ((3, 2), 1000), ((3, 2), 32768),
-                             ((6, 2), 128)):
+    for (n_s, n_u), rows in itertools.product(((3, 2), (6, 2)),
+                                              check_rows()):
         params = node_params(n_s, n_u, gen, dev)
         x = torch.randn(rows, n_s, device=dev, generator=gen)
         u = (torch.rand(rows, n_u, device=dev, generator=gen) * 2 - 1) * 3.5
@@ -162,11 +188,45 @@ def check_kernel(dev, gen):
             torch.testing.assert_close(a, b, rtol=KERNEL_RTOL,
                                        atol=KERNEL_ATOL)
         worst = max(worst, err)
-        phase(f"check (n_s,n_u)=({n_s},{n_u}) rows={rows}: forward max abs "
-              f"err {err:.3e} max rel err {rel:.3e}, gradient max abs err "
-              f"{g_err:.3e} (tolerance rtol {KERNEL_RTOL} atol "
-              f"{KERNEL_ATOL}) ok")
+        tiles = node_kernel.TILE_CONFIGS[node_kernel.tile_config(rows)]
+        phase(f"check (n_s,n_u)=({n_s},{n_u}) rows={rows} tiles {tiles}: "
+              f"forward max abs err {err:.3e} max rel err {rel:.3e}, "
+              f"gradient max abs err {g_err:.3e} (tolerance rtol "
+              f"{KERNEL_RTOL} atol {KERNEL_ATOL}) ok")
     return worst
+
+
+def tensor_core_check(lib):
+    """Counts the tensor-core instructions (HMMA) in the built library's
+    SASS; fails if there are none."""
+    cuobjdump = Path(node_kernel._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    per_kernel, name = collections.Counter(), None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif "HMMA" in line:
+            per_kernel[name] += 1
+    if not per_kernel:
+        raise RuntimeError(f"no HMMA instruction in the SASS of {lib.name}")
+    phase(f"tensor cores: {sum(per_kernel.values())} HMMA instructions in "
+          f"{len(per_kernel)} kernels of {lib.name} ("
+          + ", ".join(f"{n}" for n in per_kernel.values()) + " each)")
+
+
+def host_us(fn, calls=HOST_CALLS):
+    """Host microseconds per call: a host clock around ``calls`` calls,
+    with no synchronize inside."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def time_kernel(dev, gen, card):
@@ -182,15 +242,61 @@ def time_kernel(dev, gen, card):
                 lambda: node_kernel.node_euler_step_plain(params, x, u, 0.02))
         flops, nbytes = work(params, rows, 3, 2)
         bound_ms, bound_by = bound(flops, nbytes)
+        bound_f32_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
         out[rows] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "call_ms": call_ms,
+                     "bound_by": bound_by, "bound_tc_ms": bound_ms,
+                     "bound_f32_ms": bound_f32_ms, "call_ms": call_ms,
                      "plain_call_ms": plain_call_ms}
         phase(f"time rows={rows}: device kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms; issued from Python kernel {call_ms:.4f} "
-              f"ms, plain {plain_call_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB; "
-              f"{flops / ms / 1e9:.2f} TFLOP/s achieved) on {card}")
+              f"ms, plain {plain_call_ms:.4f} ms; bound {bound_ms:.5f} ms "
+              f"on the tensor cores ({bound_by}; 3 TF32 passes at "
+              f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), {bound_f32_ms:.5f} "
+              f"ms on the CUDA cores; {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB; {flops / ms / 1e9:.2f} TFLOP/s "
+              f"achieved, {bound_ms / ms:.1%} of the bound, on {card}")
+        if rows == 128:
+            u_grad = u.clone().requires_grad_(True)
+            with torch.no_grad():
+                us_nograd = host_us(lambda: node_kernel.node_euler_step(
+                    params, x, u, 0.02))
+            us_grad = host_us(lambda: node_kernel.node_euler_step(
+                params, x, u_grad, 0.02))
+            out[rows]["host_us_per_call"] = us_grad
+            out[rows]["host_us_per_call_no_grad"] = us_nograd
+            phase(f"host time per call at rows=128 ({HOST_CALLS} calls, no "
+                  f"synchronize inside): {us_grad:.2f} us with u requiring "
+                  f"a gradient (as the policy-loss rollout calls it), "
+                  f"{us_nograd:.2f} us under no_grad, on {card}")
     return out
+
+
+def sweep(dev, gen, card):
+    """Device ms of every tile configuration at SWEEP_ROWS (unicycle
+    dimensions), each checked against the plain version first."""
+    for rows in SWEEP_ROWS:
+        params = node_params(3, 2, gen, dev)
+        x = torch.randn(rows, 3, device=dev, generator=gen)
+        u = torch.randn(rows, 2, device=dev, generator=gen)
+        cells = []
+        with torch.no_grad():
+            args = node_kernel.launch_args(params, x, u)
+            y_p = node_kernel.node_euler_step_plain(params, x, u, 0.02)
+            for cfg, tiles in enumerate(node_kernel.TILE_CONFIGS):
+                y_k = node_kernel._launch(args, x, u, 0.02, cfg)
+                torch.testing.assert_close(y_k, y_p, rtol=KERNEL_RTOL,
+                                           atol=KERNEL_ATOL)
+                ms, _ = time_ms(lambda: node_kernel._launch(
+                    args, x, u, 0.02, cfg))
+                cells.append(f"{tiles} {ms:.4f}")
+        flops, nbytes = work(params, rows, 3, 2)
+        tc_ms, _ = bound(flops, nbytes)
+        f32_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
+        picked = node_kernel.TILE_CONFIGS[node_kernel.tile_config(rows)]
+        phase(f"sweep rows={rows}: device ms by (tile rows, warps): "
+              + "; ".join(cells) + f"; the wrapper picks {picked}; bound "
+              f"{tc_ms:.5f} ms (tensor cores), {f32_ms:.5f} ms (CUDA "
+              f"cores); on {card}")
 
 
 def to_device(ts, cfg, dev):
@@ -252,8 +358,9 @@ def main_path(dev, card):
         raise RuntimeError(f"{n_fits} NODE fits, {launches} kernel launches")
     phase(f"main path: {total} env steps, {updates} updates, {n_fits} NODE "
           f"fits of {cfg.node.max_batch} rows (last loss "
-          f"{fits[fits > 0][-1].item():.4g}), {launches} kernel launches, "
-          f"{seconds:.2f} s, {total / seconds:.2f} env-steps/s on {card}")
+          f"{fits[fits > 0][-1].item():.4g}), {launches} kernel launches "
+          f"({launches / total:.2f} per env step), {seconds:.2f} s, "
+          f"{total / seconds:.2f} env-steps/s on {card}")
     return cfg, ts, rl, node, launches
 
 
@@ -345,12 +452,14 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    lib = node_kernel.build()
+    lib = node_kernel.build(verbose=True)
     phase(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    tensor_core_check(lib)
 
     gen = torch.Generator(dev).manual_seed(SEED)
     max_err = check_kernel(dev, gen)
     times = time_kernel(dev, gen, card)
+    sweep(dev, gen, card)
     cfg, ts, rl, node, launches = main_path(dev, card)
     profile_steps(cfg, ts, rl, node, dev, card)
     update_on_card_vs_cpu(cfg, rl, node, dev)
@@ -365,6 +474,9 @@ def main() -> int:
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "library_ms": None, "rows": 32768,
         "call_ms": big["call_ms"], "plain_call_ms": big["plain_call_ms"],
+        "bound_tc_ms": big["bound_tc_ms"],
+        "bound_f32_ms": big["bound_f32_ms"],
+        "host_us_per_call": times[128]["host_us_per_call"],
         "at_128_rows": times[128]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

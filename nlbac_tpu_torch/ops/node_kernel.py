@@ -12,7 +12,9 @@ The library is built at first use with ``nvcc`` for ``sm_90a`` into
 ``nlbac_tpu_torch/_build/`` (named by the source's hash, so an edited
 source is rebuilt) and loaded with ctypes. ``node_euler_step`` launches it
 for CUDA tensors and raises on anything it does not take; the plain
-version runs only for tensors on the CPU.
+version runs only for tensors on the CPU. A parameter set is checked and
+packed for the C call once (``launch_args``); x and u are checked on
+every call.
 """
 
 from __future__ import annotations
@@ -32,6 +34,12 @@ _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "node_euler.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 MAX_LAYERS = 8  # kMaxLayers in the CUDA source
 MAX_WIDTH = 128  # kMaxWidth in the CUDA source
+# (rows, warps) of the kernel's two tile configurations, in the order of
+# the `config` index nlbac_node_euler_run takes.
+TILE_CONFIGS = ((16, 4), (64, 4))
+# Calls of at most this many rows take 16-row tiles, larger ones 64-row
+# tiles (from the sweep of chip_smoke.py phase 4).
+SMALL_TILE_MAX_ROWS = 2048
 
 # Kernel launches made through ``node_euler_step`` since the last reset.
 launch_counts = {"node_euler": 0}
@@ -87,17 +95,22 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def _bind(lib):
+    """Declare the C entry points' argument types on a loaded library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nlbac_node_euler_plan_bytes.argtypes = []
+    lib.nlbac_node_euler_plan.argtypes = [p, i, i, i, p, p, p, i, p, p, p]
+    lib.nlbac_node_euler_run.argtypes = [p, p, p, p, i, ctypes.c_float, i, p]
+    for fn in (lib.nlbac_node_euler_plan_bytes, lib.nlbac_node_euler_plan,
+               lib.nlbac_node_euler_run):
+        fn.restype = i
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.nlbac_node_euler
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, p, p, p, ctypes.c_int,
-                       p, p, p, p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(ctypes.CDLL(str(build())))
     return _lib
 
 
@@ -105,20 +118,31 @@ def _layers(net):
     return list(net["w"]), list(net["b"])
 
 
-def validate(params, x: torch.Tensor, u: torch.Tensor,
-             compute_dtype: Optional[str] = None) -> None:
-    """Raise unless the kernel takes these inputs: float32, contiguous, on
-    one device, f32 compute, (B, n_s) and (B, n_u) rows and the layer
-    widths within the compiled limits."""
+def _check_compute_dtype(compute_dtype: Optional[str]) -> None:
     if compute_dtype is not None:
         raise ValueError(
             f"the node_euler kernel computes in float32 only "
             f"(compute_dtype={compute_dtype!r})")
+
+
+def _check_rows(x: torch.Tensor, u: torch.Tensor) -> None:
     if x.dim() != 2 or u.dim() != 2 or x.shape[0] != u.shape[0]:
         raise ValueError(f"x must be (B, n_s) and u (B, n_u), got "
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
-    n_s, n_u = x.shape[1], u.shape[1]
-    tensors = [x, u]
+
+
+def _check_tensors(tensors, device) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise ValueError(f"node_euler takes float32 tensors, got {t.dtype}")
+        if t.device != device:
+            raise ValueError("node_euler inputs must share one device")
+        if not t.is_contiguous():
+            raise ValueError("node_euler inputs must be contiguous")
+
+
+def _validate_params(params, n_s: int, n_u: int, device) -> None:
+    tensors = []
     for name, out_dim in (("f", n_s), ("g", n_s * n_u)):
         ws, bs = _layers(params[name])
         if not 1 <= len(ws) <= MAX_LAYERS or len(bs) != len(ws):
@@ -139,34 +163,102 @@ def validate(params, x: torch.Tensor, u: torch.Tensor,
         tensors += ws + bs
     if n_s + n_u > MAX_WIDTH:
         raise ValueError(f"n_s + n_u = {n_s + n_u} exceeds {MAX_WIDTH}")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise ValueError(f"node_euler takes float32 tensors, got {t.dtype}")
-        if t.device != x.device:
-            raise ValueError("node_euler inputs must share one device")
-        if not t.is_contiguous():
-            raise ValueError("node_euler inputs must be contiguous")
+    _check_tensors(tensors, device)
 
 
-def _launch(params, x: torch.Tensor, u: torch.Tensor, dt: float
-            ) -> torch.Tensor:
-    """Run the CUDA kernel; inputs already validated."""
-    fn = _load().nlbac_node_euler
-    out = torch.empty_like(x)
+def validate(params, x: torch.Tensor, u: torch.Tensor,
+             compute_dtype: Optional[str] = None) -> None:
+    """Raise unless the kernel takes these inputs: float32, contiguous, on
+    one device, f32 compute, (B, n_s) and (B, n_u) rows and the layer
+    widths within the compiled limits."""
+    _check_compute_dtype(compute_dtype)
+    launch_args(params, x, u)
+
+
+class LaunchArgs:
+    """Validated parameters, ready for the kernel: the dimensions, the
+    device, the ctypes arguments of ``nlbac_node_euler_plan`` (layer
+    counts, weight and bias pointer arrays, layer widths) and, from the
+    first launch on, the plan it fills."""
+
+    def __init__(self, n_s: int, n_u: int, device: torch.device,
+                 c_args: tuple):
+        self.n_s, self.n_u, self.device, self.c_args = n_s, n_u, device, c_args
+        self._plan = None
+
+    def plan(self):
+        if self._plan is None:
+            lib = _load()
+            plan = ctypes.create_string_buffer(
+                lib.nlbac_node_euler_plan_bytes())
+            err = lib.nlbac_node_euler_plan(plan, self.n_s, self.n_u,
+                                            *self.c_args)
+            if err != 0:
+                raise ValueError(f"nlbac_node_euler_plan refused the "
+                                 f"parameters: cudaError_t {err}")
+            self._plan = plan
+        return self._plan
+
+
+# LaunchArgs by the parameters' (data_ptr, shape, stride, dtype, device):
+# Adam updates the parameters in place and leaves every part of the key as
+# it was, so the training loop builds and validates them once.
+_launch_args: dict = {}
+_LAUNCH_ARGS_KEPT = 16
+
+
+def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
+    """Check x and u, and return the parameters' LaunchArgs: from the
+    cache when the parameters are the tensors last validated, else
+    validated and built anew."""
+    _check_rows(x, u)
+    n_s, n_u = x.shape[1], u.shape[1]
     fw, fb = _layers(params["f"])
     gw, gb = _layers(params["g"])
+    key = (n_s, n_u, len(fw), len(gw)) + tuple(
+        (t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
+        for t in fw + fb + gw + gb)
+    args = _launch_args.get(key)
+    if args is None:
+        _validate_params(params, n_s, n_u, x.device)
 
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+        def ptrs(ts):
+            return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
-    def dims(ws):
-        d = [ws[0].shape[0]] + [w.shape[1] for w in ws]
-        return (ctypes.c_int * len(d))(*d)
+        def dims(ws):
+            d = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+            return (ctypes.c_int * len(d))(*d)
 
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), u.data_ptr(), out.data_ptr(), x.shape[0],
-             x.shape[1], u.shape[1], float(dt), len(fw), ptrs(fw), ptrs(fb),
-             dims(fw), len(gw), ptrs(gw), ptrs(gb), dims(gw), stream)
+        args = LaunchArgs(n_s, n_u, x.device, (
+            len(fw), ptrs(fw), ptrs(fb), dims(fw),
+            len(gw), ptrs(gw), ptrs(gb), dims(gw)))
+        if len(_launch_args) >= _LAUNCH_ARGS_KEPT:
+            _launch_args.clear()
+        _launch_args[key] = args
+    _check_tensors((x, u), args.device)
+    return args
+
+
+def tile_config(rows: int) -> int:
+    """Index into TILE_CONFIGS of the tiles a call of ``rows`` rows
+    takes."""
+    return 0 if rows <= SMALL_TILE_MAX_ROWS else 1
+
+
+def _launch(args: LaunchArgs, x: torch.Tensor, u: torch.Tensor, dt: float,
+            config: Optional[int] = None) -> torch.Tensor:
+    """Run the CUDA kernel on inputs that ``launch_args`` checked, with the
+    tiles of ``config`` (an index into TILE_CONFIGS; by default
+    ``tile_config``)."""
+    lib, plan = _load(), args.plan()
+    out = torch.empty_like(x)
+    rows = x.shape[0]
+    if config is None:
+        config = tile_config(rows)
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    err = lib.nlbac_node_euler_run(plan, x.data_ptr(), u.data_ptr(),
+                                   out.data_ptr(), rows, float(dt), config,
+                                   stream)
     if err != 0:
         raise RuntimeError(f"node_euler kernel launch failed: cudaError_t "
                            f"{err}")
@@ -212,7 +304,7 @@ class _NodeEulerFn(torch.autograd.Function):
         ctx.save_for_backward(x, u, *leaves)
         ctx.dt, ctx.treedef = dt, treedef
         if x.is_cuda:
-            return _launch(params, x, u, dt)
+            return _launch(launch_args(params, x, u), x, u, dt)
         with torch.no_grad():
             return node_euler_step_plain(params, x, u, dt)
 
@@ -262,6 +354,6 @@ def node_euler_step(params, x: torch.Tensor, u: torch.Tensor, dt: float,
     if x.device.type != "cuda":
         raise ValueError(f"node_euler_step runs on CUDA or the CPU, not "
                          f"{x.device}")
-    validate(params, x, u, compute_dtype)
+    _check_compute_dtype(compute_dtype)
     treedef, leaves = _flatten(params)
     return _NodeEulerFn.apply(x, u, dt, treedef, *leaves)

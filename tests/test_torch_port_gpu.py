@@ -6,8 +6,9 @@ JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_gpu.py
 
-Tolerance: rtol 1e-5 / atol 1e-5, float32 on both sides; the kernel and
-cuBLAS sum each layer's products in different orders.
+Tolerance: rtol 1e-5 / atol 1e-5, float32 on both sides; the kernel
+(three TF32 tensor-core passes a product) and cuBLAS sum each layer's
+products in different orders.
 """
 
 import dataclasses
@@ -30,16 +31,15 @@ def _require_gpu():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dims,rows", [((3, 2), 128), ((3, 2), 1000),
-                                       ((3, 2), 32768), ((6, 2), 128),
-                                       ((3, 2), 1)])
-def test_node_euler_kernel_matches_plain_version(dims, rows):
-    _require_gpu()
-    n_s, n_u = dims
+# the 16-row tile's edges, the main path's 128 and 32768, a ragged 1000,
+# and the switch from 16-row to 64-row tiles with a row either side
+ROWS = (1, 16, 17, 127, 128, 129, 1000, nk.SMALL_TILE_MAX_ROWS - 1,
+        nk.SMALL_TILE_MAX_ROWS, nk.SMALL_TILE_MAX_ROWS + 1, 32768)
+
+
+def _params(n_s, n_u, gen):
     cfg = dataclasses.replace(get_config("unicycle").node, state_dim=n_s,
                               action_dim=n_u)
-    gen = torch.Generator("cuda").manual_seed(rows)
     params = node_init(gen, cfg, device="cuda")
     for net in params.values():
         for b in net["b"]:
@@ -47,6 +47,17 @@ def test_node_euler_kernel_matches_plain_version(dims, rows):
             b.requires_grad_(True)
         for w in net["w"]:
             w.requires_grad_(True)
+    return params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(3, 2), (6, 2)])
+@pytest.mark.parametrize("rows", ROWS)
+def test_node_euler_kernel_matches_plain_version(dims, rows):
+    _require_gpu()
+    n_s, n_u = dims
+    gen = torch.Generator("cuda").manual_seed(rows)
+    params = _params(n_s, n_u, gen)
     x = torch.randn(rows, n_s, device="cuda", generator=gen)
     u = torch.randn(rows, n_u, device="cuda", generator=gen,
                     requires_grad=True)
@@ -61,6 +72,49 @@ def test_node_euler_kernel_matches_plain_version(dims, rows):
     g_p = torch.autograd.grad(y_p.square().sum(), inputs)
     for a, b in zip(g_k, g_p):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", range(len(nk.TILE_CONFIGS)))
+@pytest.mark.parametrize("rows", (17, 1000))
+def test_every_tile_config_matches_plain_version(config, rows):
+    _require_gpu()
+    gen = torch.Generator("cuda").manual_seed(config)
+    params = _params(3, 2, gen)
+    x = torch.randn(rows, 3, device="cuda", generator=gen)
+    u = torch.randn(rows, 2, device="cuda", generator=gen)
+    with torch.no_grad():
+        y_k = nk._launch(nk.launch_args(params, x, u), x, u, 0.02, config)
+        y_p = nk.node_euler_step_plain(params, x, u, 0.02)
+    torch.testing.assert_close(y_k, y_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_node_euler_kernel_replays_from_a_cuda_graph():
+    """The cluster launch survives stream capture: replayed on new inputs
+    copied into the captured buffers, the graph matches the plain
+    version."""
+    _require_gpu()
+    gen = torch.Generator("cuda").manual_seed(7)
+    params = _params(3, 2, gen)
+    x = torch.randn(128, 3, device="cuda", generator=gen)
+    u = torch.randn(128, 2, device="cuda", generator=gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        nk.node_euler_step(params, x, u, 0.02)  # build, load, warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        y = nk.node_euler_step(params, x, u, 0.02)
+    for _ in range(2):
+        x.copy_(torch.randn(128, 3, device="cuda", generator=gen))
+        u.copy_(torch.randn(128, 2, device="cuda", generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            y_p = nk.node_euler_step_plain(params, x, u, 0.02)
+        torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -4,10 +4,15 @@ On the CPU: the plain version against the JAX package's
 ``predict_next_state`` (control-affine field, one Euler step) and its
 ``jax.grad`` in params, x and u, at the unicycle (3, 2) and pvtol (6, 2)
 dimensions; the autograd.Function path's gradients against plain autograd;
-the wrapper's input checks. float32 on both sides: rtol 1e-5 / atol 1e-6
-covers the frameworks' different summation order.
+the wrapper's input checks and its cache of launch arguments. float32 on
+both sides: rtol 1e-5 / atol 1e-6 covers the frameworks' different
+summation order.
 
-The CUDA kernel itself is tested in test_torch_port_gpu.py.
+The kernel's arithmetic, three TF32 tensor-core passes per product
+(3xTF32), is emulated here at the unicycle widths and held against
+``predict_next_state`` at the kernel's tolerance (rtol/atol 1e-5, as on the
+card); one pass is shown to miss it. The CUDA kernel itself is tested in
+test_torch_port_gpu.py.
 """
 
 import jax
@@ -122,3 +127,111 @@ def test_validate_rejects_what_the_kernel_does_not_take():
         nk.validate(wide, xt, ut)
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         nk.node_euler_step(tp, xt.to("meta"), ut.to("meta"), DT)
+
+
+def test_launch_args_are_cached_per_parameter_set():
+    """One validation and one ctypes block per parameter set: reused while
+    the tensors stay (in-place updates, as Adam's, keep them), rebuilt when
+    one is swapped; x and u are still checked on every call."""
+    _, params, x, u = setup(3, 2, seed=4)
+    tp, xt, ut = to_torch(params), torch.tensor(x), torch.tensor(u)
+    first = nk.launch_args(tp, xt, ut)
+    assert nk.launch_args(tp, xt, ut) is first
+    with torch.no_grad():
+        tp["f"]["w"][1].add_(0.5)
+    assert nk.launch_args(tp, xt, ut) is first
+    f_ptrs = first.c_args[1]
+    assert [f_ptrs[i] for i in range(len(tp["f"]["w"]))] == \
+        [w.data_ptr() for w in tp["f"]["w"]]
+
+    tp["g"]["w"][2] = tp["g"]["w"][2].clone()
+    swapped = nk.launch_args(tp, xt, ut)
+    assert swapped is not first
+    assert swapped.c_args[5][2] == tp["g"]["w"][2].data_ptr()
+    assert nk.launch_args(tp, xt, ut) is swapped
+
+    with pytest.raises(ValueError, match="float32"):
+        nk.launch_args(tp, xt.double(), ut)
+    with pytest.raises(ValueError, match="contiguous"):
+        nk.launch_args(tp, torch.tensor(x.T.copy()).T, ut)
+    with pytest.raises(ValueError, match=r"\(B, n_s\)"):
+        nk.launch_args(tp, xt, ut[:-1])
+    with pytest.raises(ValueError, match="ends at"):
+        nk.launch_args(tp, xt, torch.zeros(x.shape[0], 3))
+    tp["f"]["w"][0] = torch.zeros(3, HID + 1)
+    with pytest.raises(ValueError, match="do not chain"):
+        nk.launch_args(tp, xt, ut)
+
+
+def _tf32(a):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest even."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    lsb = (bits >> np.uint32(13)) & np.uint32(1)
+    bits = (bits + np.uint32(0xFFF) + lsb) & np.uint32(0xFFFFE000)
+    return bits.view(np.float32)
+
+
+def _tf32_matmul(a, w, passes):
+    """a @ w from TF32 operands with float32 sums: one pass big*big, or
+    three, small*big + big*small + big*big, each operand split as
+    big = tf32(v), small = tf32(v - big). TF32 products are exact in
+    float32, so float32 matmuls of the parts emulate the tensor cores."""
+    a_big, w_big = _tf32(a), _tf32(w)
+    out = torch.tensor(a_big) @ torch.tensor(w_big)
+    if passes == 3:
+        a_small, w_small = _tf32(a - a_big), _tf32(w - w_big)
+        cor = torch.tensor(a_small) @ torch.tensor(w_big) + \
+            torch.tensor(a_big) @ torch.tensor(w_small)
+        out = cor + out
+    return out.numpy()
+
+
+def _euler_tf32(params, x, u, passes):
+    def mlp(net, h):
+        n = len(net["w"])
+        for i, (w, b) in enumerate(zip(net["w"], net["b"])):
+            h = _tf32_matmul(h, np.asarray(w), passes) + np.asarray(b)
+            if i < n - 1:
+                h = np.maximum(h, np.float32(0))
+        return h
+    n_s, n_u = x.shape[1], u.shape[1]
+    g = mlp(params["g"], x).reshape(-1, n_s, n_u)
+    dx = mlp(params["f"], x) + np.einsum("rij,rj->ri", g, u)
+    return x + np.float32(DT) * dx
+
+
+def _full_width(n_s, n_u, rows=4096, seed=5):
+    """The unicycle NODE at its full width 100 (f_net 5 layers, g_net 4),
+    Glorot-uniform weights and small biases from a numpy seed."""
+    cfg = JNodeConfig(form="control_affine", state_dim=n_s, action_dim=n_u,
+                      hidden_dim=100, f_hidden_layers=4, g_hidden_layers=3)
+    rng = np.random.default_rng(seed)
+
+    def net(sizes):
+        ws = [(rng.uniform(-1, 1, (i, o)) * np.sqrt(6 / (i + o)))
+              .astype(np.float32) for i, o in zip(sizes, sizes[1:])]
+        bs = [rng.uniform(-0.1, 0.1, o).astype(np.float32)
+              for o in sizes[1:]]
+        return {"w": ws, "b": bs}
+
+    params = {"f": net([n_s] + [100] * 4 + [n_s]),
+              "g": net([n_s] + [100] * 3 + [n_s * n_u])}
+    x = rng.normal(size=(rows, n_s)).astype(np.float32)
+    u = rng.uniform(-3.5, 3.5, (rows, n_u)).astype(np.float32)
+    y_j = np.asarray(predict_next_state(cfg, params, x, u, DT))
+    return params, x, u, y_j
+
+
+@pytest.mark.parametrize("dims", [(3, 2), (6, 2)])
+def test_three_tf32_passes_hold_float32_tolerance(dims):
+    params, x, u, y_j = _full_width(*dims)
+    y = _euler_tf32(params, x, u, passes=3)
+    np.testing.assert_allclose(y, y_j, rtol=1e-5, atol=1e-5)
+
+
+def test_one_tf32_pass_misses_float32_tolerance():
+    """Why the kernel takes three passes: one exceeds rtol/atol 1e-5."""
+    params, x, u, y_j = _full_width(3, 2)
+    y = _euler_tf32(params, x, u, passes=1)
+    excess = np.abs(y - y_j) / (1e-5 + 1e-5 * np.abs(y_j))
+    assert excess.max() > 1.0
