@@ -17,15 +17,25 @@ Phases, one line each (any failure raises and exits nonzero):
 4. time the kernel and the plain version (CUDA events, median of 30 runs,
    both replayed from a CUDA graph and issued from Python) beside the
    card's least time for the work (its bound, on the tensor cores and on
-   the CUDA cores); the host's time per call; a sweep of every tile
-   configuration over 128 to 32768 rows, each checked against the plain
-   version;
-5. the main path: train the unicycle preset at its full widths through the
-   port's ``run_episode`` (launch counts reset just before, read just
-   after); profile 10 more steps (device busy share, top device ops); then
-   hold one full-width update on the card against the same update on the
-   CPU;
-6. a JSON line of the kernel's numbers, then the result line.
+   the CUDA cores); the host's time per call; the kernel where PVTOL's
+   constraint chain calls it (3 chained calls at 256 rows and (6, 2),
+   gradients of u_t, x and the parameters, and its time); a sweep of every
+   tile configuration over 128 to 32768 rows, each checked against the
+   plain version;
+5. the main path: train the unicycle preset at its full widths through
+   the CLI (``nlbac_tpu_torch.train.cli.main``, into
+   ``chiprun_out/chip_smoke/``), then resume it from its checkpoint.npz
+   for one more episode (launch counts reset just before each run, read
+   just after); profile 10 more steps of the restored state (device busy
+   share, top device ops); then hold one full-width update on the card
+   against the same update on the CPU;
+6. cars and PVTOL at their full widths through the CLI, each with its
+   env-steps/s, and each followed by one full-width update on the card
+   against the CPU;
+7. a JSON line of the kernel's numbers, then the result line.
+
+The depth of each CLI run is cut (EPISODES, PRESET_RUNS below); the
+widths are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -38,6 +48,7 @@ import dataclasses
 import itertools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -52,7 +63,8 @@ from nlbac_tpu_torch.config import get_config
 from nlbac_tpu_torch.nn import node_init
 from nlbac_tpu_torch.ops import node_kernel
 from nlbac_tpu_torch.replay import sample
-from nlbac_tpu_torch.train import create_replays, make_episode_runner
+from nlbac_tpu_torch.train import cli, create_replays, make_episode_runner
+from nlbac_tpu_torch.train.checkpoint import restore_checkpoint
 from nlbac_tpu_torch.tree import tree_leaves, tree_map
 
 # H100 SXM data-sheet peaks (dense): TF32 on the tensor cores, float32
@@ -69,7 +81,15 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 # cuBLAS and the CPU's BLAS sum in different orders and the difference
 # passes through Adam's normalisation and the constraint's /dt.
 UPDATE_RTOL, UPDATE_ATOL = 1e-3, 1e-4
-EPISODES, EPISODE_STEPS = 5, 300
+# Depth of the CLI runs (the presets' widths are kept): unicycle 3
+# episodes of 300 steps (preset: 200 of 1200), resumed for a fourth; cars
+# 2 of 300 (preset: 200 of 300); PVTOL 1 of 600 (preset: 400 of 2000).
+EPISODES, EPISODE_STEPS = 3, 300
+PRESET_RUNS = {"cars": (2, 300), "pvtol": (1, 600)}
+# The resampled controls each constraint chain draws per loss.
+RESAMPLES = {"unicycle": 0, "cars": 1, "pvtol": 2}
+PVTOL_ROWS = 256
+OUT = Path("chiprun_out") / "chip_smoke"
 SEED = 0
 SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
 HOST_CALLS = 1000
@@ -216,6 +236,68 @@ def tensor_core_check(lib):
           + ", ".join(f"{n}" for n in per_kernel.values()) + " each)")
 
 
+def pvtol_chain(dev, gen, card):
+    """K1 where PVTOL's constraint chain calls it: three chained steps at
+    256 rows and (6, 2), gradients of u_t (through all three), of x (one
+    call) and of the parameters against the plain version's; then the
+    call's device time against the plain version's and the bound."""
+    params = node_params(6, 2, gen, dev)
+    x0 = torch.randn(PVTOL_ROWS, 6, device=dev, generator=gen)
+    u0 = torch.randn(PVTOL_ROWS, 2, device=dev, generator=gen,
+                     requires_grad=True)
+    resampled = [torch.randn(PVTOL_ROWS, 2, device=dev, generator=gen)
+                 for _ in range(2)]
+    cot = torch.randn(3, PVTOL_ROWS, 6, device=dev, generator=gen)
+
+    def chain(step):
+        ys, x, u = [], x0, u0
+        for k in range(3):
+            x = step(params, x, u, 0.02)
+            ys.append(x)
+            if k < 2:
+                u = resampled[k]
+        return torch.stack(ys)
+
+    y_k, y_p = chain(node_kernel.node_euler_step), chain(
+        node_kernel.node_euler_step_plain)
+    err = (y_k - y_p).abs().max().item()
+    torch.testing.assert_close(y_k, y_p, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    inputs = [u0] + tree_leaves(params)
+    grads = list(zip(torch.autograd.grad((y_k * cot).sum(), inputs),
+                     torch.autograd.grad((y_p * cot).sum(), inputs)))
+    x = x0.clone().requires_grad_(True)
+    grads += zip(*(torch.autograd.grad(
+        (step(params, x, u0, 0.02) * cot[0]).sum(), [x, u0])
+        for step in (node_kernel.node_euler_step,
+                     node_kernel.node_euler_step_plain)))
+    g_err = max((a - b).abs().max().item() for a, b in grads)
+    for a, b in grads:
+        torch.testing.assert_close(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+
+    with torch.no_grad():
+        ms, call_ms = time_ms(lambda: node_kernel.node_euler_step(
+            params, x0, resampled[0], 0.02))
+        plain_ms, plain_call_ms = time_ms(
+            lambda: node_kernel.node_euler_step_plain(params, x0,
+                                                      resampled[0], 0.02))
+    flops, nbytes = work(params, PVTOL_ROWS, 6, 2)
+    bound_ms, bound_by = bound(flops, nbytes)
+    bound_f32_ms, _ = bound(flops, nbytes, PEAK_F32_FLOPS)
+    phase(f"pvtol chain rows={PVTOL_ROWS} (n_s,n_u)=(6,2), 3 chained calls: "
+          f"forward max abs err {err:.3e}, gradient (u_t, x, parameters) "
+          f"max abs err {g_err:.3e} (tolerance rtol {KERNEL_RTOL} atol "
+          f"{KERNEL_ATOL}) ok; device kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; issued from Python kernel {call_ms:.4f} ms, "
+          f"plain {plain_call_ms:.4f} ms; bound {bound_ms:.5f} ms on the "
+          f"tensor cores ({bound_by}), {bound_f32_ms:.5f} ms on the CUDA "
+          f"cores; on {card}")
+    return {"rows": PVTOL_ROWS, "dims": [6, 2], "max_abs_err": err,
+            "grad_max_abs_err": g_err, "ms": ms, "plain_ms": plain_ms,
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_f32_ms": bound_f32_ms}
+
+
 def host_us(fn, calls=HOST_CALLS):
     """Host microseconds per call: a host clock around ``calls`` calls,
     with no synchronize inside."""
@@ -313,55 +395,102 @@ def to_device(ts, cfg, dev):
                     updates=ts.updates)
 
 
-def main_path(dev, card):
-    """Unicycle at the preset's full widths through run_episode."""
-    cfg = get_config("unicycle")
-    cfg = dataclasses.replace(cfg, env=dataclasses.replace(
-        cfg.env, max_episode_steps=EPISODE_STEPS))
-    gen = torch.Generator(dev).manual_seed(SEED)
-    ts = create_train_state(cfg, gen, dev)
-    rl, node = create_replays(cfg, dev)
-    base = make_agent(cfg, dev)
-    node_losses = []
+def progress_rows(run_dir):
+    """progress.txt as a list of {column: value} rows."""
+    header, *rows = (run_dir / "progress.txt").read_text().splitlines()
+    keys = header.split("\t")
+    return [dict(zip(keys, map(float, r.split("\t")))) for r in rows]
 
-    def update(*args, **kw):
-        ts_, m = base.update(*args, **kw)
-        node_losses.append(m["node_loss"])
-        return ts_, m
 
-    run = make_episode_runner(cfg, dev, agent=base._replace(update=update))
-    total = updates = 0
+def cli_run(preset, argv, card, label):
+    """Train ``preset`` at its full widths through the CLI's ``main`` (the
+    counts set to 0 just before, read just after) into a fresh directory
+    under OUT; print its episodes and its env-steps/s. Returns (run dir,
+    K1 launches, env steps, updates)."""
+    out = OUT / label
+    shutil.rmtree(out, ignore_errors=True)
     node_kernel.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for ep in range(EPISODES):
-        ts, rl, node, m, total = run(ts, rl, node, gen, ep, total)
-        train = {k: v.item() for k, v in m.train.items()}
-        bad = [k for k, v in train.items() if not math.isfinite(v)]
-        if bad or not math.isfinite(m.reward.item()):
-            raise RuntimeError(f"episode {ep}: non-finite metrics {bad}")
-        updates += m.updates_done
-        phase(f"episode {ep}: steps {m.steps} reward {m.reward.item():.3f} "
-              f"violations {m.num_violations.item():.0f} updates "
-              f"{m.updates_done} qf1 {train['qf1_loss']:.4g} policy "
-              f"{train['policy_loss']:.4g} constraint "
-              f"{train['constraint_loss']:.4g} alpha {train['alpha']:.4g}")
+    cli.main(["--preset", preset, "--quiet", "--seed", str(SEED),
+              "--output", str(out)] + argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = node_kernel.launch_counts["node_euler"]
-    fits = torch.stack(node_losses)
-    n_fits = int((fits > 0).sum())
-    if updates <= 0 or not bool(torch.isfinite(fits).all()):
-        raise RuntimeError(f"updates {updates}, NODE losses finite "
-                           f"{bool(torch.isfinite(fits).all())}")
-    if n_fits < 10 or launches <= 0:
-        raise RuntimeError(f"{n_fits} NODE fits, {launches} kernel launches")
-    phase(f"main path: {total} env steps, {updates} updates, {n_fits} NODE "
-          f"fits of {cfg.node.max_batch} rows (last loss "
-          f"{fits[fits > 0][-1].item():.4g}), {launches} kernel launches "
-          f"({launches / total:.2f} per env step), {seconds:.2f} s, "
-          f"{total / seconds:.2f} env-steps/s on {card}")
-    return cfg, ts, rl, node, launches
+    (run,) = out.glob("*-run*/*/*_s*")
+    rows = progress_rows(run)
+    for r in rows:
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"{label} episode {r['Episode']:.0f}: "
+                               f"non-finite {bad}")
+        phase(f"{label} episode {r['Episode']:.0f}: steps "
+              f"{r['episode_steps']:.0f} reward {r['reward_train']:.4g} "
+              f"violations {r['cost_train']:.0f} updates "
+              f"{r['updates']:.0f} qf1 {r['qf1_loss']:.4g} policy "
+              f"{r['policy_loss']:.4g} node {r['node_loss']:.4g} rho "
+              f"{r['rho']:.4g} alpha {r['alpha']:.4g}")
+    steps = int(sum(r["episode_steps"] for r in rows))
+    updates = int(rows[-1]["updates"])
+    for name in ("config.json", "checkpoint.npz", "actor.pkl",
+                 "critic.pkl", "lyapunov.pkl", "node_model.pkl"):
+        if not (run / name).is_file():
+            raise RuntimeError(f"{label}: the CLI wrote no {name}")
+    phase(f"{label} through nlbac-train-torch ({' '.join(argv)}): {steps} "
+          f"env steps, {updates} updates in total, {launches} K1 launches "
+          f"({launches / steps:.2f} per env step), {seconds:.2f} s for the "
+          f"whole main() call, {steps / seconds:.2f} env-steps/s on {card}")
+    return run, launches, steps, updates
+
+
+def restored(preset, argv, run, dev):
+    """The config of a CLI run and its final state, replays and generator,
+    restored on ``dev`` from the run's checkpoint.npz."""
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["--preset", preset, "--seed", str(SEED)] + argv))
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ts = create_train_state(cfg, gen, dev)
+    rl, node = create_replays(cfg, dev)
+    total, episode = restore_checkpoint(str(run / "checkpoint.npz"), ts, rl,
+                                        node, gen)
+    return cfg, ts, rl, node, total, episode
+
+
+def main_path(dev, card):
+    """Unicycle at the preset's full widths through the CLI, then resumed
+    from its checkpoint for one more episode."""
+    argv = ["--max_episodes", str(EPISODES), "--max_episode_steps",
+            str(EPISODE_STEPS)]
+    run, launches, steps, updates = cli_run("unicycle", argv, card,
+                                            "unicycle")
+    # each update launches K1 twice at 128 rows (primary and backup
+    # rollouts) and once more at 32768 rows on every 10th (the NODE fit)
+    fits = launches - 2 * updates
+    if updates <= 0 or fits != (updates + 9) // 10 or fits < 10:
+        raise RuntimeError(f"{updates} updates and {launches} launches: "
+                           f"{fits} NODE fits, expected "
+                           f"{(updates + 9) // 10}")
+    phase(f"main path: {updates} updates, {fits} NODE fits of 32768 rows, "
+          f"{launches} K1 launches")
+
+    resume_argv = ["--max_episodes", str(EPISODES + 1),
+                   "--max_episode_steps", str(EPISODE_STEPS), "--resume",
+                   str(run / "checkpoint.npz")]
+    run2, launches2, steps2, _ = cli_run("unicycle", resume_argv, card,
+                                         "unicycle_resumed")
+    rows = progress_rows(run2)
+    _, ts, _, _, total, episode = restored("unicycle", resume_argv, run2, dev)
+    if ([r["Episode"] for r in rows] != [EPISODES] or episode != EPISODES
+            or total != steps + steps2 or launches2 <= 0):
+        raise RuntimeError(f"resume: episodes {[r['Episode'] for r in rows]}"
+                           f", checkpoint at episode {episode} after "
+                           f"{total} steps, {launches2} launches")
+    phase(f"resume: episode {EPISODES} continued from episode "
+          f"{EPISODES - 1}'s checkpoint, {total} env steps and {ts.updates} "
+          f"updates in all")
+    cfg, ts, rl, node, _, _ = restored("unicycle", argv, run, dev)
+    return cfg, ts, rl, node, launches, {"unicycle": launches,
+                                         "unicycle_resumed": launches2}
 
 
 def profile_steps(cfg, ts, rl, node, dev, card, steps=10):
@@ -415,6 +544,11 @@ def update_on_card_vs_cpu(cfg, rl, node, dev):
     noise = {k: torch.randn(cfg.sac.batch_size, cfg.action_dim,
                             generator=gen_cpu)
              for k in ("next", "pi", "backup")}
+    n_resample = RESAMPLES[cfg.constraint.kind]
+    if n_resample:
+        noise.update({k: torch.randn(n_resample, cfg.sac.batch_size,
+                                     cfg.action_dim, generator=gen_cpu)
+                      for k in ("resample", "backup_resample")})
 
     def run(ts, device):
         agent = make_agent(cfg, device)
@@ -430,9 +564,10 @@ def update_on_card_vs_cpu(cfg, rl, node, dev):
         err = abs(m_dev[k] - m_cpu[k])
         worst = max(worst, err / (UPDATE_ATOL + UPDATE_RTOL * abs(m_cpu[k])))
         if err > UPDATE_ATOL + UPDATE_RTOL * abs(m_cpu[k]):
-            raise RuntimeError(f"update metric {k}: card {m_dev[k]} vs CPU "
-                               f"{m_cpu[k]}")
-    phase(f"full-width update, card vs CPU: 11 metrics within rtol "
+            raise RuntimeError(f"{cfg.env.name} update metric {k}: card "
+                               f"{m_dev[k]} vs CPU {m_cpu[k]}")
+    phase(f"{cfg.env.name} full-width update, card vs CPU: 11 metrics "
+          f"within rtol "
           f"{UPDATE_RTOL} atol {UPDATE_ATOL} (worst at {worst:.3f} of the "
           f"tolerance; node_loss {m_dev['node_loss']:.6g} vs "
           f"{m_cpu['node_loss']:.6g}) ok")
@@ -459,10 +594,21 @@ def main() -> int:
     gen = torch.Generator(dev).manual_seed(SEED)
     max_err = check_kernel(dev, gen)
     times = time_kernel(dev, gen, card)
+    chain = pvtol_chain(dev, gen, card)
     sweep(dev, gen, card)
-    cfg, ts, rl, node, launches = main_path(dev, card)
+    cfg, ts, rl, node, launches, by_path = main_path(dev, card)
     profile_steps(cfg, ts, rl, node, dev, card)
     update_on_card_vs_cpu(cfg, rl, node, dev)
+    for preset, (episodes, steps) in PRESET_RUNS.items():
+        argv = ["--max_episodes", str(episodes), "--max_episode_steps",
+                str(steps)]
+        run, by_path[preset], _, _ = cli_run(preset, argv, card, preset)
+        # cars' NODE is the mlp field, which has no kernel; PVTOL's is
+        # control-affine and runs K1 in its fit and its chain
+        if (by_path[preset] > 0) != (preset == "pvtol"):
+            raise RuntimeError(f"{preset}: {by_path[preset]} K1 launches")
+        p_cfg, _, p_rl, p_node, _, _ = restored(preset, argv, run, dev)
+        update_on_card_vs_cpu(p_cfg, p_rl, p_node, dev)
 
     big = times[32768]
     print(json.dumps({"kernels": [{
@@ -477,7 +623,8 @@ def main() -> int:
         "bound_tc_ms": big["bound_tc_ms"],
         "bound_f32_ms": big["bound_f32_ms"],
         "host_us_per_call": times[128]["host_us_per_call"],
-        "at_128_rows": times[128]}]}), flush=True)
+        "at_128_rows": times[128], "pvtol_chain": chain,
+        "launches_by_path": by_path}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -100,7 +100,10 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
                               device=device)
     action_high = torch.tensor(env.SPEC.action_high, dtype=torch.float32,
                                device=device)
-    obs_to_node_state = env.obs_to_state
+    # obs -> NODE-state adapter: PVTOL's NODE sees the 6-d dynamics
+    # state, without the operator
+    obs_to_node_state = (env.obs_to_dynamics_state
+                         if cfg.env.name == "pvtol" else env.obs_to_state)
 
     def zero():
         return torch.zeros((), dtype=torch.float32, device=device)
@@ -151,8 +154,10 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update over ``batch``. ``noise`` may hold the
         standard-normal draws for the samples ("next" for the TD target,
-        "pi" for the policy loss, "backup" for the backup loss); the
-        rest are drawn from ``gen``."""
+        "pi" for the policy loss, "backup" for the backup loss, and
+        "resample"/"backup_resample" for the constraint chain's resampled
+        controls, one (B, action_dim) draw per resampling step, in the
+        primary and backup loss); the rest are drawn from ``gen``."""
         noise = noise or {}
         obs, action = batch["obs"], batch["action"]
         if obs.shape[0] != scfg.batch_size:
@@ -214,13 +219,27 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
             do_lam = do_lam and lag_live
         term_kwargs = dict(ccfg=ccfg, ncfg=ncfg, node_params=pg_node,
                            field=field, lyap_params=pg_lyap,
-                           lyap_t=batch["lyap_t"], dt=dt, gen=gen)
+                           lyap_t=batch["lyap_t"], dt=dt, gen=gen,
+                           t=batch["t"][:, None],
+                           next_t=batch["next_t"][:, None])
+
+        def make_resampler(policy, draws):
+            """The chain's k-th resampled control, from the policy being
+            optimized; it carries no gradient."""
+            def resample(obs_k, k):
+                with torch.no_grad():
+                    a, _, _ = sample_fn(policy, obs_k, gen,
+                                        None if draws is None else draws[k])
+                return a
+            return resample
 
         pi, logp, _ = sample_fn(ts.policy, obs, gen, noise.get("pi"))
         pq1, pq2 = twin_q_apply(pg_critic, obs, pi)
         policy_loss_1 = torch.mean(alpha * logp - torch.minimum(pq1, pq2))
-        terms = builder.terms(obs=obs, action=pi, include_clf=True,
-                              **term_kwargs)
+        terms = builder.terms(
+            obs=obs, action=pi, include_clf=True,
+            resample=make_resampler(ts.policy, noise.get("resample")),
+            **term_kwargs)
         policy_loss_2, lam_new, rho1 = lag_primary_loss(
             ccfg, terms, ts.lag.lam, ts.lag.rho, do_lam, scfg.batch_size,
             do_rho_growth=lag_live)
@@ -246,8 +265,11 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
                 bq1, bq2 = twin_q_apply(pg_critic, obs, bpi)
                 bloss1 = torch.mean(backup_alpha * blogp
                                     - torch.minimum(bq1, bq2))
-                bterms = builder.terms(obs=obs, action=bpi,
-                                       include_clf=False, **term_kwargs)
+                bterms = builder.terms(
+                    obs=obs, action=bpi, include_clf=False,
+                    resample=make_resampler(ts.backup_policy,
+                                            noise.get("backup_resample")),
+                    **term_kwargs)
                 bloss2, backup_lam, backup_rho_out = lag_backup_loss(
                     ccfg, bterms, backup_lam, backup_rho_out, do_lam,
                     scfg.batch_size, do_rho_growth=lag_live)

@@ -1,4 +1,4 @@
-from nlbac_tpu_torch.constraints import unicycle
+from nlbac_tpu_torch.constraints import cars, pvtol, unicycle
 from nlbac_tpu_torch.constraints.common import (  # noqa: F401
     LagrangianState,
     ascend_multipliers,
@@ -9,12 +9,13 @@ from nlbac_tpu_torch.constraints.common import (  # noqa: F401
     primary_loss,
 )
 
-_BUILDERS = {"unicycle": unicycle}
+_BUILDERS = {"unicycle": unicycle, "cars": cars, "pvtol": pvtol}
 
 
 def get_builder(kind: str):
     """kind -> constraint-builder module (terms, NUM_PRIMARY, NUM_BACKUP).
-    Only the unicycle builder is ported so far."""
+    The unicycle, cars and pvtol builders are ported; the learned
+    barrier is not yet (ROADMAP.md)."""
     if kind not in _BUILDERS:
         raise ValueError(f"constraint kind {kind!r} is not ported; ported "
                          f"kinds: {list(_BUILDERS)}")

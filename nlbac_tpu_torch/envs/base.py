@@ -3,10 +3,12 @@
 Each env module exposes::
 
     SPEC: EnvSpec
-    reset(device, max_episode_steps=...) -> (EnvState, obs)
+    reset(device, gen=None, max_episode_steps=...) -> (EnvState, obs)
+    obs_to_state(obs) / state_to_obs(state)  # NODE-space adapters
     step(state, action, ...) -> (EnvState, StepOut)
 
-with tensors on the env's device.
+with tensors on the env's device; ``gen`` feeds a reset that draws
+(cars).
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ read.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,9 +73,11 @@ def get_obs(x):
                       torch.exp(-dist)[None]])
 
 
-def reset(device, max_episode_steps: int = SPEC.max_episode_steps
+def reset(device, gen: Optional[torch.Generator] = None,
+          max_episode_steps: int = SPEC.max_episode_steps
           ) -> Tuple[UnicycleState, torch.Tensor]:
-    """The deterministic start state (no draws)."""
+    """The deterministic start state (``gen`` is not drawn from)."""
+    del gen
     k = constants(torch.device(device))
     st = UnicycleState(
         x=k["init_state"].clone(), step=0,

@@ -6,7 +6,9 @@ numpy arrays (``jax.tree.map(np.asarray, ts)``) and returns the port's
 the Lagrangian state and the update counter. ``to_reference`` goes back,
 filling a template of that pytree so that the result has the reference's
 structure leaf for leaf. Neither imports JAX: the template's own
-NamedTuple types rebuild the optimizer states.
+NamedTuple types rebuild the optimizer states. ``to_numpy`` turns one
+parameter tree into the reference's numpy leaves (the weights-only
+files).
 """
 
 from __future__ import annotations
@@ -41,6 +43,16 @@ def _to_tree(tree, device, requires_grad=False):
     if isinstance(tree, (list, tuple)):
         return [_to_tree(v, device, requires_grad) for v in tree]
     return _tensor(tree, device, requires_grad)
+
+
+def to_numpy(tree):
+    """Tensor tree -> the same structure of float32 numpy arrays (the
+    leaves of a reference pytree, ``(in, out)`` weights and all)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy().astype(np.float32)
 
 
 def _like(template, tree):

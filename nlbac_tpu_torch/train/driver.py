@@ -78,7 +78,8 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
 
     def run_episode(ts: TrainState, rl_replay, node_replay, gen,
                     i_episode: int, total_steps: int):
-        env_state, obs = env.reset(device, max_episode_steps=max_steps)
+        env_state, obs = env.reset(device, gen=gen,
+                                   max_episode_steps=max_steps)
         start_backup = i_episode >= cfg.supervisor.enable_after_episodes
         sup = init_supervisor(cfg.supervisor, device)
         zero = torch.zeros((), device=device)

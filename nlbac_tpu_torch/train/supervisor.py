@@ -1,14 +1,22 @@
-"""Backup-controller supervisor (port of ``nlbac_tpu/train/supervisor.py``,
-the ``trap`` machine and ``none``).
+"""Backup-controller supervisor (port of ``nlbac_tpu/train/supervisor.py``).
 
-``trap``: if the displacement over the last ``window`` positions stays
-<= ``trap_threshold`` for ``trap_count`` consecutive checks, switch to the
-backup controller; switch back after ``backup_max_steps`` backup steps or
-once displaced >= ``escape_distance_sq`` from the switch anchor.
+- ``trap``: if the displacement over the last ``window`` positions stays
+  <= ``trap_threshold`` for ``trap_count`` consecutive checks, switch to
+  the backup controller; switch back after ``backup_max_steps`` backup
+  steps or once displaced >= ``escape_distance_sq`` from the switch
+  anchor.
+- ``cars_gap``: switch when the car-4/5 gap (next obs) < ``cars_gap``
+  while the desired region is reached; back after
+  ``cars_backup_max_steps`` steps, or after >= ``cars_min_backup_steps``
+  once both gaps clear ``cars_gap``.
+- ``pvtol``: the trap machine on the position, plus an operator-rush
+  machine (moving toward the goal while beyond the operator distance)
+  with its own flag and timer.
+- ``none``: never switches.
 
-The flags and timers are device tensors, so the machine adds no device
+The flags and timers are device tensors, so a machine adds no device
 read to the step; the ring's write slot and the step count are host
-integers. The ``cars_gap`` and ``pvtol`` machines are not ported yet.
+integers.
 """
 
 from __future__ import annotations
@@ -20,14 +28,14 @@ import torch
 from nlbac_tpu_torch.config import SupervisorConfig
 from nlbac_tpu_torch.envs.base import StepOut
 
-PORTED_KINDS = ("trap", "none")
+KINDS = ("trap", "cars_gap", "pvtol", "none")
 
 
 class SupervisorState(NamedTuple):
     positions: torch.Tensor  # (window, 2) ring of recent positions
     ptr: int  # next write slot
     use_backup: torch.Tensor  # bool
-    use_backup_y: torch.Tensor  # bool (pvtol rush machine; stays False)
+    use_backup_y: torch.Tensor  # bool (pvtol rush machine)
     backup_time: torch.Tensor  # i32
     backup_y_time: torch.Tensor  # i32
     violation_time: torch.Tensor  # i32
@@ -36,9 +44,9 @@ class SupervisorState(NamedTuple):
 
 
 def init_supervisor(cfg: SupervisorConfig, device) -> SupervisorState:
-    if cfg.kind not in PORTED_KINDS:
-        raise NotImplementedError(f"supervisor kind {cfg.kind!r} is not "
-                                  f"ported; ported: {PORTED_KINDS}")
+    if cfg.kind not in KINDS:
+        raise ValueError(f"unknown supervisor kind {cfg.kind!r}; options: "
+                         f"{KINDS}")
     i32 = dict(dtype=torch.int32, device=device)
     false = torch.zeros((), dtype=torch.bool, device=device)
     return SupervisorState(
@@ -101,14 +109,72 @@ def _trap_machine(cfg: SupervisorConfig, sup: SupervisorState, pos2,
                         anchor=anchor)
 
 
+def _cars_machine(cfg: SupervisorConfig, sup: SupervisorState,
+                  out: StepOut, start: bool) -> SupervisorState:
+    obs = out.obs
+    gap34 = obs[4] * 100.0 - obs[6] * 100.0
+    gap45 = obs[6] * 100.0 - obs[8] * 100.0
+
+    trigger = (gap45 < cfg.cars_gap) & (out.reached != 0)
+    fire = (~sup.use_backup) & trigger & start
+    use_backup = sup.use_backup | fire
+
+    in_backup = use_backup & start
+    timeout = sup.backup_time >= cfg.cars_backup_max_steps
+    cleared = (sup.backup_time >= cfg.cars_min_backup_steps) & \
+        (gap34 > cfg.cars_gap) & (gap45 > cfg.cars_gap)
+    stop = in_backup & (timeout | cleared)
+    use_backup = use_backup & ~stop
+    backup_time = torch.where(stop, 0, sup.backup_time)
+    return sup._replace(use_backup=use_backup,
+                        backup_time=backup_time.to(torch.int32))
+
+
+def _pvtol_rush_machine(cfg: SupervisorConfig, sup: SupervisorState,
+                        obs_prev, obs, episode_steps: int,
+                        start: bool) -> SupervisorState:
+    """Operator-rush trigger: rushing toward the goal while beyond the
+    operator distance."""
+    checking = episode_steps >= cfg.min_steps
+    x, x_prev, op = obs[0], obs_prev[0], obs[7]
+    od = cfg.operator_dist
+    rushing = (((x <= 4.5) & (x - x_prev > 0) & (x - op > od))
+               | ((x > 4.5) & (x - x_prev < 0) & (op - x > od)))
+
+    can_check = (~sup.use_backup_y) & (checking and start)
+    vt = torch.where(can_check & rushing, sup.violation_y_time + 1,
+                     sup.violation_y_time)
+    fire = can_check & (vt >= 1)
+    vt = torch.where(fire, 0, vt)
+    vt = torch.where(can_check & ~rushing, 0, vt)
+    use_y = sup.use_backup_y | fire
+
+    in_backup = use_y & (checking and start)
+    timeout = sup.backup_y_time >= cfg.rush_backup_max_steps
+    safe_again = (((x <= 4.5) & (x - op <= 0.9 * od))
+                  | ((x > 4.5) & (op - x <= 0.9 * od)))
+    stop = in_backup & (timeout | safe_again)
+    use_y = use_y & ~stop
+    backup_y_time = torch.where(stop, 0, sup.backup_y_time)
+    return sup._replace(use_backup_y=use_y,
+                        violation_y_time=vt.to(torch.int32),
+                        backup_y_time=backup_y_time.to(torch.int32))
+
+
 def post_step(cfg: SupervisorConfig, sup: SupervisorState, obs_prev,
               out: StepOut, episode_steps: int, start: bool
               ) -> SupervisorState:
     """Advance the trigger machine after an env step; ``episode_steps`` is
-    the post-increment step count."""
-    del obs_prev  # read only by the pvtol rush machine
+    the post-increment step count and ``obs_prev`` the observation before
+    the step (the pvtol rush machine reads the direction of motion)."""
     if cfg.kind == "none":
         return sup
     if cfg.kind == "trap":
         return _trap_machine(cfg, sup, out.lyap_t1, episode_steps, start)
-    raise NotImplementedError(f"supervisor kind {cfg.kind!r} is not ported")
+    if cfg.kind == "cars_gap":
+        return _cars_machine(cfg, sup, out, start)
+    if cfg.kind == "pvtol":
+        sup = _trap_machine(cfg, sup, out.obs[:2], episode_steps, start)
+        return _pvtol_rush_machine(cfg, sup, obs_prev, out.obs,
+                                   episode_steps, start)
+    raise ValueError(f"unknown supervisor kind {cfg.kind!r}")

@@ -1,0 +1,191 @@
+"""The port's training CLI (``nlbac_tpu_torch.train.cli``) on the CPU:
+for each of unicycle, cars and PVTOL it writes ``progress.txt`` with the
+JAX CLI's header, the same ``config.json``, the four reference-layout
+weight files (which the JAX package's ``load_model_weights`` reads, with
+the port's deterministic action at rtol 1e-5) and ``checkpoint.npz``;
+``--resume`` continues bit for bit; flags whose feature is not ported
+fail loudly, before any run directory is made.
+"""
+
+import glob
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nlbac_tpu.agent import create_train_state as j_create_train_state
+from nlbac_tpu.agent.state import action_spec
+from nlbac_tpu.nn import gaussian_policy_sample as j_policy_sample
+from nlbac_tpu.train import cli as jcli
+from nlbac_tpu.train.checkpoint import load_model_weights as j_load_weights
+from nlbac_tpu_torch.agent import create_train_state
+from nlbac_tpu_torch.envs import get_env
+from nlbac_tpu_torch.nn import ActionSpec, gaussian_policy_sample
+from nlbac_tpu_torch.train import cli
+from nlbac_tpu_torch.train.checkpoint import restore_checkpoint
+from nlbac_tpu_torch.train.driver import create_replays
+
+PRESETS = ("unicycle", "cars", "pvtol")
+WEIGHTS = ("actor.pkl", "critic.pkl", "lyapunov.pkl", "node_model.pkl")
+
+
+def tiny_args(preset, out, *extra):
+    return ["--preset", preset, "--cpu", "--quiet", "--output", str(out),
+            "--max_episodes", "1", "--max_episode_steps", "12",
+            "--batch_size", "4", "--start_steps", "4", "--hidden_size",
+            "16", "--replay_size", "100", "--NODE_model_update_interval",
+            "5", *extra]
+
+
+def run_dir(out):
+    (found,) = glob.glob(os.path.join(str(out), "*-run*", "*", "*_s*"))
+    return found
+
+
+def read_lines(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+@pytest.fixture(scope="module")
+def port_runs(tmp_path_factory):
+    """One tiny CLI run of the port per preset: preset -> its --output."""
+    root = tmp_path_factory.mktemp("port")
+    for preset in PRESETS:
+        cli.main(tiny_args(preset, root / preset))
+    return {preset: root / preset for preset in PRESETS}
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_cli_writes_the_jax_clis_files(port_runs, preset, tmp_path):
+    run = run_dir(port_runs[preset])
+    for name in ("progress.txt", "config.json", "checkpoint.npz") + WEIGHTS:
+        assert os.path.isfile(os.path.join(run, name)), name
+    jcli.main(tiny_args(preset, tmp_path))
+    jrun = run_dir(tmp_path)
+    assert os.path.relpath(jrun, tmp_path) == \
+        os.path.relpath(run, port_runs[preset])
+    header, *rows = read_lines(os.path.join(run, "progress.txt"))
+    assert header == read_lines(os.path.join(jrun, "progress.txt"))[0]
+    assert len(rows) == 1
+    values = dict(zip(header.split("\t"), map(float, rows[0].split("\t"))))
+    assert values["episode_steps"] == 12 and values["updates"] > 0
+    assert all(np.isfinite(v) for v in values.values())
+    with open(os.path.join(run, "config.json")) as f, \
+            open(os.path.join(jrun, "config.json")) as g:
+        port_cfg, jax_cfg = json.load(f), json.load(g)
+    # the same config but for the --output each run was given
+    assert port_cfg["run"].pop("output") == str(port_runs[preset])
+    assert jax_cfg["run"].pop("output") == str(tmp_path)
+    assert port_cfg == jax_cfg
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_jax_reads_the_ports_weight_files(port_runs, preset):
+    """JAX's load_model_weights reads the port's files into a TrainState
+    whose deterministic action equals the port's final policy's (restored
+    from the checkpoint, not from the files)."""
+    run = run_dir(port_runs[preset])
+    args = jcli.build_parser().parse_args(tiny_args(preset, "unused"))
+    cfg_j = jcli.config_from_args(args)
+    template = j_create_train_state(cfg_j, jax.random.PRNGKey(1))
+    ts_j = j_load_weights(run, template)
+    for field in ("policy", "critic", "lyap", "node"):
+        assert jax.tree.structure(getattr(ts_j, field)) == \
+            jax.tree.structure(getattr(template, field)), field
+        for a, b in zip(jax.tree.leaves(getattr(ts_j, field)),
+                        jax.tree.leaves(getattr(template, field))):
+            assert np.shape(a) == np.shape(b), field
+
+    cfg_t = cli.config_from_args(cli.build_parser().parse_args(
+        tiny_args(preset, "unused")))
+    gen = torch.Generator().manual_seed(0)
+    ts_t = create_train_state(cfg_t, gen, "cpu")
+    rl, node = create_replays(cfg_t, "cpu")
+    restore_checkpoint(os.path.join(run, "checkpoint.npz"), ts_t, rl, node,
+                       gen)
+
+    obs = np.random.default_rng(0).normal(
+        size=(8, cfg_j.obs_dim)).astype(np.float32)
+    _, _, det_j = j_policy_sample(ts_j.policy, jnp.asarray(obs),
+                                  jax.random.PRNGKey(0), action_spec(cfg_j))
+    spec = get_env(cfg_t.env.name).SPEC
+    _, _, det_t = gaussian_policy_sample(
+        ts_t.policy, torch.tensor(obs),
+        ActionSpec.from_bounds(spec.action_low, spec.action_high),
+        noise=torch.zeros(8, cfg_t.action_dim))
+    np.testing.assert_allclose(np.asarray(det_j), det_t.detach().numpy(),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("preset", ["unicycle", "cars"])
+def test_resume_is_bit_exact(preset, tmp_path):
+    """Two episodes straight == one episode, then --resume for one more:
+    the same progress.txt rows and the same final checkpoint, array for
+    array (parameters, Adam states, multipliers, replays, generator,
+    counters)."""
+    common = ["--preset", preset, "--cpu", "--quiet",
+              "--max_episode_steps", "12", "--batch_size", "4",
+              "--start_steps", "4", "--hidden_size", "16",
+              "--NODE_model_update_interval", "5"]
+    cli.main(common + ["--output", str(tmp_path / "a"), "--max_episodes",
+                       "2"])
+    cli.main(common + ["--output", str(tmp_path / "b"), "--max_episodes",
+                       "1"])
+    first = run_dir(tmp_path / "b")
+    cli.main(common + ["--output", str(tmp_path / "c"), "--max_episodes",
+                       "2", "--resume",
+                       os.path.join(first, "checkpoint.npz")])
+    straight, resumed = run_dir(tmp_path / "a"), run_dir(tmp_path / "c")
+
+    rows = read_lines(os.path.join(straight, "progress.txt"))
+    assert rows[:2] == read_lines(os.path.join(first, "progress.txt"))
+    assert [rows[0], rows[2]] == \
+        read_lines(os.path.join(resumed, "progress.txt"))
+    with np.load(os.path.join(straight, "checkpoint.npz")) as a, \
+            np.load(os.path.join(resumed, "checkpoint.npz")) as c:
+        assert sorted(a.files) == sorted(c.files)
+        for name in a.files:
+            np.testing.assert_array_equal(a[name], c[name], err_msg=name)
+        assert list(a["counters"][1:]) == [24, 1]  # total steps, episode
+
+
+def test_restore_checks_the_checkpoint_against_the_config(port_runs):
+    ckpt = os.path.join(run_dir(port_runs["unicycle"]), "checkpoint.npz")
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        tiny_args("unicycle", "unused", "--hidden_size", "8")))
+    gen = torch.Generator().manual_seed(0)
+    ts = create_train_state(cfg, gen, "cpu")
+    rl, node = create_replays(cfg, "cpu")
+    with pytest.raises(ValueError, match="shape"):
+        restore_checkpoint(ckpt, ts, rl, node, gen)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--n_seeds", "2"], ["--dp", "2"], ["--tp", "2"], ["--host_loop"],
+    ["--num_processes", "2", "--coordinator", "localhost:1234",
+     "--process_id", "0"],
+    ["--mode", "eval"], ["--wandb"], ["--tensorboard"],
+    ["--profile_dir", "trace"], ["--node_solver", "dopri5"],
+    ["--preset", "quadrotor"], ["--preset", "nbc_unicycle"],
+    ["--preset", "nbc_pvtol"], ["--pretanh_reg", "0.1"],
+    ["--probe_pretanh_reg", "0.1"], ["--kill_penalty", "10"],
+])
+def test_unported_flags_fail_before_any_run_dir(extra, tmp_path):
+    out = tmp_path / "out"
+    with pytest.raises(SystemExit, match="ROADMAP.md"):
+        cli.main(tiny_args("unicycle", out, *extra))
+    assert not out.exists()
+
+
+def test_cli_needs_a_gpu_unless_told_cpu(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = [a for a in tiny_args("unicycle", tmp_path / "out")
+            if a != "--cpu"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(args)
+    assert not (tmp_path / "out").exists()

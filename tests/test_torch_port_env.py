@@ -209,6 +209,6 @@ def test_none_supervisor_never_engages():
     st = tsup.init_supervisor(TSC(kind="none"), "cpu")
     active, st2 = tsup.pre_action(TSC(kind="none"), st, True)
     assert not bool(active) and st2 is st
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tsup.init_supervisor(dataclasses.replace(TSC(), kind="cars_gap"),
+    with pytest.raises(ValueError, match="unknown supervisor kind"):
+        tsup.init_supervisor(dataclasses.replace(TSC(), kind="rush"),
                              "cpu")

@@ -131,3 +131,78 @@ def test_node_euler_kernel_rejects_bfloat16_and_counts_nothing():
     with pytest.raises(ValueError, match="contiguous"):
         nk.node_euler_step(params, x.t().contiguous().t(), u, 0.02)
     assert nk.launch_counts["node_euler"] == before
+
+
+@pytest.mark.gpu
+def test_node_euler_kernel_on_the_pvtol_chain():
+    """PVTOL's constraint chain at its batch (256 rows, (6, 2)): three
+    chained calls, the second and third differentiated with respect to x
+    as well; gradients of u_t, of x on a single call, and of the
+    parameters against the plain version's."""
+    _require_gpu()
+    gen = torch.Generator("cuda").manual_seed(256)
+    params = _params(6, 2, gen)
+    x0 = torch.randn(256, 6, device="cuda", generator=gen)
+    u0 = torch.randn(256, 2, device="cuda", generator=gen,
+                     requires_grad=True)
+    resampled = [torch.randn(256, 2, device="cuda", generator=gen)
+                 for _ in range(2)]
+    cot = torch.randn(3, 256, 6, device="cuda", generator=gen)
+
+    def chain(step):
+        ys, x, u = [], x0, u0
+        for k in range(3):
+            x = step(params, x, u, 0.02)
+            ys.append(x)
+            if k < 2:
+                u = resampled[k]
+        return torch.stack(ys)
+
+    before = nk.launch_counts["node_euler"]
+    y_k = chain(nk.node_euler_step)
+    torch.cuda.synchronize()
+    assert nk.launch_counts["node_euler"] == before + 3
+    y_p = chain(nk.node_euler_step_plain)
+    torch.testing.assert_close(y_k, y_p, rtol=1e-5, atol=1e-5)
+    inputs = [u0] + tree_leaves(params)
+    g_k = torch.autograd.grad((y_k * cot).sum(), inputs)
+    g_p = torch.autograd.grad((y_p * cot).sum(), inputs)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+    x = x0.clone().requires_grad_(True)
+    g_k = torch.autograd.grad((nk.node_euler_step(params, x, u0, 0.02)
+                               * cot[0]).sum(), [x, u0])
+    g_p = torch.autograd.grad((nk.node_euler_step_plain(params, x, u0, 0.02)
+                               * cot[0]).sum(), [x, u0])
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["unicycle", "cars", "pvtol"])
+def test_cli_trains_each_preset_on_the_card(preset, tmp_path):
+    """One short episode of each preset through nlbac-train-torch's
+    main() on the GPU (no --cpu): the run's files, a finite progress row,
+    and K1 launched where the preset's NODE is control-affine."""
+    _require_gpu()
+    import glob
+
+    from nlbac_tpu_torch.train import cli
+
+    before = nk.launch_counts["node_euler"]
+    cli.main(["--preset", preset, "--quiet", "--output", str(tmp_path),
+              "--max_episodes", "1", "--max_episode_steps", "40",
+              "--start_steps", "20", "--batch_size", "16",
+              "--replay_size", "1000"])
+    (run,) = glob.glob(str(tmp_path / "*-run*" / "*" / "*_s*"))
+    for name in ("progress.txt", "config.json", "checkpoint.npz",
+                 "actor.pkl", "critic.pkl", "lyapunov.pkl",
+                 "node_model.pkl"):
+        assert (Path(run) / name).is_file(), name
+    header, row = (Path(run) / "progress.txt").read_text().splitlines()
+    values = dict(zip(header.split("\t"), map(float, row.split("\t"))))
+    assert values["updates"] > 0
+    assert all(v == v and abs(v) != float("inf") for v in values.values())
+    launched = nk.launch_counts["node_euler"] - before
+    assert (launched > 0) == (preset != "cars")

@@ -178,6 +178,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import nlbac_tpu_torch, nlbac_tpu_torch.interop\n"
         "import nlbac_tpu_torch.train, nlbac_tpu_torch.ops.node_kernel\n"
+        "import nlbac_tpu_torch.train.cli, nlbac_tpu_torch.train.checkpoint\n"
+        "import nlbac_tpu_torch.envs.cars, nlbac_tpu_torch.envs.pvtol\n"
+        "import nlbac_tpu_torch.constraints.cars\n"
+        "import nlbac_tpu_torch.constraints.pvtol\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'optax',"
         " 'nlbac_tpu') or m.startswith(('jax.', 'nlbac_tpu.')))\n"
         "assert not bad, bad\n"
