@@ -32,10 +32,21 @@ Phases, one line each (any failure raises and exits nonzero):
 6. cars and PVTOL at their full widths through the CLI, each with its
    env-steps/s, and each followed by one full-width update on the card
    against the CPU;
-7. a JSON line of the kernel's numbers, then the result line.
+7. the learned-barrier family: K1 held against its plain version at the
+   learned barrier's single calls (128 rows (3, 2), 256 rows (6, 2);
+   forward and the gradient with respect to u); nbc_unicycle and nbc_pvtol
+   at their full widths through the CLI (steps, updates, NODE fits, K1
+   launches, env-steps/s, the last barrier_td_loss, barrier.pkl); the
+   quadrotor through the CLI with its kill penalty, the mix spawn
+   curriculum and both pre-tanh regularizers, resumed episode chunk by
+   chunk until it has taken QUAD_MIN_STEPS env steps and QUAD_MIN_UPDATES
+   updates (random warm-up thrusts crash it early); each followed by one
+   full-width update on the card against the CPU;
+8. a JSON line of the kernel's numbers, the script's total time, then the
+   result line.
 
-The depth of each CLI run is cut (EPISODES, PRESET_RUNS below); the
-widths are the presets'.
+The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
+QUAD_* below); the widths are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -86,13 +97,24 @@ UPDATE_RTOL, UPDATE_ATOL = 1e-3, 1e-4
 # 2 of 300 (preset: 200 of 300); PVTOL 1 of 600 (preset: 400 of 2000).
 EPISODES, EPISODE_STEPS = 3, 300
 PRESET_RUNS = {"cars": (2, 300), "pvtol": (1, 600)}
+# nbc_unicycle 1 episode of 400 steps (preset: 200 of 1200), nbc_pvtol 1
+# of 500 (preset: 210 of 2000); the quadrotor in chunks of QUAD_CHUNK
+# episodes of at most QUAD_EPISODE_STEPS steps (preset: 210 of 1000).
+NBC_RUNS = {"nbc_unicycle": (1, 400), "nbc_pvtol": (1, 500)}
+QUAD_CHUNK, QUAD_EPISODE_STEPS = 10, 200
+QUAD_MIN_STEPS, QUAD_MIN_UPDATES = 600, 300
+QUAD_FLAGS = ["--spawn_curriculum_episodes", "4", "--spawn_curriculum_mode",
+              "mix", "--pretanh_reg", "0.001", "--probe_pretanh_reg", "0.01"]
 # The resampled controls each constraint chain draws per loss.
-RESAMPLES = {"unicycle": 0, "cars": 1, "pvtol": 2}
+RESAMPLES = {"unicycle": 0, "cars": 1, "pvtol": 2, "learned_barrier": 1}
+# The learned barrier's single K1 call: (n_s, n_u) and rows.
+NBC_CALLS = {"nbc_unicycle": ((3, 2), 128), "nbc_pvtol": ((6, 2), 256)}
 PVTOL_ROWS = 256
 OUT = Path("chiprun_out") / "chip_smoke"
 SEED = 0
 SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
 HOST_CALLS = 1000
+UPDATE_TIMING = (3, 20)  # warm-up updates, timed updates
 
 
 def phase(msg: str) -> None:
@@ -406,7 +428,7 @@ def cli_run(preset, argv, card, label):
     """Train ``preset`` at its full widths through the CLI's ``main`` (the
     counts set to 0 just before, read just after) into a fresh directory
     under OUT; print its episodes and its env-steps/s. Returns (run dir,
-    K1 launches, env steps, updates)."""
+    K1 launches, env steps, updates, seconds)."""
     out = OUT / label
     shutil.rmtree(out, ignore_errors=True)
     node_kernel.reset_launch_counts()
@@ -424,23 +446,29 @@ def cli_run(preset, argv, card, label):
         if bad:
             raise RuntimeError(f"{label} episode {r['Episode']:.0f}: "
                                f"non-finite {bad}")
+        barrier = (f" barrier_td {r['barrier_td_loss']:.4g}"
+                   if "barrier_td_loss" in r else "")
         phase(f"{label} episode {r['Episode']:.0f}: steps "
               f"{r['episode_steps']:.0f} reward {r['reward_train']:.4g} "
-              f"violations {r['cost_train']:.0f} updates "
+              f"violations {r['cost_train']:.0f} goal "
+              f"{r['goal_met']:.0f} updates "
               f"{r['updates']:.0f} qf1 {r['qf1_loss']:.4g} policy "
               f"{r['policy_loss']:.4g} node {r['node_loss']:.4g} rho "
-              f"{r['rho']:.4g} alpha {r['alpha']:.4g}")
+              f"{r['rho']:.4g} alpha {r['alpha']:.4g}{barrier}")
     steps = int(sum(r["episode_steps"] for r in rows))
     updates = int(rows[-1]["updates"])
-    for name in ("config.json", "checkpoint.npz", "actor.pkl",
-                 "critic.pkl", "lyapunov.pkl", "node_model.pkl"):
+    files = ["config.json", "checkpoint.npz", "actor.pkl", "critic.pkl",
+             "lyapunov.pkl", "node_model.pkl"]
+    if "barrier_td_loss" in rows[-1]:
+        files.append("barrier.pkl")
+    for name in files:
         if not (run / name).is_file():
             raise RuntimeError(f"{label}: the CLI wrote no {name}")
     phase(f"{label} through nlbac-train-torch ({' '.join(argv)}): {steps} "
           f"env steps, {updates} updates in total, {launches} K1 launches "
           f"({launches / steps:.2f} per env step), {seconds:.2f} s for the "
           f"whole main() call, {steps / seconds:.2f} env-steps/s on {card}")
-    return run, launches, steps, updates
+    return run, launches, steps, updates, seconds
 
 
 def restored(preset, argv, run, dev):
@@ -461,8 +489,8 @@ def main_path(dev, card):
     from its checkpoint for one more episode."""
     argv = ["--max_episodes", str(EPISODES), "--max_episode_steps",
             str(EPISODE_STEPS)]
-    run, launches, steps, updates = cli_run("unicycle", argv, card,
-                                            "unicycle")
+    run, launches, steps, updates, _ = cli_run("unicycle", argv, card,
+                                               "unicycle")
     # each update launches K1 twice at 128 rows (primary and backup
     # rollouts) and once more at 32768 rows on every 10th (the NODE fit)
     fits = launches - 2 * updates
@@ -476,8 +504,8 @@ def main_path(dev, card):
     resume_argv = ["--max_episodes", str(EPISODES + 1),
                    "--max_episode_steps", str(EPISODE_STEPS), "--resume",
                    str(run / "checkpoint.npz")]
-    run2, launches2, steps2, _ = cli_run("unicycle", resume_argv, card,
-                                         "unicycle_resumed")
+    run2, launches2, steps2, _, _ = cli_run("unicycle", resume_argv, card,
+                                            "unicycle_resumed")
     rows = progress_rows(run2)
     _, ts, _, _, total, episode = restored("unicycle", resume_argv, run2, dev)
     if ([r["Episode"] for r in rows] != [EPISODES] or episode != EPISODES
@@ -532,6 +560,37 @@ def profile_steps(cfg, ts, rl, node, dev, card, steps=10):
           f"on {card}")
 
 
+def time_updates(cfg, ts, rl, node, dev, card):
+    """Host ms per update of a trained state on its replays (the batch
+    sampling and every 10th update's NODE fit included): a host clock
+    around UPDATE_TIMING[1] updates after UPDATE_TIMING[0] warm-up ones,
+    ending in a synchronize."""
+    agent = make_agent(cfg, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    warm, n = UPDATE_TIMING
+    for _ in range(warm):
+        agent.update(ts, rl, node, gen, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        agent.update(ts, rl, node, gen, 0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    phase(f"{cfg.run.exp_name}: {ms:.2f} ms per update (host clock over "
+          f"{n} updates after {warm}, sampling and the NODE fit every "
+          f"{cfg.node.update_interval}th included) on {card}")
+    return ms
+
+
+def check_preset(preset, argv, run, dev, card):
+    """A CLI run's final state restored on the card: its time per update,
+    then one full-width update from a fresh state on the card against the
+    CPU."""
+    cfg, ts, rl, node, _, _ = restored(preset, argv, run, dev)
+    time_updates(cfg, ts, rl, node, dev, card)
+    update_on_card_vs_cpu(cfg, rl, node, dev)
+
+
 def update_on_card_vs_cpu(cfg, rl, node, dev):
     """One full-width update from a fresh state on the card (kernel) and
     on the CPU (plain version), with the same batches and draws."""
@@ -566,11 +625,110 @@ def update_on_card_vs_cpu(cfg, rl, node, dev):
         if err > UPDATE_ATOL + UPDATE_RTOL * abs(m_cpu[k]):
             raise RuntimeError(f"{cfg.env.name} update metric {k}: card "
                                f"{m_dev[k]} vs CPU {m_cpu[k]}")
-    phase(f"{cfg.env.name} full-width update, card vs CPU: 11 metrics "
-          f"within rtol "
+    phase(f"{cfg.run.exp_name} full-width update, card vs CPU: "
+          f"{len(m_cpu)} metrics within rtol "
           f"{UPDATE_RTOL} atol {UPDATE_ATOL} (worst at {worst:.3f} of the "
           f"tolerance; node_loss {m_dev['node_loss']:.6g} vs "
-          f"{m_cpu['node_loss']:.6g}) ok")
+          f"{m_cpu['node_loss']:.6g}; barrier_td_loss "
+          f"{m_dev['barrier_td_loss']:.6g} vs "
+          f"{m_cpu['barrier_td_loss']:.6g}) ok")
+
+
+def nbc_calls(dev, gen, card):
+    """K1 where the learned barrier calls it: one call, x without
+    gradient, u with, at nbc_unicycle's and nbc_pvtol's batch and
+    dimensions; forward and the gradient with respect to u against the
+    plain version. Returns the largest forward error."""
+    worst = 0.0
+    for preset, ((n_s, n_u), rows) in NBC_CALLS.items():
+        params = node_params(n_s, n_u, gen, dev)
+        x = torch.randn(rows, n_s, device=dev, generator=gen)
+        u = torch.randn(rows, n_u, device=dev, generator=gen,
+                        requires_grad=True)
+        cot = torch.randn(rows, n_s, device=dev, generator=gen)
+        y_k = node_kernel.node_euler_step(params, x, u, 0.02)
+        y_p = node_kernel.node_euler_step_plain(params, x, u, 0.02)
+        err = (y_k - y_p).abs().max().item()
+        torch.testing.assert_close(y_k, y_p, rtol=KERNEL_RTOL,
+                                   atol=KERNEL_ATOL)
+        (g_k,) = torch.autograd.grad((y_k * cot).sum(), [u])
+        (g_p,) = torch.autograd.grad((y_p * cot).sum(), [u])
+        g_err = (g_k - g_p).abs().max().item()
+        torch.testing.assert_close(g_k, g_p, rtol=KERNEL_RTOL,
+                                   atol=KERNEL_ATOL)
+        worst = max(worst, err)
+        phase(f"learned barrier's call ({preset}) rows={rows} "
+              f"(n_s,n_u)=({n_s},{n_u}): forward max abs err {err:.3e}, "
+              f"gradient of u max abs err {g_err:.3e} (tolerance rtol "
+              f"{KERNEL_RTOL} atol {KERNEL_ATOL}) ok on {card}")
+    return worst
+
+
+def last_barrier_td(label, run):
+    """The last episode's barrier_td_loss, which must be finite and
+    nonzero."""
+    value = progress_rows(run)[-1]["barrier_td_loss"]
+    if not math.isfinite(value) or value == 0:
+        raise RuntimeError(f"{label}: last barrier_td_loss {value}")
+    return value
+
+
+def nbc_run(preset, card):
+    """One learned-barrier preset with K1 (control-affine NODE) at its full
+    widths through the CLI: K1 runs once per update (the policy loss's
+    single rollout; no backup) and once more on every 10th (the fit)."""
+    episodes, steps_cap = NBC_RUNS[preset]
+    argv = ["--max_episodes", str(episodes), "--max_episode_steps",
+            str(steps_cap)]
+    run, launches, steps, updates, seconds = cli_run(preset, argv, card,
+                                                     preset)
+    fits = launches - updates
+    if updates <= 0 or fits != (updates + 9) // 10:
+        raise RuntimeError(f"{preset}: {updates} updates and {launches} K1 "
+                           f"launches: {fits} NODE fits, expected "
+                           f"{(updates + 9) // 10}")
+    barrier = last_barrier_td(preset, run)
+    phase(f"{preset}: {steps} env steps, {updates} updates, {fits} NODE "
+          f"fits of 32768 rows, {launches} K1 launches "
+          f"({launches / steps:.2f} per env step), "
+          f"{steps / seconds:.2f} env-steps/s, last barrier_td_loss "
+          f"{barrier:.6g}, barrier.pkl written, on {card}")
+    return run, argv, launches
+
+
+def quad_run(card):
+    """The quadrotor at its full widths through the CLI, with its kill
+    penalty, the mix spawn curriculum and both pre-tanh regularizers,
+    resumed QUAD_CHUNK episodes at a time until it has taken
+    QUAD_MIN_STEPS env steps and QUAD_MIN_UPDATES updates. Its mlp NODE
+    has no kernel, so K1 must not launch."""
+    steps = updates = launches = chunk = 0
+    seconds = 0.0
+    goals, resume = 0, []
+    while steps < QUAD_MIN_STEPS or updates < QUAD_MIN_UPDATES:
+        chunk += 1
+        if chunk > 20:
+            raise RuntimeError(f"quadrotor: {steps} steps and {updates} "
+                               f"updates after {chunk - 1} chunks")
+        argv = ["--max_episodes", str(chunk * QUAD_CHUNK),
+                "--max_episode_steps", str(QUAD_EPISODE_STEPS)] + \
+            QUAD_FLAGS + resume
+        run, n_k1, n_steps, updates, secs = cli_run(
+            "quadrotor", argv, card, f"quadrotor_{chunk}")
+        launches += n_k1
+        steps += n_steps
+        seconds += secs
+        goals += int(sum(r["goal_met"] for r in progress_rows(run)))
+        resume = ["--resume", str(run / "checkpoint.npz")]
+    if launches:
+        raise RuntimeError(f"quadrotor: {launches} K1 launches (its mlp "
+                           "NODE has no kernel)")
+    barrier = last_barrier_td("quadrotor", run)
+    phase(f"quadrotor: {steps} env steps, {updates} updates in {chunk} "
+          f"chunks of {QUAD_CHUNK} episodes, {goals} goals reached, 0 K1 "
+          f"launches, {steps / seconds:.2f} env-steps/s, last "
+          f"barrier_td_loss {barrier:.6g}, barrier.pkl written, on {card}")
+    return run, argv
 
 
 def main() -> int:
@@ -586,7 +744,7 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     lib = node_kernel.build(verbose=True)
     phase(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
     tensor_core_check(lib)
@@ -598,17 +756,25 @@ def main() -> int:
     sweep(dev, gen, card)
     cfg, ts, rl, node, launches, by_path = main_path(dev, card)
     profile_steps(cfg, ts, rl, node, dev, card)
+    time_updates(cfg, ts, rl, node, dev, card)
     update_on_card_vs_cpu(cfg, rl, node, dev)
     for preset, (episodes, steps) in PRESET_RUNS.items():
         argv = ["--max_episodes", str(episodes), "--max_episode_steps",
                 str(steps)]
-        run, by_path[preset], _, _ = cli_run(preset, argv, card, preset)
+        run, by_path[preset], _, _, _ = cli_run(preset, argv, card, preset)
         # cars' NODE is the mlp field, which has no kernel; PVTOL's is
         # control-affine and runs K1 in its fit and its chain
         if (by_path[preset] > 0) != (preset == "pvtol"):
             raise RuntimeError(f"{preset}: {by_path[preset]} K1 launches")
-        p_cfg, _, p_rl, p_node, _, _ = restored(preset, argv, run, dev)
-        update_on_card_vs_cpu(p_cfg, p_rl, p_node, dev)
+        check_preset(preset, argv, run, dev, card)
+
+    nbc_err = nbc_calls(dev, gen, card)
+    for preset in NBC_RUNS:
+        run, argv, by_path[preset] = nbc_run(preset, card)
+        check_preset(preset, argv, run, dev, card)
+    run, argv = quad_run(card)
+    by_path["quadrotor"] = 0
+    check_preset("quadrotor", argv, run, dev, card)
 
     big = times[32768]
     print(json.dumps({"kernels": [{
@@ -624,7 +790,10 @@ def main() -> int:
         "bound_f32_ms": big["bound_f32_ms"],
         "host_us_per_call": times[128]["host_us_per_call"],
         "at_128_rows": times[128], "pvtol_chain": chain,
+        "nbc_calls_max_abs_err": nbc_err,
         "launches_by_path": by_path}]}), flush=True)
+    phase(f"total: {time.perf_counter() - start:.2f} s from the build to "
+          f"the end on {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

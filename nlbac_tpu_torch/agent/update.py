@@ -4,10 +4,12 @@ Per call, in the reference's order:
 
 1. the NODE fit on a sample of the NODE buffer, every
    ``update_interval``-th update (the sample is drawn only then);
-2. twin-Q TD and Lyapunov TD, each with its own Adam;
+2. twin-Q TD and Lyapunov TD (and, for the learned-barrier family, barrier
+   TD), each with its own Adam;
 3. the primary policy loss: SAC term with the just-stepped critic plus
    the augmented-Lagrangian constraint term, whose NODE rollout runs the
-   fused Euler kernel on the GPU;
+   fused Euler kernel on the GPU, plus the optional pre-tanh regularizers
+   on the batch and on the env's ground-probe batch;
 4. the backup policy branch (CBF-only constraints, shared or separate rho);
 5. both entropy temperatures;
 6. soft target updates.
@@ -17,8 +19,7 @@ counter ``ts.updates``, so no gate waits for the device. Parameters and
 optimizer state are updated in place; ``update_core`` returns the same
 ``TrainState`` and a dict of 0-d device tensors.
 
-The learned-barrier (NBC) branch, the pre-tanh regularizers and the
-data-parallel entry points are not ported yet (ROADMAP.md).
+The data-parallel entry points are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ from nlbac_tpu_torch.envs import get_env
 from nlbac_tpu_torch.nn import (
     ActionSpec,
     apply_grads,
+    barrier_apply,
     deterministic_policy_sample,
+    gaussian_policy_forward,
     gaussian_policy_sample,
     lyapunov_apply,
     make_field,
@@ -77,10 +80,6 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
     env = get_env(cfg.env.name)
     builder = get_builder(cfg.constraint.kind)
     ccfg, ncfg, scfg = cfg.constraint, cfg.node, cfg.sac
-    if uses_barrier(ccfg.kind):
-        raise NotImplementedError("the learned-barrier branch is not ported")
-    if scfg.pretanh_reg or scfg.probe_pretanh_reg:
-        raise NotImplementedError("the pre-tanh regularizers are not ported")
     device = resolve_device(device)
     field = make_field(ncfg)
     spec = ActionSpec.from_bounds(env.SPEC.action_low, env.SPEC.action_high,
@@ -88,8 +87,27 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
     dt = cfg.env.dt
     target_entropy = (-float(cfg.action_dim) if scfg.target_entropy is None
                       else float(scfg.target_entropy))
+    is_nbc = uses_barrier(ccfg.kind)
     is_gaussian = scfg.policy_type != "deterministic"
     entropy_tuning = scfg.automatic_entropy_tuning and is_gaussian
+    pretanh_reg, probe_pretanh_reg = scfg.pretanh_reg, scfg.probe_pretanh_reg
+    if pretanh_reg and not is_gaussian:
+        raise ValueError(
+            f"pretanh_reg={pretanh_reg} requires the Gaussian policy "
+            "(the deterministic head has no pre-tanh Gaussian mean to "
+            "regularize)")
+    probe_obs = None
+    if probe_pretanh_reg:
+        if not is_gaussian:
+            raise ValueError(
+                f"probe_pretanh_reg={probe_pretanh_reg} requires the "
+                "Gaussian policy (no pre-tanh mean to regularize)")
+        if not hasattr(env, "ground_probe_obs"):
+            raise ValueError(
+                f"probe_pretanh_reg={probe_pretanh_reg} requires an env "
+                f"exposing ground_probe_obs(); {cfg.env.name!r} does not "
+                "(quadrotor only)")
+        probe_obs = env.ground_probe_obs(device)
     sample_policy = (gaussian_policy_sample if is_gaussian
                      else deterministic_policy_sample)
 
@@ -153,11 +171,12 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
                     i_episode: int, noise: Optional[dict] = None
                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update over ``batch``. ``noise`` may hold the
-        standard-normal draws for the samples ("next" for the TD target,
-        "pi" for the policy loss, "backup" for the backup loss, and
-        "resample"/"backup_resample" for the constraint chain's resampled
-        controls, one (B, action_dim) draw per resampling step, in the
-        primary and backup loss); the rest are drawn from ``gen``."""
+        standard-normal draws for the samples ("next" for the TD targets
+        of the critic and the barrier, "pi" for the policy loss, "backup"
+        for the backup loss, and "resample"/"backup_resample" for the
+        constraint chain's resampled controls, one (B, action_dim) draw
+        per resampling step, in the primary and backup loss); the rest are
+        drawn from ``gen``."""
         noise = noise or {}
         obs, action = batch["obs"], batch["action"]
         if obs.shape[0] != scfg.batch_size:
@@ -206,8 +225,21 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
         lf_loss = _mse(lyapunov_apply(ts.lyap, batch["lyap_t"]), next_l)
         _step(ts.opt["lyap"], ts.lyap, lf_loss)
 
-        # The policy losses see the stepped critic, Lyapunov net and NODE
-        # without differentiating them (gradients go to the policy only).
+        barrier_td_loss = zero()
+        if is_nbc:
+            # the barrier's TD target takes the critic's next action
+            with torch.no_grad():
+                b_next = barrier_apply(ts.barrier_target, batch["next_obs"],
+                                       next_a)
+                next_b = (batch["barrier_signal"][:, None]
+                          + mask * scfg.gamma * b_next)
+            b_loss = _mse(barrier_apply(ts.barrier, obs, action), next_b)
+            _step(ts.opt["barrier"], ts.barrier, b_loss)
+            barrier_td_loss = b_loss.detach()
+
+        # The policy losses see the stepped critic, Lyapunov net, barrier
+        # and NODE without differentiating them (gradients go to the policy
+        # only).
         pg_critic, pg_lyap, pg_node = (detach(ts.critic), detach(ts.lyap),
                                        detach(ts.node))
 
@@ -221,7 +253,9 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
                            field=field, lyap_params=pg_lyap,
                            lyap_t=batch["lyap_t"], dt=dt, gen=gen,
                            t=batch["t"][:, None],
-                           next_t=batch["next_t"][:, None])
+                           next_t=batch["next_t"][:, None],
+                           env_name=cfg.env.name,
+                           barrier_params=detach(ts.barrier))
 
         def make_resampler(policy, draws):
             """The chain's k-th resampled control, from the policy being
@@ -243,7 +277,14 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
         policy_loss_2, lam_new, rho1 = lag_primary_loss(
             ccfg, terms, ts.lag.lam, ts.lag.rho, do_lam, scfg.batch_size,
             do_rho_growth=lag_live)
-        _step(ts.opt["policy"], ts.policy, policy_loss_1 + policy_loss_2)
+        loss = policy_loss_1 + policy_loss_2
+        if pretanh_reg:
+            mu, _ = gaussian_policy_forward(ts.policy, obs)
+            loss = loss + pretanh_reg * torch.mean(torch.square(mu))
+        if probe_pretanh_reg:
+            mu_p, _ = gaussian_policy_forward(ts.policy, probe_obs)
+            loss = loss + probe_pretanh_reg * torch.mean(torch.square(mu_p))
+        _step(ts.opt["policy"], ts.policy, loss)
         logp = logp.detach()
 
         # --- 4. backup policy branch --------------------------------------
@@ -300,6 +341,8 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
                 n_upd % scfg.target_update_interval == 0:
             soft_update(ts.critic_target, ts.critic, scfg.tau)
             soft_update(ts.lyap_target, ts.lyap, scfg.tau)
+            if is_nbc:
+                soft_update(ts.barrier_target, ts.barrier, scfg.tau)
 
         ts.lag = ts.lag._replace(lam=lam_new.detach(),
                                  backup_lam=backup_lam.detach(),
@@ -313,7 +356,7 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
             "alpha_loss": alpha_loss,
             "alpha": (torch.exp(ts.log_alpha.detach()[0]) if is_gaussian
                       else zero()),
-            "node_loss": node_fit_loss, "barrier_td_loss": zero(),
+            "node_loss": node_fit_loss, "barrier_td_loss": barrier_td_loss,
             "rho": rho_final, "lam_max": torch.max(lam_new.detach()),
         }
         return ts, metrics

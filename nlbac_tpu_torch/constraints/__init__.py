@@ -1,4 +1,9 @@
-from nlbac_tpu_torch.constraints import cars, pvtol, unicycle
+from nlbac_tpu_torch.constraints import (
+    cars,
+    learned_barrier,
+    pvtol,
+    unicycle,
+)
 from nlbac_tpu_torch.constraints.common import (  # noqa: F401
     LagrangianState,
     ascend_multipliers,
@@ -9,16 +14,16 @@ from nlbac_tpu_torch.constraints.common import (  # noqa: F401
     primary_loss,
 )
 
-_BUILDERS = {"unicycle": unicycle, "cars": cars, "pvtol": pvtol}
+_BUILDERS = {"unicycle": unicycle, "cars": cars, "pvtol": pvtol,
+             "learned_barrier": learned_barrier}
 
 
 def get_builder(kind: str):
-    """kind -> constraint-builder module (terms, NUM_PRIMARY, NUM_BACKUP).
-    The unicycle, cars and pvtol builders are ported; the learned
-    barrier is not yet (ROADMAP.md)."""
+    """kind -> constraint-builder module (terms, NUM_PRIMARY, NUM_BACKUP;
+    USES_BARRIER on the learned barrier)."""
     if kind not in _BUILDERS:
-        raise ValueError(f"constraint kind {kind!r} is not ported; ported "
-                         f"kinds: {list(_BUILDERS)}")
+        raise ValueError(f"unknown constraint kind {kind!r}; options: "
+                         f"{list(_BUILDERS)}")
     return _BUILDERS[kind]
 
 

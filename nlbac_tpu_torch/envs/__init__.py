@@ -1,13 +1,12 @@
-from nlbac_tpu_torch.envs import cars, pvtol, unicycle  # noqa: F401
+from nlbac_tpu_torch.envs import cars, pvtol, quadrotor, unicycle  # noqa: F401
 from nlbac_tpu_torch.envs.base import EnvSpec, StepOut  # noqa: F401
 
-_ENVS = {"unicycle": unicycle, "cars": cars, "pvtol": pvtol}
+_ENVS = {"unicycle": unicycle, "cars": cars, "pvtol": pvtol,
+         "quadrotor": quadrotor}
 
 
 def get_env(name: str):
-    """name -> env module. The unicycle, cars and pvtol envs are ported;
-    the quadrotor is not yet (ROADMAP.md)."""
+    """name -> env module (all four of the JAX package's envs)."""
     if name not in _ENVS:
-        raise ValueError(f"env {name!r} is not ported; ported envs: "
-                         f"{list(_ENVS)}")
+        raise ValueError(f"unknown env {name!r}; options: {list(_ENVS)}")
     return _ENVS[name]

@@ -2,7 +2,8 @@
 
 - ``save_model_weights`` / ``load_model_weights``: the reference's
   weights-only file layout (``actor.pkl``, ``critic.pkl`` as
-  ``{'q1','q2'}``, ``lyapunov.pkl``, ``node_model.pkl``), each a pickle of
+  ``{'q1','q2'}``, ``lyapunov.pkl``, ``node_model.pkl``, and
+  ``barrier.pkl`` for the learned-barrier family), each a pickle of
   numpy arrays in the JAX package's ``(in, out)`` layout, written
   atomically. The JAX package's ``load_model_weights`` and ``nlbac-eval``
   read them.
@@ -38,6 +39,7 @@ from nlbac_tpu_torch.tree import tree_leaves
 FORMAT = "nlbac_tpu_torch.checkpoint/1"
 WEIGHT_FILES = {"actor.pkl": "policy", "critic.pkl": "critic",
                 "lyapunov.pkl": "lyap", "node_model.pkl": "node"}
+BARRIER_FILE = "barrier.pkl"
 REPLAYS = ("rl_replay", "node_replay")
 
 
@@ -50,10 +52,18 @@ def _write_atomic(path: str, blob: bytes) -> None:
     os.replace(tmp, path)
 
 
-def save_model_weights(output_dir: str, ts: TrainState) -> None:
-    """Weights-only files in the reference's layout."""
+def _weight_files(include_barrier: bool) -> dict:
+    if include_barrier:
+        return {**WEIGHT_FILES, BARRIER_FILE: "barrier"}
+    return WEIGHT_FILES
+
+
+def save_model_weights(output_dir: str, ts: TrainState,
+                       include_barrier: bool = False) -> None:
+    """Weights-only files in the reference's layout; ``barrier.pkl`` too
+    with ``include_barrier`` (the learned-barrier family)."""
     os.makedirs(output_dir, exist_ok=True)
-    for name, field in WEIGHT_FILES.items():
+    for name, field in _weight_files(include_barrier).items():
         _write_atomic(os.path.join(output_dir, name),
                       pickle.dumps(to_numpy(getattr(ts, field))))
 
@@ -73,11 +83,16 @@ def _copy_leaves(what: str, dst, src) -> None:
             d.copy_(torch.as_tensor(np.asarray(s, np.float32)))
 
 
-def load_model_weights(output_dir: str, ts: TrainState) -> TrainState:
+def load_model_weights(output_dir: str, ts: TrainState,
+                       include_barrier: bool = False) -> TrainState:
     """Load weights-only files (trusted paths only: they are pickles) into
-    ``ts``'s policy, critic, Lyapunov and NODE parameters, in place."""
-    for name, field in WEIGHT_FILES.items():
-        with open(os.path.join(output_dir, name), "rb") as f:
+    ``ts``'s policy, critic, Lyapunov and NODE parameters, in place; with
+    ``include_barrier``, the barrier's too when ``barrier.pkl`` exists."""
+    for name, field in _weight_files(include_barrier).items():
+        path = os.path.join(output_dir, name)
+        if name == BARRIER_FILE and not os.path.exists(path):
+            continue
+        with open(path, "rb") as f:
             tree = pickle.load(f)
         _copy_leaves(name, tree_leaves(getattr(ts, field)),
                      tree_leaves(tree))

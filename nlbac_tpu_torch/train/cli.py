@@ -1,5 +1,6 @@
 """Training CLI of the port (port of ``nlbac_tpu/train/cli.py``):
-``nlbac-train-torch --preset unicycle|cars|pvtol``.
+``nlbac-train-torch --preset
+unicycle|cars|pvtol|nbc_unicycle|nbc_pvtol|quadrotor``.
 
 The flags, their defaults, the run-directory layout
 (``<output>/<env>-run<N>/<exp_name>/<exp_name>_s<seed>/``), the
@@ -26,6 +27,7 @@ from nlbac_tpu_torch import resolve_device
 from nlbac_tpu_torch.agent import create_train_state
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.config import NLBACConfig, get_config
+from nlbac_tpu_torch.constraints import uses_barrier
 from nlbac_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -35,7 +37,8 @@ from nlbac_tpu_torch.train.driver import create_replays, make_episode_runner
 from nlbac_tpu_torch.train.logging import EpochLogger, StepTimer, colorize
 from nlbac_tpu_torch.utils.output import get_output_folder, setup_logger_kwargs
 
-# progress.txt's training columns, in the JAX CLI's order
+# progress.txt's training columns, in the JAX CLI's order; the
+# learned-barrier family appends barrier_td_loss
 TRAIN_COLUMNS = ("qf1_loss", "qf2_loss", "lf_loss", "policy_loss",
                  "alpha_loss", "alpha", "node_loss", "rho", "lam_max")
 
@@ -55,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preset", default="unicycle",
                    choices=["unicycle", "cars", "pvtol", "nbc_unicycle",
                             "nbc_pvtol", "quadrotor"],
-                   help="experiment preset (ported: unicycle, cars, pvtol)")
+                   help="experiment preset")
     p.add_argument("--env-name", default=None,
                    choices=["Unicycle", "SimulatedCars", "Pvtol",
                             "Quadrotor"],
@@ -228,20 +231,9 @@ def config_from_args(args) -> NLBACConfig:
 
 
 def check_ported(args, cfg: NLBACConfig) -> None:
-    """Raise ``SystemExit`` for a flag or preset whose feature the port
-    does not have yet, naming the ROADMAP.md item that ports it."""
-    env = cfg.env
+    """Raise ``SystemExit`` for a flag whose feature the port does not
+    have yet, naming the ROADMAP.md item that ports it."""
     unported = (
-        (cfg.env.name == "quadrotor", "the quadrotor preset", 14),
-        (cfg.constraint.kind == "learned_barrier",
-         f"the learned-barrier preset {args.preset!r}", 13),
-        (bool(cfg.sac.pretanh_reg or cfg.sac.probe_pretanh_reg),
-         "--pretanh_reg/--probe_pretanh_reg", 14),
-        (bool(env.spawn_curriculum_episodes or env.kill_penalty
-              or env.kill_attitude
-              or env.spawn_curriculum_mode != "anneal"),
-         "the spawn curriculum and the kill terms (--spawn_curriculum_*, "
-         "--kill_penalty, --kill_attitude)", 14),
         (cfg.node.solver == "dopri5" or args.node_adaptive_impl is not None
          or args.node_adaptive_scan_steps is not None,
          "the adaptive dopri5 solver (--node_solver dopri5, "
@@ -311,6 +303,8 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
     logger = EpochLogger(output_dir, quiet=quiet)
     logger.save_config(cfg)
     timer = StepTimer()
+    is_nbc = uses_barrier(cfg.constraint.kind)
+    train_columns = TRAIN_COLUMNS + (("barrier_td_loss",) if is_nbc else ())
 
     gen = torch.Generator(device).manual_seed(cfg.run.seed)
     start_episode = total_steps = 0
@@ -353,7 +347,8 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
                     cur = sum(best_window) / len(best_window)
                     if best_mean is None or cur > best_mean:
                         best_mean = cur
-                        save_model_weights(best_dir, ts)
+                        save_model_weights(best_dir, ts,
+                                           include_barrier=is_nbc)
                         with open(os.path.join(best_dir, "best.json"),
                                   "w") as f:
                             json.dump({"episode": i_episode,
@@ -365,7 +360,8 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
             if (i_episode % save_every == 0
                     or i_episode == cfg.run.max_episodes - 1):
                 if output_dir is not None:
-                    save_model_weights(output_dir, ts)
+                    save_model_weights(output_dir, ts,
+                                       include_barrier=is_nbc)
                     if checkpoint_path is None:
                         checkpoint_path = os.path.join(output_dir,
                                                        "checkpoint.npz")
@@ -379,11 +375,11 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
                          cost_train=m["num_violations"],
                          safety_cost_train=m["safety_cost"],
                          goal_met=m["goal_met"], reached=m["reached"])
-            for k in TRAIN_COLUMNS:
+            for k in train_columns:
                 logger.store(**{k: m["train"][k]})
             for k in ("Episode", "episode_steps", "reward_train",
                       "cost_train", "safety_cost_train", "goal_met",
-                      "reached") + TRAIN_COLUMNS:
+                      "reached") + train_columns:
                 logger.log_tabular(k)
             logger.log_tabular("updates", ts.updates)
             logger.log_tabular("backup_steps", int(m["backup_steps"]))

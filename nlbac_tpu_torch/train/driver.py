@@ -11,6 +11,10 @@ over env steps, with the reference's step order:
    (the NODE record one dt later under ``reference_time_labels``);
 5. the supervisor's trigger machine.
 
+An env with a spawn curriculum (the quadrotor) resets through
+``reset_curriculum`` when ``spawn_curriculum_episodes`` > 0, and its kill
+terms reach ``env.step`` only when set.
+
 The step reads the device once, for ``done`` and the backup flag together;
 everything else stays queued on the device. Capturing the step body in a
 CUDA graph is queued in ROADMAP.md.
@@ -18,6 +22,7 @@ CUDA graph is queued in ROADMAP.md.
 
 from __future__ import annotations
 
+import inspect
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -54,6 +59,50 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def build_step_kwargs(cfg: NLBACConfig, env) -> dict:
+    """The opt-in extra ``env.step`` kwargs (``kill_penalty``,
+    ``kill_attitude``), passed only when nonzero so that envs whose step
+    lacks them are untouched."""
+    step_kwargs = {}
+    for name in ("kill_penalty", "kill_attitude"):
+        value = getattr(cfg.env, name)
+        if value:
+            if name not in inspect.signature(env.step).parameters:
+                raise ValueError(
+                    f"{name}={value} but env {cfg.env.name!r} step() does "
+                    "not accept it (quadrotor only)")
+            step_kwargs[name] = value
+    return step_kwargs
+
+
+def curriculum_kwargs(cfg: NLBACConfig, env) -> dict | None:
+    """The ``reset_curriculum`` kwargs, or None when the run has no spawn
+    curriculum; checks the curriculum flags as the JAX driver does."""
+    eps = cfg.env.spawn_curriculum_episodes
+    mode = cfg.env.spawn_curriculum_mode
+    if eps > 0 and not hasattr(env, "reset_curriculum"):
+        raise ValueError(
+            f"spawn_curriculum_episodes={eps} but env {cfg.env.name!r} has "
+            "no reset_curriculum (quadrotor only)")
+    if mode not in ("anneal", "mix", "mix_early"):
+        raise ValueError(f"spawn_curriculum_mode={mode!r} "
+                         "(anneal | mix | mix_early)")
+    if mode != "anneal" and eps <= 0:
+        raise ValueError(
+            f"spawn_curriculum_mode={mode!r} requires "
+            "spawn_curriculum_episodes > 0 (the mode only changes what "
+            "happens after the anneal window)")
+    if mode == "anneal" and cfg.env.spawn_mix_alpha_min != 0.15:
+        raise ValueError(
+            "spawn_mix_alpha_min is only read when "
+            "spawn_curriculum_mode='mix' (set the mode or drop the flag: "
+            "a silently ignored mixture bound would mislabel a sweep)")
+    if eps <= 0:
+        return None
+    return {"curriculum_episodes": eps, "mode": mode,
+            "mix_alpha_min": cfg.env.spawn_mix_alpha_min}
+
+
 def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
     """Build ``run_episode(ts, rl_replay, node_replay, gen, i_episode,
     total_steps) -> (ts, rl_replay, node_replay, EpisodeMetrics,
@@ -66,10 +115,8 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
     max_steps = cfg.env.max_episode_steps
     barrier_B = cfg.env.barrier_B if cfg.env.barrier_signals else 0.0
     barrier_b = cfg.env.barrier_b if cfg.env.barrier_signals else 0.0
-    if cfg.env.spawn_curriculum_episodes or cfg.env.kill_penalty or \
-            cfg.env.kill_attitude:
-        raise NotImplementedError("spawn curricula and kill terms are not "
-                                  "ported (quadrotor only)")
+    curriculum = curriculum_kwargs(cfg, env)
+    step_kwargs = build_step_kwargs(cfg, env)
     if cfg.supervisor.kind != "none" and not cfg.constraint.use_backup:
         raise ValueError(
             f"supervisor.kind={cfg.supervisor.kind!r} requires "
@@ -78,8 +125,13 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
 
     def run_episode(ts: TrainState, rl_replay, node_replay, gen,
                     i_episode: int, total_steps: int):
-        env_state, obs = env.reset(device, gen=gen,
-                                   max_episode_steps=max_steps)
+        if curriculum is None:
+            env_state, obs = env.reset(device, gen=gen,
+                                       max_episode_steps=max_steps)
+        else:
+            env_state, obs = env.reset_curriculum(
+                device, i_episode, gen=gen, max_episode_steps=max_steps,
+                **curriculum)
         start_backup = i_episode >= cfg.supervisor.enable_after_episodes
         sup = init_supervisor(cfg.supervisor, device)
         zero = torch.zeros((), device=device)
@@ -108,7 +160,8 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
             # --- 3. env step ----------------------------------------------
             env_state, out = env.step(env_state, action, barrier_B=barrier_B,
                                       barrier_b=barrier_b,
-                                      max_episode_steps=max_steps)
+                                      max_episode_steps=max_steps,
+                                      **step_kwargs)
             episode_steps += 1
             total_steps += 1
             if episode_steps == max_steps:

@@ -1,10 +1,14 @@
 """The port's training CLI (``nlbac_tpu_torch.train.cli``) on the CPU:
-for each of unicycle, cars and PVTOL it writes ``progress.txt`` with the
-JAX CLI's header, the same ``config.json``, the four reference-layout
-weight files (which the JAX package's ``load_model_weights`` reads, with
-the port's deterministic action at rtol 1e-5) and ``checkpoint.npz``;
-``--resume`` continues bit for bit; flags whose feature is not ported
-fail loudly, before any run directory is made.
+for each of the six presets it writes ``progress.txt`` with the JAX CLI's
+header (``barrier_td_loss`` last among the training columns of the
+learned-barrier family, nonzero), the same ``config.json``, the
+reference-layout weight files (which the JAX package's
+``load_model_weights`` reads, with the port's deterministic action at rtol
+1e-5; ``barrier.pkl`` too for the learned-barrier family, with the barrier
+exactly as in the checkpoint) and ``checkpoint.npz``; ``--resume``
+continues bit for bit (the quadrotor's with the spawn curriculum's draws);
+flags whose feature is not ported fail loudly, before any run directory is
+made.
 """
 
 import glob
@@ -26,10 +30,16 @@ from nlbac_tpu_torch.agent import create_train_state
 from nlbac_tpu_torch.envs import get_env
 from nlbac_tpu_torch.nn import ActionSpec, gaussian_policy_sample
 from nlbac_tpu_torch.train import cli
-from nlbac_tpu_torch.train.checkpoint import restore_checkpoint
+from nlbac_tpu_torch.train.checkpoint import (
+    load_model_weights,
+    restore_checkpoint,
+)
 from nlbac_tpu_torch.train.driver import create_replays
+from nlbac_tpu_torch.tree import tree_leaves
 
-PRESETS = ("unicycle", "cars", "pvtol")
+PRESETS = ("unicycle", "cars", "pvtol", "nbc_unicycle", "nbc_pvtol",
+           "quadrotor")
+NBC = ("nbc_unicycle", "nbc_pvtol", "quadrotor")
 WEIGHTS = ("actor.pkl", "critic.pkl", "lyapunov.pkl", "node_model.pkl")
 
 
@@ -65,6 +75,8 @@ def test_cli_writes_the_jax_clis_files(port_runs, preset, tmp_path):
     run = run_dir(port_runs[preset])
     for name in ("progress.txt", "config.json", "checkpoint.npz") + WEIGHTS:
         assert os.path.isfile(os.path.join(run, name)), name
+    assert os.path.isfile(os.path.join(run, "barrier.pkl")) == \
+        (preset in NBC)
     jcli.main(tiny_args(preset, tmp_path))
     jrun = run_dir(tmp_path)
     assert os.path.relpath(jrun, tmp_path) == \
@@ -75,6 +87,12 @@ def test_cli_writes_the_jax_clis_files(port_runs, preset, tmp_path):
     values = dict(zip(header.split("\t"), map(float, rows[0].split("\t"))))
     assert values["episode_steps"] == 12 and values["updates"] > 0
     assert all(np.isfinite(v) for v in values.values())
+    if preset in NBC:
+        assert header.split("\t")[-3:] == ["barrier_td_loss", "updates",
+                                           "backup_steps"]
+        assert values["barrier_td_loss"] > 0
+    else:
+        assert "barrier_td_loss" not in values
     with open(os.path.join(run, "config.json")) as f, \
             open(os.path.join(jrun, "config.json")) as g:
         port_cfg, jax_cfg = json.load(f), json.load(g)
@@ -93,8 +111,8 @@ def test_jax_reads_the_ports_weight_files(port_runs, preset):
     args = jcli.build_parser().parse_args(tiny_args(preset, "unused"))
     cfg_j = jcli.config_from_args(args)
     template = j_create_train_state(cfg_j, jax.random.PRNGKey(1))
-    ts_j = j_load_weights(run, template)
-    for field in ("policy", "critic", "lyap", "node"):
+    ts_j = j_load_weights(run, template, include_barrier=preset in NBC)
+    for field in ("policy", "critic", "lyap", "node", "barrier"):
         assert jax.tree.structure(getattr(ts_j, field)) == \
             jax.tree.structure(getattr(template, field)), field
         for a, b in zip(jax.tree.leaves(getattr(ts_j, field)),
@@ -108,6 +126,12 @@ def test_jax_reads_the_ports_weight_files(port_runs, preset):
     rl, node = create_replays(cfg_t, "cpu")
     restore_checkpoint(os.path.join(run, "checkpoint.npz"), ts_t, rl, node,
                        gen)
+    # the barrier read from barrier.pkl is the checkpoint's; without the
+    # file (the other presets) JAX keeps its template's
+    barrier_t = [p.detach().numpy() for p in ts_t.barrier["w"]]
+    for a, b, c in zip(ts_j.barrier["w"], barrier_t, template.barrier["w"]):
+        np.testing.assert_array_equal(np.asarray(a),
+                                      b if preset in NBC else np.asarray(c))
 
     obs = np.random.default_rng(0).normal(
         size=(8, cfg_j.obs_dim)).astype(np.float32)
@@ -122,16 +146,23 @@ def test_jax_reads_the_ports_weight_files(port_runs, preset):
                                rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("preset", ["unicycle", "cars"])
-def test_resume_is_bit_exact(preset, tmp_path):
+@pytest.mark.parametrize("preset,extra", [
+    ("unicycle", []), ("cars", []), ("nbc_unicycle", []),
+    ("quadrotor", ["--spawn_curriculum_episodes", "1",
+                   "--spawn_curriculum_mode", "mix", "--kill_attitude",
+                   "1.5", "--pretanh_reg", "0.001", "--probe_pretanh_reg",
+                   "0.01"])])
+def test_resume_is_bit_exact(preset, extra, tmp_path):
     """Two episodes straight == one episode, then --resume for one more:
     the same progress.txt rows and the same final checkpoint, array for
     array (parameters, Adam states, multipliers, replays, generator,
-    counters)."""
+    counters). The quadrotor's second episode is past its one-episode
+    anneal, so its spawn takes the mix's alpha draw as well as the
+    jitter's, both from the restored generator."""
     common = ["--preset", preset, "--cpu", "--quiet",
               "--max_episode_steps", "12", "--batch_size", "4",
               "--start_steps", "4", "--hidden_size", "16",
-              "--NODE_model_update_interval", "5"]
+              "--NODE_model_update_interval", "5", *extra]
     cli.main(common + ["--output", str(tmp_path / "a"), "--max_episodes",
                        "2"])
     cli.main(common + ["--output", str(tmp_path / "b"), "--max_episodes",
@@ -151,7 +182,37 @@ def test_resume_is_bit_exact(preset, tmp_path):
         assert sorted(a.files) == sorted(c.files)
         for name in a.files:
             np.testing.assert_array_equal(a[name], c[name], err_msg=name)
-        assert list(a["counters"][1:]) == [24, 1]  # total steps, episode
+        assert a["counters"][2] == 1  # the episode
+        assert a["counters"][1] == sum(  # total steps
+            float(r.split("\t")[1]) for r in rows[1:])
+
+
+@pytest.mark.parametrize("preset", ["nbc_unicycle", "unicycle"])
+def test_port_reads_its_weight_files(port_runs, preset):
+    """The port's load_model_weights(..., include_barrier=True) restores
+    the run's final weights (the checkpoint's), the barrier's from
+    barrier.pkl where the run wrote one; without the file the barrier
+    keeps its own values."""
+    run = run_dir(port_runs[preset])
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        tiny_args(preset, "unused")))
+    final = create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    rl, node = create_replays(cfg, "cpu")
+    restore_checkpoint(os.path.join(run, "checkpoint.npz"), final, rl, node,
+                       torch.Generator().manual_seed(0))
+    ts = create_train_state(cfg, torch.Generator().manual_seed(9), "cpu")
+    own_barrier = [p.detach().clone() for p in tree_leaves(ts.barrier)]
+    assert load_model_weights(run, ts, include_barrier=True) is ts
+    fields = ["policy", "critic", "lyap", "node"]
+    if preset in NBC:
+        fields.append("barrier")
+    else:
+        for a, b in zip(tree_leaves(ts.barrier), own_barrier):
+            assert torch.equal(a, b)
+    for field in fields:
+        for a, b in zip(tree_leaves(getattr(ts, field)),
+                        tree_leaves(getattr(final, field))):
+            assert torch.equal(a, b), field
 
 
 def test_restore_checks_the_checkpoint_against_the_config(port_runs):
@@ -171,9 +232,7 @@ def test_restore_checks_the_checkpoint_against_the_config(port_runs):
      "--process_id", "0"],
     ["--mode", "eval"], ["--wandb"], ["--tensorboard"],
     ["--profile_dir", "trace"], ["--node_solver", "dopri5"],
-    ["--preset", "quadrotor"], ["--preset", "nbc_unicycle"],
-    ["--preset", "nbc_pvtol"], ["--pretanh_reg", "0.1"],
-    ["--probe_pretanh_reg", "0.1"], ["--kill_penalty", "10"],
+    ["--node_adaptive_impl", "scan"], ["--node_adaptive_scan_steps", "8"],
 ])
 def test_unported_flags_fail_before_any_run_dir(extra, tmp_path):
     out = tmp_path / "out"

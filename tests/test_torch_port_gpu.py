@@ -8,7 +8,10 @@ JAX is not installed:
 
 Tolerance: rtol 1e-5 / atol 1e-5, float32 on both sides; the kernel
 (three TF32 tensor-core passes a product) and cuBLAS sum each layer's
-products in different orders.
+products in different orders. A full-width update on the card against the
+same update on the CPU: rtol 1e-3 / atol 1e-4 on its metrics (cuBLAS and
+the CPU's BLAS sum in different orders, and the difference passes through
+Adam's normalisation and the constraint's /dt).
 """
 
 import dataclasses
@@ -180,19 +183,119 @@ def test_node_euler_kernel_on_the_pvtol_chain():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("preset", ["unicycle", "cars", "pvtol"])
+@pytest.mark.parametrize("dims,rows", [((3, 2), 128), ((6, 2), 256)])
+def test_node_euler_kernel_at_the_learned_barrier_calls(dims, rows):
+    """The learned barrier's single call (nbc_unicycle: 128 rows, (3, 2);
+    nbc_pvtol: 256 rows, (6, 2)): x carries no gradient, u does."""
+    _require_gpu()
+    n_s, n_u = dims
+    gen = torch.Generator("cuda").manual_seed(rows + n_s)
+    params = _params(n_s, n_u, gen)
+    x = torch.randn(rows, n_s, device="cuda", generator=gen)
+    u = torch.randn(rows, n_u, device="cuda", generator=gen,
+                    requires_grad=True)
+    cot = torch.randn(rows, n_s, device="cuda", generator=gen)
+    before = nk.launch_counts["node_euler"]
+    y_k = nk.node_euler_step(params, x, u, 0.02)
+    torch.cuda.synchronize()
+    assert nk.launch_counts["node_euler"] == before + 1
+    y_p = nk.node_euler_step_plain(params, x, u, 0.02)
+    torch.testing.assert_close(y_k, y_p, rtol=1e-5, atol=1e-5)
+    (g_k,) = torch.autograd.grad((y_k * cot).sum(), [u])
+    (g_p,) = torch.autograd.grad((y_p * cot).sum(), [u])
+    torch.testing.assert_close(g_k, g_p, rtol=1e-5, atol=1e-5)
+
+
+def _to_device(ts, cfg, dev):
+    """A copy of a fresh TrainState on ``dev`` with fresh optimizers."""
+    from nlbac_tpu_torch.agent.state import make_optimizers
+    from nlbac_tpu_torch.tree import tree_map
+
+    def move(p):
+        return p.detach().to(dev, copy=True).requires_grad_(p.requires_grad)
+    fields = {name: tree_map(move, getattr(ts, name)) for name in (
+        "policy", "backup_policy", "critic", "critic_target", "lyap",
+        "lyap_target", "barrier", "barrier_target", "node", "log_alpha",
+        "backup_log_alpha")}
+    return type(ts)(**fields, opt=make_optimizers(cfg, fields),
+                    lag=type(ts.lag)(*(t.to(dev, copy=True)
+                                       for t in ts.lag)),
+                    updates=ts.updates)
+
+
+@pytest.mark.gpu
+def test_nbc_unicycle_update_on_the_card_matches_the_cpu():
+    """One full-width nbc_unicycle update (batch 128, NODE width 100, the
+    32768-row fit) on the card, through K1, against the CPU's plain
+    version: every metric, barrier_td_loss included."""
+    _require_gpu()
+    from nlbac_tpu_torch.agent import create_train_state, make_agent
+    from nlbac_tpu_torch.envs import unicycle
+
+    cfg = get_config("nbc_unicycle")
+    gen = torch.Generator().manual_seed(0)
+    ts_cpu = create_train_state(cfg, gen, "cpu")
+    ts_dev = _to_device(ts_cpu, cfg, "cuda")
+
+    def batch(n):
+        states = torch.stack([torch.rand(n, generator=gen) * 6 - 3,
+                              torch.rand(n, generator=gen) * 6 - 3,
+                              torch.rand(n, generator=gen) * 6 - 3], 1)
+        action = (torch.rand(n, 2, generator=gen) * 2 - 1) * \
+            torch.tensor([3.5, 12.0])
+        return {"obs": unicycle.state_to_obs(states), "action": action,
+                "reward": torch.randn(n, generator=gen),
+                "constraint": torch.rand(n, generator=gen),
+                "lyap_t": torch.randn(n, 2, generator=gen),
+                "lyap_t1": torch.randn(n, 2, generator=gen),
+                "barrier_signal": -20.0 * (torch.rand(n, generator=gen)
+                                           < 0.3).float(),
+                "next_obs": unicycle.state_to_obs(states + 0.02),
+                "mask": (torch.rand(n, generator=gen) > 0.1).float(),
+                "t": torch.zeros(n), "next_t": torch.full((n,), 0.02)}
+
+    b, nb = batch(cfg.sac.batch_size), batch(cfg.node.max_batch)
+    noise = {k: torch.randn(cfg.sac.batch_size, 2, generator=gen)
+             for k in ("next", "pi")}
+    noise["resample"] = torch.randn(1, cfg.sac.batch_size, 2, generator=gen)
+
+    def run(ts, device):
+        moved = {k: {n: v.to(device) for n, v in d.items()}
+                 for k, d in (("b", b), ("nb", nb))}
+        _, m = make_agent(cfg, device).update_core(
+            ts, moved["b"], lambda: moved["nb"], None, 0,
+            noise={k: v.to(device) for k, v in noise.items()})
+        return {k: v.item() for k, v in m.items()}
+
+    before = nk.launch_counts["node_euler"]
+    m_dev = run(ts_dev, "cuda")
+    assert nk.launch_counts["node_euler"] == before + 2  # fit, rollout
+    m_cpu = run(ts_cpu, "cpu")
+    assert m_cpu["barrier_td_loss"] > 0 and m_cpu["node_loss"] > 0
+    for k, v in m_cpu.items():
+        assert abs(m_dev[k] - v) <= 1e-4 + 1e-3 * abs(v), (k, m_dev[k], v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["unicycle", "cars", "pvtol",
+                                    "nbc_unicycle", "nbc_pvtol",
+                                    "quadrotor"])
 def test_cli_trains_each_preset_on_the_card(preset, tmp_path):
     """One short episode of each preset through nlbac-train-torch's
-    main() on the GPU (no --cpu): the run's files, a finite progress row,
-    and K1 launched where the preset's NODE is control-affine."""
+    main() on the GPU (no --cpu): the run's files (barrier.pkl for the
+    learned-barrier family), a finite progress row, and K1 launched where
+    the preset's NODE is control-affine."""
     _require_gpu()
     import glob
 
     from nlbac_tpu_torch.train import cli
 
     before = nk.launch_counts["node_euler"]
+    # random thrusts can crash the quadrotor into its kill box before the
+    # replay holds a batch, so it gets three episodes
+    episodes = "3" if preset == "quadrotor" else "1"
     cli.main(["--preset", preset, "--quiet", "--output", str(tmp_path),
-              "--max_episodes", "1", "--max_episode_steps", "40",
+              "--max_episodes", episodes, "--max_episode_steps", "40",
               "--start_steps", "20", "--batch_size", "16",
               "--replay_size", "1000"])
     (run,) = glob.glob(str(tmp_path / "*-run*" / "*" / "*_s*"))
@@ -200,9 +303,14 @@ def test_cli_trains_each_preset_on_the_card(preset, tmp_path):
                  "actor.pkl", "critic.pkl", "lyapunov.pkl",
                  "node_model.pkl"):
         assert (Path(run) / name).is_file(), name
-    header, row = (Path(run) / "progress.txt").read_text().splitlines()
+    nbc = preset in ("nbc_unicycle", "nbc_pvtol", "quadrotor")
+    assert (Path(run) / "barrier.pkl").is_file() == nbc
+    header, *rows = (Path(run) / "progress.txt").read_text().splitlines()
+    assert len(rows) == int(episodes)
+    row = rows[-1]
     values = dict(zip(header.split("\t"), map(float, row.split("\t"))))
     assert values["updates"] > 0
     assert all(v == v and abs(v) != float("inf") for v in values.values())
+    assert ("barrier_td_loss" in values) == nbc
     launched = nk.launch_counts["node_euler"] - before
-    assert (launched > 0) == (preset != "cars")
+    assert (launched > 0) == (preset not in ("cars", "quadrotor"))

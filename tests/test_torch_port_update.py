@@ -182,6 +182,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import nlbac_tpu_torch.envs.cars, nlbac_tpu_torch.envs.pvtol\n"
         "import nlbac_tpu_torch.constraints.cars\n"
         "import nlbac_tpu_torch.constraints.pvtol\n"
+        "import nlbac_tpu_torch.envs.quadrotor\n"
+        "import nlbac_tpu_torch.constraints.learned_barrier\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'optax',"
         " 'nlbac_tpu') or m.startswith(('jax.', 'nlbac_tpu.')))\n"
         "assert not bad, bad\n"
