@@ -42,11 +42,27 @@ Phases, one line each (any failure raises and exits nonzero):
    chunk until it has taken QUAD_MIN_STEPS env steps and QUAD_MIN_UPDATES
    updates (random warm-up thrusts crash it early); each followed by one
    full-width update on the card against the CPU;
-8. a JSON line of the kernel's numbers, the script's total time, then the
+8. the adaptive dopri5 solver on the card: ``solve_adaptive`` in its
+   ``while`` and ``scan`` forms on the unicycle control-affine field at
+   full width (hidden 100) over the NODE's span, at 128 and 32768 rows,
+   held against the same call on the CPU (values, time reached, trial
+   counts), the adjoint's parameter and y0 gradients held against the
+   scan form's autograd gradients, and each form's ms per call;
+9. unicycle under ``--node_solver dopri5 --node_adaptive_impl scan``
+   through the CLI (steps, updates, fits, integrations that ended short
+   of dt, env-steps/s, ms per update), then one full-width update on the
+   card against the CPU under the scan form and again under the while
+   form;
+10. unicycle under ``--host_loop`` (Euler, so K1 runs) through the CLI,
+   then ``--resume`` for one more episode: K1 launches, env-steps/s, the
+   checkpoint's ``host_loop`` mode, progress.txt from the native writer;
+11. unicycle under ``--host_loop --node_solver dopri5`` (the while form
+   and the adjoint) through the CLI: env-steps/s and ms per update;
+12. a JSON line of the kernel's numbers, the script's total time, then the
    result line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
-QUAD_* below); the widths are the presets'.
+QUAD_*, DOPRI5_RUN, HOST_RUNS below); the widths are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -68,14 +84,24 @@ from pathlib import Path
 
 import torch
 
+import numpy as np
+
+from nlbac_tpu_torch import runtime_native
 from nlbac_tpu_torch.agent import create_train_state, make_agent
 from nlbac_tpu_torch.agent.state import make_optimizers
 from nlbac_tpu_torch.config import get_config
-from nlbac_tpu_torch.nn import node_init
+from nlbac_tpu_torch.envs import get_env
+from nlbac_tpu_torch.nn import make_field, node_init, pack_input
+from nlbac_tpu_torch.ode import odeint_adjoint, solve_adaptive
 from nlbac_tpu_torch.ops import node_kernel
-from nlbac_tpu_torch.replay import sample
+from nlbac_tpu_torch.replay import create as create_replay
+from nlbac_tpu_torch.replay import sample, unpack_rows
 from nlbac_tpu_torch.train import cli, create_replays, make_episode_runner
-from nlbac_tpu_torch.train.checkpoint import restore_checkpoint
+from nlbac_tpu_torch.train.checkpoint import (
+    restore_checkpoint,
+    restore_host_checkpoint,
+)
+from nlbac_tpu_torch.train.host_loop import HostRings
 from nlbac_tpu_torch.tree import tree_leaves, tree_map
 
 # H100 SXM data-sheet peaks (dense): TF32 on the tensor cores, float32
@@ -110,11 +136,37 @@ RESAMPLES = {"unicycle": 0, "cars": 1, "pvtol": 2, "learned_barrier": 1}
 # The learned barrier's single K1 call: (n_s, n_u) and rows.
 NBC_CALLS = {"nbc_unicycle": ((3, 2), 128), "nbc_pvtol": ((6, 2), 256)}
 PVTOL_ROWS = 256
+# dopri5 on the card vs on the CPU (values; float32 both, different sums,
+# and the controller may pick other steps from float32-noise errors, each
+# accepted step within the solver's rtol 1e-5): rtol and atol below.
+DOPRI5_RTOL, DOPRI5_ATOL = 1e-4, 1e-5
+# The adjoint's gradients vs the scan form's, as a fraction of each
+# leaf's largest entry: at the NODE's 0.02 span the scan form's gradient
+# through the step sizes is float32 noise (up to 1.2e-1 of a leaf's
+# largest entry for the fit's loss on the CPU: python3
+# scripts/dopri5_probe.py).
+ADJOINT_FRAC = 5e-2
+DOPRI5_ROWS = (128, 32768)
+# dopri5 and host-loop CLI runs (unicycle at full width): (episodes,
+# steps per episode). Updates start once the replay holds more than a
+# batch (128 rows), 2 per step; start_steps is 1000, so every action is
+# random. A dopri5 update takes 0.3-0.8 s over a fit cycle (NVIDIA H100
+# 80GB HBM3, 700 W), so those runs stop 11 steps after the first update.
+DOPRI5_RUN = (1, 140)
+HOST_RUNS = {"euler": (2, 150), "dopri5": (1, 140)}
+# The dopri5 card-vs-CPU update fits the NODE on this many rows (the
+# CPU's dopri5 fit on 32768 rows at width 100 takes minutes).
+DOPRI5_CHECK_NODE_ROWS = 512
+# Warm-up updates, timed updates. Each timed window is a multiple of the
+# NODE's update_interval (10), so it holds its share of the 32768-row
+# fits wherever it starts; dopri5's window also times each update alone
+# to give the fit's cost apart.
+DOPRI5_UPDATE_TIMING = (1, 10)
 OUT = Path("chiprun_out") / "chip_smoke"
 SEED = 0
 SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
 HOST_CALLS = 1000
-UPDATE_TIMING = (3, 20)  # warm-up updates, timed updates
+UPDATE_TIMING = (3, 20)
 
 
 def phase(msg: str) -> None:
@@ -560,26 +612,55 @@ def profile_steps(cfg, ts, rl, node, dev, card, steps=10):
           f"on {card}")
 
 
-def time_updates(cfg, ts, rl, node, dev, card):
-    """Host ms per update of a trained state on its replays (the batch
-    sampling and every 10th update's NODE fit included): a host clock
-    around UPDATE_TIMING[1] updates after UPDATE_TIMING[0] warm-up ones,
-    ending in a synchronize."""
-    agent = make_agent(cfg, dev)
-    gen = torch.Generator(dev).manual_seed(SEED + 4)
-    warm, n = UPDATE_TIMING
+def timed_updates(update, cfg, ts) -> str:
+    """Host ms per ``update()`` (which steps ``ts``) over a window of
+    UPDATE_TIMING (Euler) or DOPRI5_UPDATE_TIMING updates after its
+    warm-up ones, ending in a synchronize; under dopri5 every update ends
+    in one, and the fit updates and the others are also timed apart.
+    Returns the phase line's text."""
+    warm, n = UPDATE_TIMING if cfg.node.solver == "euler" \
+        else DOPRI5_UPDATE_TIMING
+    interval = cfg.node.update_interval
+    limit = cfg.node.fit_episode_limit
+    if n % interval or (limit is not None and limit < 0):
+        raise RuntimeError(f"{n} timed updates hold no fixed share of the "
+                           f"NODE fits (every {interval}th, limit {limit})")
+    each = cfg.node.solver != "euler"
     for _ in range(warm):
-        agent.update(ts, rl, node, gen, 0)
+        update()
     torch.cuda.synchronize()
+    fit_ms, rest_ms = [], []
     t0 = time.perf_counter()
     for _ in range(n):
-        agent.update(ts, rl, node, gen, 0)
+        fit = ts.updates % interval == 0
+        t1 = time.perf_counter()
+        update()
+        if each:
+            torch.cuda.synchronize()
+            (fit_ms if fit else rest_ms).append(
+                (time.perf_counter() - t1) * 1e3)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n * 1e3
-    phase(f"{cfg.run.exp_name}: {ms:.2f} ms per update (host clock over "
-          f"{n} updates after {warm}, sampling and the NODE fit every "
-          f"{cfg.node.update_interval}th included) on {card}")
-    return ms
+    text = (f"{ms:.2f} ms per update (host clock over {n} updates after "
+            f"{warm}, {n // interval} NODE fit(s) of {cfg.node.max_batch} "
+            "rows included")
+    if each:
+        text += (f"; each update synchronized: the fit update "
+                 f"{np.mean(fit_ms):.2f} ms, the other {len(rest_ms)} "
+                 f"{np.mean(rest_ms):.2f} ms each")
+    return text + ")"
+
+
+def time_updates(cfg, ts, rl, node, dev, card):
+    """Host ms per update of a trained state on its replays (the batch
+    sampling and the NODE fits included)."""
+    agent = make_agent(cfg, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    text = timed_updates(lambda: agent.update(ts, rl, node, gen, 0), cfg, ts)
+    solver = cfg.node.solver
+    if solver == "dopri5":
+        solver += " " + cfg.node.adaptive_impl
+    phase(f"{cfg.run.exp_name} ({solver}): {text} on {card}")
 
 
 def check_preset(preset, argv, run, dev, card):
@@ -591,15 +672,16 @@ def check_preset(preset, argv, run, dev, card):
     update_on_card_vs_cpu(cfg, rl, node, dev)
 
 
-def update_on_card_vs_cpu(cfg, rl, node, dev):
+def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None):
     """One full-width update from a fresh state on the card (kernel) and
-    on the CPU (plain version), with the same batches and draws."""
+    on the CPU (plain version), with the same batches and draws; the NODE
+    fit on ``node_rows`` rows (default: the config's 32768)."""
     gen_cpu = torch.Generator().manual_seed(SEED + 1)
     ts_cpu = create_train_state(cfg, gen_cpu, "cpu")
     ts_dev = to_device(ts_cpu, cfg, dev)
     gen = torch.Generator(dev).manual_seed(SEED + 2)
     batch = sample(rl, gen, cfg.sac.batch_size)
-    node_batch = sample(node, gen, cfg.node.max_batch)
+    node_batch = sample(node, gen, node_rows or cfg.node.max_batch)
     noise = {k: torch.randn(cfg.sac.batch_size, cfg.action_dim,
                             generator=gen_cpu)
              for k in ("next", "pi", "backup")}
@@ -625,7 +707,9 @@ def update_on_card_vs_cpu(cfg, rl, node, dev):
         if err > UPDATE_ATOL + UPDATE_RTOL * abs(m_cpu[k]):
             raise RuntimeError(f"{cfg.env.name} update metric {k}: card "
                                f"{m_dev[k]} vs CPU {m_cpu[k]}")
-    phase(f"{cfg.run.exp_name} full-width update, card vs CPU: "
+    solver = (f" ({cfg.node.solver} {cfg.node.adaptive_impl}, NODE fit "
+              f"on {node_rows} rows)" if cfg.node.solver == "dopri5" else "")
+    phase(f"{cfg.run.exp_name} full-width update{solver}, card vs CPU: "
           f"{len(m_cpu)} metrics within rtol "
           f"{UPDATE_RTOL} atol {UPDATE_ATOL} (worst at {worst:.3f} of the "
           f"tolerance; node_loss {m_dev['node_loss']:.6g} vs "
@@ -731,6 +815,222 @@ def quad_run(card):
     return run, argv
 
 
+def events_ms(fn, calls, warm=True):
+    """Device ms per call: CUDA events around ``calls`` calls issued from
+    Python (the while form reads the device once per trial step, so it
+    cannot be captured in a graph), after one warm-up call if ``warm``."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def dopri5_on_card(dev, gen, card):
+    """The adaptive solver on the unicycle NODE field at full width over
+    the span dt: both forms on the card against the CPU (values, time
+    reached, trial counts), the adjoint's gradients against the scan
+    form's, and the time of each, forward and with the gradient."""
+    cfg = get_config("unicycle")
+    ncfg, dt = cfg.node, cfg.env.dt
+    field = make_field(ncfg)
+    params = node_params(3, 2, gen, dev)
+    params_cpu = tree_map(lambda p: p.detach().cpu(), params)
+    scale = torch.tensor(get_env("unicycle").SPEC.action_high, device=dev)
+    forms = {"while": 512, "scan": ncfg.adaptive_scan_steps}
+    for rows in DOPRI5_ROWS:
+        x = torch.randn(rows, 3, device=dev, generator=gen)
+        u = (torch.rand(rows, 2, device=dev, generator=gen) * 2 - 1) * scale
+        s0 = pack_input(ncfg, x, u)
+        cot = torch.randn(rows, 5, device=dev, generator=gen)
+        grads = {}
+        for impl, max_steps in forms.items():
+            kw = dict(impl=impl, max_steps=max_steps)
+            with torch.no_grad():
+                trace_d, trace_c = [], []
+                y_d, t_d = solve_adaptive(field, params, s0, 0.0, dt,
+                                          return_final_t=True,
+                                          trace=trace_d, **kw)
+                y_c, t_c = solve_adaptive(field, params_cpu, s0.cpu(), 0.0,
+                                          dt, return_final_t=True,
+                                          trace=trace_c, **kw)
+                n_d = sum(int(active) for _, _, active in trace_d)
+                n_c = sum(int(active) for _, _, active in trace_c)
+                err = (y_d.cpu() - y_c).abs().max().item()
+                torch.testing.assert_close(y_d.cpu(), y_c, rtol=DOPRI5_RTOL,
+                                           atol=DOPRI5_ATOL)
+                if min(float(t_d), float(t_c)) < float(np.float32(dt)):
+                    raise RuntimeError(f"dopri5 {impl} rows={rows}: reached "
+                                       f"t {float(t_d)} (card), "
+                                       f"{float(t_c)} (CPU) of {dt}")
+                ms = events_ms(lambda: solve_adaptive(field, params, s0, 0.0,
+                                                      dt, **kw), calls=5)
+
+            def with_gradient():
+                s_g = s0.clone().requires_grad_(True)
+                y = (odeint_adjoint(field, params, s_g, 0.0, dt,
+                                    method="dopri5") if impl == "while"
+                     else solve_adaptive(field, params, s_g, 0.0, dt, **kw))
+                grads[impl] = torch.autograd.grad(
+                    (y * cot).sum(), tree_leaves(params) + [s_g])
+
+            # the adjoint's backward takes seconds at 32768 rows: one call
+            once = impl == "while" and rows > 128
+            ms_grad = events_ms(with_gradient, calls=1 if once else 3,
+                                warm=not once)
+            phase(f"dopri5 {impl} rows={rows} (width 100, span {dt}): max "
+                  f"abs err {err:.3e} card vs CPU (rtol {DOPRI5_RTOL} atol "
+                  f"{DOPRI5_ATOL}), t reached {float(t_d):.9g} / "
+                  f"{float(t_c):.9g}, trials {n_d} / {n_c}; {ms:.3f} ms per "
+                  f"call forward, {ms_grad:.3f} ms with the gradient"
+                  f"{' (adjoint)' if impl == 'while' else ''} on {card}")
+        worst = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(grads["while"], grads["scan"]))
+        if not worst <= ADJOINT_FRAC:
+            raise RuntimeError(f"dopri5 rows={rows}: adjoint gradients off "
+                               f"the scan form's by {worst:.3e} of a leaf's "
+                               "largest entry")
+        phase(f"dopri5 rows={rows}: the adjoint's parameter and y0 gradients "
+              f"within {worst:.3e} of the scan form's (of each leaf's "
+              f"largest entry; limit {ADJOINT_FRAC}) on {card}")
+
+
+def dopri5_run(dev, card):
+    """Unicycle with the scan-form dopri5 NODE through the CLI, its time
+    per update, then one full-width update on the card against the CPU
+    under each form. K1 must not launch (each stage needs f + g u alone)."""
+    episodes, steps = DOPRI5_RUN
+    argv = ["--max_episodes", str(episodes), "--max_episode_steps",
+            str(steps), "--node_solver", "dopri5", "--node_adaptive_impl",
+            "scan"]
+    shorts = []
+    warn = cli.warn_short
+    cli.warn_short = lambda i, n: (shorts.append(n), warn(i, n))
+    try:
+        run, launches, n_steps, updates, seconds = cli_run(
+            "unicycle", argv, card, "unicycle_dopri5_scan")
+    finally:
+        cli.warn_short = warn
+    if launches or updates <= 0 or len(shorts) != episodes:
+        raise RuntimeError(f"dopri5 scan: {launches} K1 launches, {updates} "
+                           f"updates, {len(shorts)} episode counts")
+    phase(f"unicycle dopri5 scan: {n_steps} env steps, {updates} updates, "
+          f"{(updates + 9) // 10} NODE fits of 32768 rows (every 10th "
+          f"update), {sum(shorts):.0f} integrations ended short of dt, 0 K1 "
+          f"launches, {n_steps / seconds:.2f} env-steps/s on {card}")
+    cfg, ts, rl, node, _, _ = restored("unicycle", argv, run, dev)
+    time_updates(cfg, ts, rl, node, dev, card)
+    for impl in ("scan", "while"):
+        node_cfg = dataclasses.replace(cfg.node, adaptive_impl=impl)
+        update_on_card_vs_cpu(dataclasses.replace(cfg, node=node_cfg), rl,
+                              node, dev, DOPRI5_CHECK_NODE_ROWS)
+    return launches
+
+
+def host_checkpoint(run):
+    """(extra, counters) of a host-loop run's checkpoint.npz."""
+    with np.load(run / "checkpoint.npz") as z:
+        return (json.loads(bytes(z["extra"]).decode()),
+                [int(v) for v in z["counters"]])
+
+
+def time_host_updates(argv, run, dev, card):
+    """Host ms per update of a host-loop run's final state, as the host
+    loop runs it: a batch sampled from the native ring, one copy to the
+    card, ``update_presampled`` (the NODE fit every 10th included)."""
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["--preset", "unicycle", "--seed", str(SEED)] + argv))
+    spec = get_env(cfg.env.name).SPEC
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ts = create_train_state(cfg, gen, dev)
+    rings = HostRings(cfg, spec, seed=SEED)
+    node = create_replay(cfg.replay.node_capacity, spec.obs_dim,
+                         spec.action_dim, spec.lyap_dim, dev)
+    restore_host_checkpoint(str(run / "checkpoint.npz"), ts, rings.rl, node,
+                            gen, torch.Generator())
+    agent = make_agent(cfg, dev)
+
+    def update():
+        rows = torch.from_numpy(rings.rl.sample(cfg.sac.batch_size))
+        batch = unpack_rows(rings.layout, rows.pin_memory().to(
+            dev, non_blocking=True))
+        agent.update_presampled(ts, batch, node, gen, 0)
+
+    phase(f"{cfg.run.exp_name} host loop ({cfg.node.solver}): "
+          f"{timed_updates(update, cfg, ts)}, the ring's sampling and the "
+          f"copy included, on {card}")
+
+
+def host_loop_runs(dev, card):
+    """Unicycle under --host_loop: Euler (K1 on the path) for
+    HOST_RUNS['euler'] episodes, resumed for one more, then dopri5 (the
+    while form, adjoint gradients). Returns the K1 launches by run."""
+    episodes, steps = HOST_RUNS["euler"]
+    argv = ["--max_episodes", str(episodes), "--max_episode_steps",
+            str(steps), "--host_loop"]
+    opened = []
+    writer_init = runtime_native.NativeTsvWriter.__init__
+
+    def tap(self, path):
+        opened.append(Path(path).resolve())
+        writer_init(self, path)
+
+    runtime_native.NativeTsvWriter.__init__ = tap
+    try:
+        run, launches, n_steps, updates, _ = cli_run(
+            "unicycle", argv, card, "unicycle_host_loop")
+        fits = launches - 2 * updates
+        extra, counters = host_checkpoint(run)
+        if (updates <= 0 or fits != (updates + 9) // 10
+                or extra["mode"] != "host_loop"
+                or counters != [updates, n_steps, episodes - 1]
+                or (run / "progress.txt").resolve() not in opened):
+            raise RuntimeError(f"host loop: {updates} updates, {launches} K1 "
+                               f"launches, checkpoint {extra} {counters}, "
+                               f"native writer opened {opened}")
+        phase(f"unicycle host loop: {updates} updates, {fits} NODE fits of "
+              f"32768 rows, {launches} K1 launches "
+              f"({launches / n_steps:.2f} per env step); checkpoint.npz "
+              f"mode {extra['mode']}; progress.txt written by the native "
+              f"writer (runtime/host_buffer.cpp) on {card}")
+        resume_argv = ["--max_episodes", str(episodes + 1),
+                       "--max_episode_steps", str(steps), "--host_loop",
+                       "--resume", str(run / "checkpoint.npz")]
+        run2, launches2, steps2, updates2, _ = cli_run(
+            "unicycle", resume_argv, card, "unicycle_host_loop_resumed")
+    finally:
+        runtime_native.NativeTsvWriter.__init__ = writer_init
+    rows = progress_rows(run2)
+    _, counters = host_checkpoint(run2)
+    if ([r["Episode"] for r in rows] != [episodes] or launches2 <= 0
+            or counters != [updates2, n_steps + steps2, episodes]):
+        raise RuntimeError(f"host-loop resume: episodes "
+                           f"{[r['Episode'] for r in rows]}, checkpoint "
+                           f"counters {counters}, {launches2} launches")
+    phase(f"host-loop resume: episode {episodes} continued from episode "
+          f"{episodes - 1}'s checkpoint, {counters[1]} env steps and "
+          f"{counters[0]} updates in all")
+
+    episodes, steps = HOST_RUNS["dopri5"]
+    argv = ["--max_episodes", str(episodes), "--max_episode_steps",
+            str(steps), "--host_loop", "--node_solver", "dopri5"]
+    run3, launches3, _, updates3, _ = cli_run(
+        "unicycle", argv, card, "unicycle_host_loop_dopri5")
+    if launches3 or updates3 <= 0:
+        raise RuntimeError(f"host loop dopri5: {launches3} K1 launches, "
+                           f"{updates3} updates")
+    time_host_updates(argv, run3, dev, card)
+    return {"unicycle_host_loop": launches,
+            "unicycle_host_loop_resumed": launches2,
+            "unicycle_host_loop_dopri5": launches3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -775,6 +1075,10 @@ def main() -> int:
     run, argv = quad_run(card)
     by_path["quadrotor"] = 0
     check_preset("quadrotor", argv, run, dev, card)
+
+    dopri5_on_card(dev, gen, card)
+    by_path["unicycle_dopri5_scan"] = dopri5_run(dev, card)
+    by_path.update(host_loop_runs(dev, card))
 
     big = times[32768]
     print(json.dumps({"kernels": [{

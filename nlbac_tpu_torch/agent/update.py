@@ -19,7 +19,9 @@ counter ``ts.updates``, so no gate waits for the device. Parameters and
 optimizer state are updated in place; ``update_core`` returns the same
 ``TrainState`` and a dict of 0-d device tensors.
 
-The data-parallel entry points are not ported yet (ROADMAP.md).
+``update`` samples both replays on the device; ``update_presampled``
+takes an RL batch sampled elsewhere (the host loop's native ring). The
+data-parallel entry points are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -72,12 +74,17 @@ class Agent(NamedTuple):
     cfg: NLBACConfig
     select_action: Callable
     update: Callable
+    update_presampled: Callable
     update_core: Callable
     node_fit: Callable
 
 
-def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
-    env = get_env(cfg.env.name)
+def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
+    """``env_override`` stands in for the registry's env (a host-env
+    adapter, ``envs.host_adapter``): it exposes ``SPEC`` and, where its obs
+    is not the NODE state, ``obs_to_state``."""
+    env = env_override if env_override is not None else \
+        get_env(cfg.env.name)
     builder = get_builder(cfg.constraint.kind)
     ccfg, ncfg, scfg = cfg.constraint, cfg.node, cfg.sac
     device = resolve_device(device)
@@ -119,9 +126,14 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
     action_high = torch.tensor(env.SPEC.action_high, dtype=torch.float32,
                                device=device)
     # obs -> NODE-state adapter: PVTOL's NODE sees the 6-d dynamics
-    # state, without the operator
-    obs_to_node_state = (env.obs_to_dynamics_state
-                         if cfg.env.name == "pvtol" else env.obs_to_state)
+    # state, without the operator; a host env without one feeds its obs
+    if env_override is None and cfg.env.name == "pvtol":
+        obs_to_node_state = env.obs_to_dynamics_state
+    elif hasattr(env, "obs_to_state"):
+        obs_to_node_state = env.obs_to_state
+    else:
+        def obs_to_node_state(obs):
+            return obs
 
     def zero():
         return torch.zeros((), dtype=torch.float32, device=device)
@@ -142,12 +154,12 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
         return a[0]
 
     # ------------------------------------------------------------------
-    def node_fit_batch(node_params, node_opt, batch):
+    def node_fit_batch(node_params, node_opt, batch, shorts=None):
         x = obs_to_node_state(batch["obs"])
         x_next = obs_to_node_state(batch["next_obs"])
         t = batch["t"][:, None] if ncfg.time_input else None
         loss = node_loss(ncfg, node_params, x, batch["action"], x_next, dt,
-                         t=t, field=field)
+                         t=t, field=field, shorts=shorts)
         _step(node_opt, node_params, loss)
         return loss.detach()
 
@@ -159,9 +171,16 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
     # ------------------------------------------------------------------
     def update(ts: TrainState, rl_replay, node_replay, gen, i_episode: int
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Sample both buffers, then run the update; the NODE sample is
-        drawn only when the fit is gated on."""
+        """Sample the RL buffer, then ``update_presampled``."""
         batch = replay_lib.sample(rl_replay, gen, scfg.batch_size)
+        return update_presampled(ts, batch, node_replay, gen, i_episode)
+
+    def update_presampled(ts: TrainState, batch, node_replay, gen,
+                          i_episode: int
+                          ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The update over an RL batch sampled elsewhere (by ``update``, or
+        from the host loop's native ring); the NODE sample is drawn from
+        ``node_replay`` only when the fit is gated on."""
         return update_core(
             ts, batch,
             lambda: replay_lib.sample(node_replay, gen, ncfg.max_batch),
@@ -176,8 +195,11 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
         for the backup loss, and "resample"/"backup_resample" for the
         constraint chain's resampled controls, one (B, action_dim) draw
         per resampling step, in the primary and backup loss); the rest are
-        drawn from ``gen``."""
+        drawn from ``gen``. Its metrics hold, besides ``METRIC_NAMES``,
+        ``short_integrations``: how many of its adaptive NODE
+        integrations ended short of their span."""
         noise = noise or {}
+        shorts = []  # predict_next_state's ended-short flags
         obs, action = batch["obs"], batch["action"]
         if obs.shape[0] != scfg.batch_size:
             raise ValueError(
@@ -195,7 +217,7 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
             do_node = do_node and i_episode <= ncfg.fit_episode_limit
         if do_node:
             node_fit_loss = node_fit_batch(ts.node, ts.opt["node"],
-                                           node_batch_thunk())
+                                           node_batch_thunk(), shorts)
         else:
             node_fit_loss = zero()
 
@@ -255,7 +277,8 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
                            t=batch["t"][:, None],
                            next_t=batch["next_t"][:, None],
                            env_name=cfg.env.name,
-                           barrier_params=detach(ts.barrier))
+                           barrier_params=detach(ts.barrier),
+                           shorts=shorts)
 
         def make_resampler(policy, draws):
             """The chain's k-th resampled control, from the policy being
@@ -358,8 +381,12 @@ def make_agent(cfg: NLBACConfig, device="cuda") -> Agent:
                       else zero()),
             "node_loss": node_fit_loss, "barrier_td_loss": barrier_td_loss,
             "rho": rho_final, "lam_max": torch.max(lam_new.detach()),
+            "short_integrations": (torch.stack(shorts).sum() if shorts
+                                   else torch.zeros((), dtype=torch.int64,
+                                                    device=device)),
         }
         return ts, metrics
 
     return Agent(cfg=cfg, select_action=select_action, update=update,
+                 update_presampled=update_presampled,
                  update_core=update_core, node_fit=node_fit)

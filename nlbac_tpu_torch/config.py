@@ -47,18 +47,16 @@ class NodeConfig:
     lr: float = 1e-3  # UNI/sac_cbf_clf/sac_cbf_clf.py:133
     solver: str = "euler"  # UNI/sac_cbf_clf/sac_cbf_clf.py:132
     solver_steps: int = 1  # t_span=[0,dt] with a fixed-step method = 1 step
-    # dopri5 only (not ported yet): 'while' = data-dependent loop +
-    # adjoint VJP; 'scan' = fixed-trip-count masked-acceptance loop,
-    # directly reverse-differentiable.
+    # dopri5 only: 'while' = a loop that reads the device once per trial
+    # step, differentiated by the adjoint; 'scan' = a fixed number of
+    # masked trials, differentiated by autograd through them.
     adaptive_impl: str = "while"
-    # static trial-step bound for the scan impl — every trip is PAID in
-    # compute, so this is a realistic cap for dt=0.02 spans, not the
-    # while-loop's 512 backstop. CAVEAT (shared with torchdiffeq's own
-    # max_num_steps): a compiled loop cannot raise, so if the PI
-    # controller rejects enough trials to exhaust the bound the
-    # integration is silently PARTIAL (state at t < dt). Raise the
-    # bound (--node_adaptive_scan_steps) for stiff fields; the dt=0.02
-    # NODE spans in the archived fused-dopri5 run never came close.
+    # trial-step bound of the scan impl: every trial is paid for, so this
+    # is a realistic cap for dt=0.02 spans, not the while loop's 512
+    # backstop. An integration that exhausts it ends short of dt (state
+    # at t < dt); the drivers count such integrations on the device and
+    # print a warning for an episode that had any. Raise the bound
+    # (--node_adaptive_scan_steps) for stiff fields.
     adaptive_scan_steps: int = 16
     update_interval: int = 10  # --NODE_model_update_interval default
     max_batch: int = 32768  # UNI/sac_cbf_clf/sac_cbf_clf.py:206

@@ -11,7 +11,8 @@ barrier B(obs, u) replaces the analytic CBFs::
 
 The CLF residual follows the env: the unicycle's predicted lookahead point,
 PVTOL's reconstructed 11-d predicted obs (the operator propagated
-analytically), the quadrotor's predicted (x, z).
+analytically), the quadrotor's predicted (x, z), and for a host env whose
+obs is the NODE state (``identity``) the predicted obs.
 """
 
 from __future__ import annotations
@@ -27,38 +28,42 @@ from nlbac_tpu_torch.nn import barrier_apply, lyapunov_apply
 from nlbac_tpu_torch.nn import predict_next_state
 
 
-def _predict(ncfg, node_params, field, obs, action, dt, env_name, lookahead):
+def _predict(ncfg, node_params, field, obs, action, dt, env_name, lookahead,
+             shorts):
     """The live predicted obs and the CLF's input at t+1."""
     if env_name == "unicycle":
         pred = predict_next_state(ncfg, node_params,
                                   unicycle_env.obs_to_state(obs), action, dt,
-                                  field=field)  # (B, 3)
+                                  field=field, shorts=shorts)  # (B, 3)
         return (unicycle_env.state_to_obs(pred),
                 _lookahead(pred[:, :2], pred[:, 2], lookahead))
     if env_name == "quadrotor":
         pred = predict_next_state(ncfg, node_params,
                                   quad_env.obs_to_state(obs), action, dt,
-                                  field=field)  # (B, 6)
+                                  field=field, shorts=shorts)  # (B, 6)
         return quad_env.state_to_obs(pred), pred[:, [0, 2]]
     if env_name == "pvtol":
         state7 = pvtol_env.obs_to_state(obs)
         dyn1 = predict_next_state(ncfg, node_params, state7[:, :6], action,
-                                  dt, field=field)
+                                  dt, field=field, shorts=shorts)
         op1 = pvtol_env.propagate_operator(state7[:, 6], dyn1[:, 0])
         obs1 = pvtol_env.state_to_obs(torch.cat([dyn1, op1[:, None]], dim=1))
         return obs1, obs1
     if env_name == "identity":
-        raise NotImplementedError(
-            "learned_barrier's 'identity' branch serves the host-env adapter, "
-            "which is not ported yet (ROADMAP.md, Queue 1 item 16)")
+        # a host env whose obs IS the NODE state: predict in obs space,
+        # and the CLF reads the predicted obs
+        pred = predict_next_state(ncfg, node_params, obs, action, dt,
+                                  field=field, shorts=shorts)
+        return pred, pred
     raise ValueError(f"learned_barrier: unsupported env {env_name!r}")
 
 
 def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
           lyap_params, obs, action, lyap_t, dt, env_name: str = None,
-          barrier_params=None, resample=None, include_clf: bool = True, **_):
+          barrier_params=None, resample=None, include_clf: bool = True,
+          shorts=None, **_):
     obs1, clf_in_next = _predict(ncfg, node_params, field, obs, action, dt,
-                                 env_name, ccfg.lookahead)
+                                 env_name, ccfg.lookahead, shorts)
     with torch.no_grad():
         b_t = barrier_apply(barrier_params, obs, action)
     u1 = resample(obs1, 0).detach()

@@ -32,7 +32,7 @@ from nlbac_tpu_torch.nn import lyapunov_apply, predict_next_state
 
 
 def _chain(ncfg, node_params, field, state7, action, dt, resample,
-           horizon: int):
+           horizon: int, shorts=None):
     """Roll the NODE ``horizon`` steps, propagating the operator and
     resampling the controller (detached) at the predicted observations;
     ``resample(obs, k)`` draws the chain's k-th resampled control.
@@ -43,7 +43,8 @@ def _chain(ncfg, node_params, field, state7, action, dt, resample,
     op = state7[:, 6]
     u = action
     for k in range(horizon):
-        dyn = predict_next_state(ncfg, node_params, dyn, u, dt, field=field)
+        dyn = predict_next_state(ncfg, node_params, dyn, u, dt, field=field,
+                                 shorts=shorts)
         op = env.propagate_operator(op, dyn[:, 0])
         s = torch.cat([dyn, op[:, None]], dim=1)
         states.append(s)
@@ -66,13 +67,13 @@ def _hocbf3(hs, gamma_b):
 
 def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
           lyap_params, obs, action, lyap_t, dt, resample=None,
-          include_clf: bool = True, **_):
+          include_clf: bool = True, shorts=None, **_):
     if ccfg.horizon != 3:
         raise ValueError(
             f"pvtol HOCBF builder requires horizon=3 (rel-degree-3 "
             f"composition); got {ccfg.horizon}")
     states = _chain(ncfg, node_params, field, env.obs_to_state(obs), action,
-                    dt, resample, horizon=ccfg.horizon)
+                    dt, resample, horizon=ccfg.horizon, shorts=shorts)
 
     collision_radius = ccfg.collision_buffer * env.HAZARD_RADIUS
     op_margin = ccfg.operator_margin * env.OPERATOR_DIST

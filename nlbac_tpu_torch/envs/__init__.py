@@ -1,5 +1,10 @@
 from nlbac_tpu_torch.envs import cars, pvtol, quadrotor, unicycle  # noqa: F401
 from nlbac_tpu_torch.envs.base import EnvSpec, StepOut  # noqa: F401
+from nlbac_tpu_torch.envs.host_adapter import (  # noqa: F401
+    HostEnvAdapter,
+    make_host_env,
+)
+from nlbac_tpu_torch.envs.host_shim import as_host_env  # noqa: F401
 
 _ENVS = {"unicycle": unicycle, "cars": cars, "pvtol": pvtol,
          "quadrotor": quadrotor}

@@ -7,7 +7,11 @@
 The integration state is ``concat(x, u[, t])`` and the field returns zeros
 in the control (and time) slots (zero-order-hold control). For the
 control-affine field under one Euler step, ``predict_next_state`` goes
-through the fused kernel ``ops.node_kernel.node_euler_step``.
+through the fused kernel ``ops.node_kernel.node_euler_step``; under
+``solver='dopri5'`` it runs the adaptive solver on the plain field (the
+``scan`` form differentiated by autograd, the ``while`` form through the
+adjoint) and, given a ``shorts`` list, appends to it on the device
+whether each integration ended short of its span.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from nlbac_tpu_torch.config import NodeConfig
 from nlbac_tpu_torch.nn.mlp import mlp_apply, mlp_init, mlp_sizes
 from nlbac_tpu_torch.ode import solvers
+from nlbac_tpu_torch.ode.adjoint import odeint_adjoint
 from nlbac_tpu_torch.ops.node_kernel import node_euler_step
 from nlbac_tpu_torch.tree import tree_leaves
 
@@ -98,28 +103,39 @@ def pack_input(cfg: NodeConfig, x, u, t=None):
 
 
 def predict_next_state(cfg: NodeConfig, params, x, u, dt, t=None,
-                       field=None):
+                       field=None, shorts=None):
     """Integrate the packed state over [0, dt] and return the predicted next
-    physical state (the first ``state_dim`` slots)."""
+    physical state (the first ``state_dim`` slots). Under dopri5, when
+    ``shorts`` is a list, append to it a 0-d bool device tensor: whether
+    the integration ended short of dt (``max_steps`` ran out)."""
     if cfg.form == "control_affine" and cfg.solver == "euler" and \
             cfg.solver_steps == 1:
         return node_euler_step(params, x.contiguous(), u.contiguous(), dt,
                                compute_dtype=cfg.compute_dtype)
-    if cfg.solver == "dopri5":
-        raise NotImplementedError("the adaptive dopri5 solver is not ported "
-                                  "yet (ROADMAP.md)")
     if field is None:
         field = make_field(cfg)
     s0 = pack_input(cfg, x, u, t)
-    s1 = solvers.odeint(field, params, s0, 0.0, dt, method=cfg.solver,
-                        num_steps=cfg.solver_steps)
+    if cfg.solver == "dopri5":
+        if cfg.adaptive_impl == "scan":
+            s1, t_reached = solvers.solve_adaptive(
+                field, params, s0, 0.0, dt, impl="scan",
+                max_steps=cfg.adaptive_scan_steps, return_final_t=True)
+        else:
+            s1, t_reached = odeint_adjoint(field, params, s0, 0.0, dt,
+                                           method="dopri5",
+                                           return_final_t=True)
+        if shorts is not None:
+            shorts.append(t_reached < dt)
+    else:
+        s1 = solvers.odeint(field, params, s0, 0.0, dt, method=cfg.solver,
+                            num_steps=cfg.solver_steps)
     return s1[..., :cfg.state_dim]
 
 
 def node_loss(cfg: NodeConfig, params, x, u, x_next, dt, t=None,
-              field=None):
+              field=None, shorts=None):
     """Mean-squared one-step prediction error."""
-    pred = predict_next_state(cfg, params, x, u, dt, t, field)
+    pred = predict_next_state(cfg, params, x, u, dt, t, field, shorts)
     return torch.mean(torch.square(pred - x_next))
 
 

@@ -1,0 +1,115 @@
+"""Optimize-then-discretize (adjoint, backsolve) gradients (port of
+``nlbac_tpu/ode/adjoint.py``).
+
+For y' = f(theta, t, y) and a loss L(y(t1)), the adjoint a(t) = dL/dy(t)
+follows da/dt = -a^T df/dy with a(t1) = dL/dy1, and dL/dtheta is the
+integral of a^T df/dtheta over [t0, t1]. The backward pass integrates the
+augmented state (y, a, g_theta) over s = t0 + t1 - t, forward in s from
+(y1, dL/dy1, 0):
+
+    d/ds (y, a, g) = (-f, +a^T df/dy, +a^T df/dtheta)
+
+with the forward's method (Chen et al., Neural ODEs, 2018). Under dopri5
+every leaf of the augmented state, g_theta included, enters the error
+norm, so the backward solve's steps depend on g_theta, as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nlbac_tpu_torch.ode import solvers
+from nlbac_tpu_torch.tree import tree_leaves, tree_unflatten
+
+
+def _integrate(field, params, y, t0, t1, opts):
+    if opts["method"] == "dopri5":
+        return solvers.solve_adaptive(field, params, y, t0, t1,
+                                      rtol=opts["rtol"], atol=opts["atol"],
+                                      max_steps=opts["max_steps"],
+                                      return_final_t=True)
+    return solvers.solve_fixed(field, params, y, t0, t1,
+                               method=opts["method"],
+                               num_steps=opts["num_steps"]), None
+
+
+class _Adjoint(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, *leaves):
+        field, params, y0, t0, t1, opts = spec
+        n_y = len(tree_leaves(y0))
+        y0_ = tree_unflatten(y0, leaves[:n_y])
+        with torch.no_grad():
+            y1, t_reached = _integrate(field, params, y0_, t0, t1, opts)
+        y1_leaves = tree_leaves(y1)
+        ctx.spec, ctx.n_y = spec, n_y
+        ctx.save_for_backward(*y1_leaves, *leaves[n_y:])
+        spec[-1]["t_reached"] = t_reached
+        return tuple(y1_leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        field, params, y0, t0, t1, opts = ctx.spec
+        saved = ctx.saved_tensors
+        y1 = tree_unflatten(y0, saved[:ctx.n_y])
+        p_leaves = [p.detach() for p in saved[ctx.n_y:]]
+        g = tree_unflatten(y0, grads)
+
+        def rev_field(_, s, aug):
+            y, a, _gp = aug
+            t = t0 + t1 - s
+            with torch.enable_grad():
+                y_in = tree_unflatten(y, [v.detach().requires_grad_(True)
+                                          for v in tree_leaves(y)])
+                p_in = [p.requires_grad_(True) for p in
+                        (q.detach() for q in p_leaves)]
+                f = field(tree_unflatten(params, p_in), t, y_in)
+                wrt = tree_leaves(y_in) + p_in
+                vjp = torch.autograd.grad(tree_leaves(f), wrt,
+                                          tree_leaves(a), allow_unused=True)
+            vjp = [torch.zeros_like(w) if v is None else v
+                   for w, v in zip(wrt, vjp)]
+            n = len(tree_leaves(y))
+            return (tree_unflatten(y, [-v.detach()
+                                       for v in tree_leaves(f)]),
+                    tree_unflatten(y, vjp[:n]),
+                    torch.cat([v.reshape(-1) for v in vjp[n:]]))
+
+        # g_theta as one flat tensor: the same elements in the error norm,
+        # a few launches a stage instead of a few per parameter leaf
+        sizes = [p.numel() for p in p_leaves]
+        aug0 = (y1, g, torch.zeros(sum(sizes), dtype=saved[0].dtype,
+                                   device=saved[0].device))
+        with torch.no_grad():
+            (_, a0, grad_p), _ = _integrate(rev_field, None, aug0, t0, t1,
+                                            opts)
+        grad_p = [v.reshape(p.shape) for v, p in
+                  zip(torch.split(grad_p, sizes), p_leaves)]
+        return (None, *tree_leaves(a0), *grad_p)
+
+
+def odeint_adjoint(field, params, y0, t0, t1, *, method: str = "euler",
+                   num_steps: int = 1, rtol: float = 1e-5,
+                   atol: float = 1e-7, max_steps: int = 512,
+                   return_final_t: bool = False):
+    """Integration with adjoint (backsolve) gradients: the forward values
+    of ``solvers.odeint`` (the forward integrates without a graph), and a
+    backward that integrates the augmented system instead of storing the
+    forward's stages. Fixed-step methods (``num_steps`` applies) and
+    ``'dopri5'`` (``rtol``/``atol``/``max_steps`` govern the forward and
+    the backward solves; the ``while`` form). ``params`` is a tree of
+    tensors; gradients reach those of its leaves and of ``y0``'s that
+    require them. ``return_final_t=True`` (dopri5) also returns the time
+    the forward solve reached, on the device."""
+    if method != "dopri5" and method not in solvers.FIXED_STEPS:
+        raise ValueError(f"unknown method {method!r}")
+    opts = {"method": method, "num_steps": num_steps, "rtol": rtol,
+            "atol": atol, "max_steps": max_steps}
+    p_leaves = tree_leaves(params)
+    spec = (field, params, y0, t0, t1, opts)
+    y1 = tree_unflatten(y0, _Adjoint.apply(spec, *tree_leaves(y0),
+                                           *p_leaves))
+    if return_final_t:
+        return y1, opts["t_reached"]
+    return y1

@@ -1,41 +1,72 @@
-"""Fixed-step explicit Runge-Kutta solvers (port of the fixed-step half of
-``nlbac_tpu/ode/solvers.py``).
+"""ODE solvers (port of ``nlbac_tpu/ode/solvers.py``): the fixed-step
+explicit Runge-Kutta family and the adaptive Dormand-Prince 5(4) solver
+with a PI step controller.
 
-``field(params, t, y) -> dy/dt`` over a tensor state. The reference's hot
-configuration is one Euler step over [0, dt]. The adaptive dopri5 solver
-and the adjoint are not ported yet (ROADMAP.md)."""
+``field(params, t, y) -> dy/dt``. The state ``y`` may be a tensor or a
+tuple, list or dict of tensors (the adjoint's augmented state is a tuple);
+the field returns the same structure. The reference's hot configuration is
+one Euler step over [0, dt].
+
+The fixed-step family and the ``scan`` form of the adaptive solver are
+differentiable by autograd through their loops (discretize-then-optimize);
+the ``while`` form is differentiated through ``ode.adjoint.odeint_adjoint``
+(``nn.predict_next_state`` routes it there). When ``max_steps`` trial
+steps run out before the span is covered, the adaptive solver returns the
+partially integrated state; ``return_final_t=True`` also returns the time
+reached, which stays on the device.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
+
+import torch
+
+from nlbac_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Field = Callable  # field(params, t, y) -> dy/dt
 
 
+def _axpy(a, x, y):
+    """Tree y + a * x."""
+    return tree_map(lambda xi, yi: yi + a * xi, x, y)
+
+
+def _comb(y, dt, pairs):
+    """Tree y + dt * sum(w * k for w, k in pairs), one term at a time."""
+    out = y
+    for w, k in pairs:
+        out = _axpy(dt * w, k, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fixed-step explicit Runge-Kutta steps
+# ---------------------------------------------------------------------------
+
 def euler_step(field: Field, params, t, y, dt):
     """One explicit Euler step: y + dt * f(t, y)."""
-    return y + dt * field(params, t, y)
+    return _axpy(dt, field(params, t, y), y)
 
 
 def midpoint_step(field: Field, params, t, y, dt):
     k1 = field(params, t, y)
-    k2 = field(params, t + 0.5 * dt, y + (0.5 * dt) * k1)
-    return y + dt * k2
+    k2 = field(params, t + 0.5 * dt, _axpy(0.5 * dt, k1, y))
+    return _axpy(dt, k2, y)
 
 
 def heun_step(field: Field, params, t, y, dt):
     k1 = field(params, t, y)
-    k2 = field(params, t + dt, y + dt * k1)
-    return y + (dt * 0.5) * k1 + (dt * 0.5) * k2
+    k2 = field(params, t + dt, _axpy(dt, k1, y))
+    return _comb(y, dt, [(0.5, k1), (0.5, k2)])
 
 
 def rk4_step(field: Field, params, t, y, dt):
     k1 = field(params, t, y)
-    k2 = field(params, t + 0.5 * dt, y + (0.5 * dt) * k1)
-    k3 = field(params, t + 0.5 * dt, y + (0.5 * dt) * k2)
-    k4 = field(params, t + dt, y + dt * k3)
-    return (y + (dt * (1 / 6)) * k1 + (dt * (1 / 3)) * k2
-            + (dt * (1 / 3)) * k3 + (dt * (1 / 6)) * k4)
+    k2 = field(params, t + 0.5 * dt, _axpy(0.5 * dt, k1, y))
+    k3 = field(params, t + 0.5 * dt, _axpy(0.5 * dt, k2, y))
+    k4 = field(params, t + dt, _axpy(dt, k3, y))
+    return _comb(y, dt, [(1 / 6, k1), (1 / 3, k2), (1 / 3, k3), (1 / 6, k4)])
 
 
 FIXED_STEPS = {
@@ -58,12 +89,247 @@ def solve_fixed(field: Field, params, y0, t0, t1, *, method: str = "euler",
     return y
 
 
+def _device(y):
+    return tree_leaves(y)[0].device
+
+
+def odeint_grid(field: Field, params, y0, ts, *, method: str = "euler",
+                steps_per_interval: int = 1):
+    """Integrate through the time grid ``ts`` (T points) and return the
+    states at every point stacked on a new axis 0 of each leaf:
+    ``out[0] == y0`` and ``out[i]`` is the solution at ``ts[i]``. Times
+    and steps are float32, as in the JAX package."""
+    step_fn = FIXED_STEPS[method]
+    ts = torch.as_tensor(ts, dtype=torch.float32, device=_device(y0))
+    ys, y = [y0], y0
+    for i in range(ts.shape[0] - 1):
+        t, t_b = ts[i], ts[i + 1]
+        dt = (t_b - t) / steps_per_interval
+        for _ in range(steps_per_interval):
+            y = step_fn(field, params, t, y, dt)
+            t = t + dt
+        ys.append(y)
+    return tree_map(lambda *leaves: torch.stack(leaves), *ys)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive Dormand-Prince 5(4)
+# ---------------------------------------------------------------------------
+
+_DP_C = [0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0]
+_DP_A = [
+    [],
+    [1 / 5],
+    [3 / 40, 9 / 40],
+    [44 / 45, -56 / 15, 32 / 9],
+    [19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729],
+    [9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656],
+    [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84],
+]
+_DP_B5 = [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0]
+_DP_B4 = [5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
+          187 / 2100, 1 / 40]
+
+
+def _dopri5_step(field: Field, params, t, y, dt):
+    """One dopri5 trial step; returns (5th-order y, 4th-order y)."""
+    ks = []
+    for i in range(7):
+        yi = y
+        for j, a in enumerate(_DP_A[i]):
+            yi = _axpy(dt * a, ks[j], yi)
+        ks.append(field(params, t + _DP_C[i] * dt, yi))
+    y5 = _comb(y, dt, list(zip(_DP_B5, ks)))
+    y4 = _comb(y, dt, list(zip(_DP_B4, ks)))
+    return y5, y4
+
+
+def _err_norm(y5, y4, y, rtol, atol):
+    """RMS over every leaf element of the scaled error, floored so that
+    its square root stays differentiable at 0."""
+    total = 0
+    for a5, a4, a in zip(tree_leaves(y5), tree_leaves(y4), tree_leaves(y)):
+        scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(a5))
+        total = total + torch.sum(torch.square((a5 - a4) / scale))
+    n = sum(a.numel() for a in tree_leaves(y))
+    return torch.sqrt(torch.clamp(total / n, min=1e-24))
+
+
+def _trial(field, params, t, y, dt, rtol, atol):
+    y5, y4 = _dopri5_step(field, params, t, y, dt)
+    return y5, _err_norm(y5, y4, y, rtol, atol)
+
+
+class _GuardedTrial(torch.autograd.Function):
+    """One trial step (y5 and its error) whose gradient is dropped when the
+    error is not finite.
+
+    A trial whose stages overflow is rejected, so its y5 reaches the
+    result only through a select that sends it a zero cotangent; autograd
+    would still multiply that zero by the trial's infinities (0 * inf =
+    NaN) and the NaN would reach every gradient. Here the trial's graph is
+    built inside ``forward`` and differentiated in ``backward``; a trial
+    with a finite error passes its gradient through unchanged, one with a
+    non-finite error contributes none. The values are the plain trial's."""
+
+    @staticmethod
+    def forward(ctx, run, *inputs):
+        inner = [x.detach().requires_grad_(x.requires_grad) for x in inputs]
+        with torch.enable_grad():
+            y5, err = run(*inner)
+        outs = tree_leaves(y5) + [err]
+        ctx.graph = (inner, outs)
+        ctx.ok = torch.isfinite(err)
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inner, outs = ctx.graph
+        live = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        wanted = [x for x in inner if x.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in live], wanted,
+                                       [g for _, g in live],
+                                       allow_unused=True))
+        result = []
+        for x in inner:
+            g = next(got) if x.requires_grad else None
+            if g is not None:
+                g = torch.where(ctx.ok, g, 0.0)
+            result.append(g)
+        ctx.graph = None
+        return (None, *result)
+
+
+def _guarded_trial(field, params, t, y, dt, rtol, atol):
+    """``_trial``, through ``_GuardedTrial`` when a gradient is taken."""
+    y_leaves = tree_leaves(y)
+    all_p = tree_leaves(params)
+    slots = [i for i, p in enumerate(all_p)
+             if isinstance(p, torch.Tensor) and p.is_floating_point()]
+    inputs = [t, dt, *y_leaves, *(all_p[i] for i in slots)]
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in inputs)):
+        return _trial(field, params, t, y, dt, rtol, atol)
+    n_y = len(y_leaves)
+
+    def run(t_, dt_, *rest):
+        p_leaves = list(all_p)
+        for i, p in zip(slots, rest[n_y:]):
+            p_leaves[i] = p
+        return _trial(field, tree_unflatten(params, p_leaves), t_,
+                      tree_unflatten(y, rest[:n_y]), dt_, rtol, atol)
+
+    outs = _GuardedTrial.apply(run, *inputs)
+    return tree_unflatten(y, outs[:n_y]), outs[n_y]
+
+
+def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
+                   atol: float = 1e-7, max_steps: int = 512,
+                   safety: float = 0.9, min_factor: float = 0.2,
+                   max_factor: float = 10.0, return_final_t: bool = False,
+                   impl: str = "while", trace: Optional[list] = None):
+    """Adaptive dopri5 with a PI step-size controller, as the JAX package
+    computes it: first trial step 0.1 * |t1 - t0|, each step cut to the
+    span left, the factor ``0.9 * err^(-0.7/5) * err_prev^(0.4/5)``
+    clipped to [0.2, 10] (``err_prev`` starts at 1 and takes the accepted
+    errors floored at 1e-10), a step accepted when the RMS error over
+    every leaf of the state is <= 1. A reverse span integrates backward
+    (forward in sigma = |t - t0| on the direction-flipped field). Times,
+    steps and errors are float32 tensors on the state's device.
+
+    ``impl='while'`` is a Python loop of at most ``max_steps`` trials
+    that reads ``t < span`` on the host once per trial: one
+    synchronization with the device per trial step.
+
+    ``impl='scan'`` runs exactly ``max_steps`` trials with no host read:
+    a trial after the span is covered runs with its step forced to
+    exactly 0 and changes nothing (``torch.where`` keeps the state). It
+    is differentiable by autograd through the loop, every trial being
+    paid for, so ``max_steps`` should be a realistic bound (16 for the
+    NODE's 0.02 spans), not the while form's 512 backstop. A trial whose
+    error is not finite contributes no gradient (``_GuardedTrial``); the
+    values are unchanged.
+
+    ``return_final_t=True`` returns ``(y, t_reached)``; a ``t_reached``
+    short of ``t1`` means ``max_steps`` ran out. ``trace``, a list, gets
+    one ``(err, accepted, active)`` triple of 0-d tensors per trial."""
+    if impl not in ("while", "scan"):
+        raise ValueError(f"unknown adaptive impl {impl!r}")
+    dev = _device(y0)
+    t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+    t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
+    span = torch.abs(t1 - t0)
+    direction = torch.sign(t1 - t0)
+
+    def sigma_field(p, s, y):
+        return tree_map(lambda v: direction * v,
+                        field(p, t0 + direction * s, y))
+
+    def body(t, y, dt, err_prev):
+        dt = torch.minimum(dt, span - t)
+        y5, err = _guarded_trial(sigma_field, params, t, y, dt, rtol, atol)
+        accept = err <= 1.0
+        err_c = torch.clamp(err, min=1e-10)
+        # a NaN error (a trial that overflowed, or one after it) leaves
+        # the next step NaN, as in the JAX package; the selects keep the
+        # NaN out of the gradient (0 * NaN in the products' backward)
+        valid = ~torch.isnan(err)
+        err_s = torch.where(valid, err_c, torch.ones_like(err_c))
+        dt_s = torch.where(valid, dt, torch.ones_like(dt))
+        factor = safety * err_s ** (-0.7 / 5.0) * err_prev ** (0.4 / 5.0)
+        factor = torch.clamp(factor, min_factor, max_factor)
+        new_dt = torch.where(valid, dt_s * factor,
+                             torch.full_like(dt, float("nan")))
+        return (torch.where(accept, t + dt, t),
+                tree_map(lambda a, b: torch.where(accept, a, b), y5, y),
+                new_dt, torch.where(accept, err_c, err_prev), err, accept)
+
+    t = torch.zeros((), dtype=torch.float32, device=dev)
+    err_prev = torch.ones((), dtype=torch.float32, device=dev)
+    dt, y = span * 0.1, y0
+    if impl == "while":
+        for _ in range(max_steps):
+            if not bool(t < span):  # the per-trial host read
+                break
+            t, y, dt, err_prev, err, accept = body(t, y, dt, err_prev)
+            if trace is not None:
+                trace.append((err, accept, torch.ones_like(accept)))
+    else:
+        for _ in range(max_steps):
+            active = t < span
+            # a frozen trial steps by exactly 0 (span - t may be a hair
+            # below 0), so y5 = y4 = y and its discarded values stay finite
+            t2, y2, dt2, ep2, err, accept = body(
+                torch.where(active, t, span), y,
+                torch.where(active, dt, torch.zeros_like(dt)), err_prev)
+            t = torch.where(active, t2, t)
+            y = tree_map(lambda a, b: torch.where(active, a, b), y2, y)
+            dt = torch.where(active, dt2, dt)
+            err_prev = torch.where(active, ep2, err_prev)
+            if trace is not None:
+                trace.append((err, accept & active, active))
+    if return_final_t:
+        return y, t0 + direction * t
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Unified front-end
+# ---------------------------------------------------------------------------
+
 def odeint(field: Field, params, y0, t0, t1, *, method: str = "euler",
-           num_steps: int = 1):
-    """Solve from t0 to t1 and return the state at t1 (fixed methods)."""
+           num_steps: int = 1, rtol: float = 1e-5, atol: float = 1e-7,
+           max_steps: int = 512, impl: str = "while"):
+    """Integrate ``dy/dt = field(params, t, y)`` from t0 to t1.
+
+    method: 'euler' | 'midpoint' | 'heun' | 'rk4' (``num_steps`` equal
+    steps) or 'dopri5' (adaptive; ``rtol``/``atol``/``max_steps``/``impl``
+    apply, see ``solve_adaptive``)."""
     if method in FIXED_STEPS:
         return solve_fixed(field, params, y0, t0, t1, method=method,
                            num_steps=num_steps)
-    raise ValueError(
-        f"method {method!r} is not ported; fixed-step methods: "
-        f"{sorted(FIXED_STEPS)}")
+    if method == "dopri5":
+        return solve_adaptive(field, params, y0, t0, t1, rtol=rtol,
+                              atol=atol, max_steps=max_steps, impl=impl)
+    raise ValueError(f"unknown method {method!r}; options: "
+                     f"{sorted(FIXED_STEPS) + ['dopri5']}")

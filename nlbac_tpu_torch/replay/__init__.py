@@ -4,6 +4,7 @@ from nlbac_tpu_torch.replay.buffer import (  # noqa: F401
     create,
     make_layout,
     push,
+    push_row,
     record_from_step,
     sample,
     unpack_rows,

@@ -97,8 +97,12 @@ def push(replay: Replay, record: dict, do_push: bool = True) -> Replay:
     (the RL buffer while the backup controller is active)."""
     if not do_push:
         return replay
-    replay.data[replay.position] = _pack(replay.layout, record,
-                                         replay.data.device)
+    return push_row(replay, _pack(replay.layout, record, replay.data.device))
+
+
+def push_row(replay: Replay, row: torch.Tensor) -> Replay:
+    """Write one packed row (record_width,) at the cursor, in place."""
+    replay.data[replay.position] = row
     capacity = replay.data.shape[0]
     replay.position = (replay.position + 1) % capacity
     replay.size = min(replay.size + 1, capacity)

@@ -7,8 +7,8 @@
   numpy arrays in the JAX package's ``(in, out)`` layout, written
   atomically. The JAX package's ``load_model_weights`` and ``nlbac-eval``
   read them.
-- ``save_checkpoint`` / ``restore_checkpoint``: the full training state in
-  the port's own ``.npz`` (numpy arrays only, loaded with
+- ``checkpoint_arrays`` / ``restore_checkpoint``: the full training state
+  in the port's own ``.npz`` (numpy arrays only, loaded with
   ``allow_pickle=False``): every parameter and target, every Adam state,
   the Lagrangian state, the host-side update counter, both replays with
   their host-side cursors and counts (the valid rows only), the
@@ -16,16 +16,26 @@
   writes into a state, replays and generator built from the config, and
   checks every array against them first, so a resumed run continues
   bit for bit.
-
-The save is synchronous; an asynchronous writer is queued in ROADMAP.md.
+- ``host_checkpoint_arrays`` / ``restore_host_checkpoint``: the same for
+  the host loop (``train/host_loop.py``), with the native RL ring's
+  snapshot (its valid rows, cursor and sampler state) in place of the
+  device RL replay and the host env's generator beside the trainer's.
+  The archive's ``extra`` records ``mode`` (``fused`` or ``host_loop``),
+  and each restore refuses the other mode's file.
+- ``AsyncCheckpointer``: writes either mode's arrays as one archive on a
+  background thread; the ``*_arrays`` functions take the host snapshot
+  before they return. ``write_checkpoint`` writes them in the caller's
+  thread.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import os
 import pickle
-from typing import Dict, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,9 +109,9 @@ def load_model_weights(output_dir: str, ts: TrainState,
     return ts
 
 
-def save_checkpoint(path: str, ts: TrainState, rl_replay: Replay,
-                    node_replay: Replay, gen: torch.Generator,
-                    total_steps: int, i_episode: int) -> None:
+def _state_arrays(ts: TrainState) -> Dict[str, np.ndarray]:
+    """Every parameter, target, Adam state and the Lagrangian state, as
+    fresh host arrays."""
     arrays: Dict[str, np.ndarray] = {}
     for field in TRAINED + TARGETS:
         for i, leaf in enumerate(tree_leaves(getattr(ts, field))):
@@ -118,20 +128,77 @@ def save_checkpoint(path: str, ts: TrainState, rl_replay: Replay,
                     else np.zeros(p.shape, np.float32))
     for f in LagrangianState._fields:
         arrays[f"lag.{f}"] = to_numpy(getattr(ts.lag, f))
-    for name, rep in zip(REPLAYS, (rl_replay, node_replay)):
-        # rows at and past `size` are never written while size < capacity
-        arrays[f"{name}.data"] = to_numpy(rep.data[:rep.size])
-        arrays[f"{name}.cursor"] = np.array(
-            [rep.position, rep.size, rep.total], np.int64)
-    arrays["gen"] = gen.get_state().numpy()
-    arrays["counters"] = np.array([ts.updates, total_steps, i_episode],
-                                  np.int64)
-    arrays["format"] = np.frombuffer(FORMAT.encode(), np.uint8)
+    return arrays
 
+
+def _replay_arrays(name: str, rep: Replay) -> Dict[str, np.ndarray]:
+    # rows at and past `size` are never written while size < capacity
+    return {f"{name}.data": to_numpy(rep.data[:rep.size]),
+            f"{name}.cursor": np.array([rep.position, rep.size, rep.total],
+                                       np.int64)}
+
+
+def _tail_arrays(ts: TrainState, gen: torch.Generator, total_steps: int,
+                 i_episode: int, extra: dict) -> Dict[str, np.ndarray]:
+    return {"gen": gen.get_state().numpy(),
+            "counters": np.array([ts.updates, total_steps, i_episode],
+                                 np.int64),
+            "format": np.frombuffer(FORMAT.encode(), np.uint8),
+            "extra": np.frombuffer(json.dumps(extra).encode(), np.uint8)}
+
+
+def checkpoint_arrays(ts: TrainState, rl_replay: Replay, node_replay: Replay,
+                      gen: torch.Generator, total_steps: int,
+                      i_episode: int) -> Dict[str, np.ndarray]:
+    """The training state as numpy arrays, copied to new host memory."""
+    arrays = _state_arrays(ts)
+    for name, rep in zip(REPLAYS, (rl_replay, node_replay)):
+        arrays.update(_replay_arrays(name, rep))
+    arrays.update(_tail_arrays(ts, gen, total_steps, i_episode,
+                               {"mode": "fused"}))
+    return arrays
+
+
+def write_checkpoint(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """Write ``arrays`` as one ``.npz``, atomically."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     _write_atomic(path, buf.getvalue())
+
+
+class AsyncCheckpointer:
+    """Writes checkpoint archives on a background thread, at most one at a
+    time (a new ``save`` waits for the last). The caller passes arrays it
+    has already copied to the host (``checkpoint_arrays``,
+    ``host_checkpoint_arrays``: fresh buffers, filled before they return),
+    so the writer never reads a parameter that the optimizers update in
+    place. ``wait`` joins the write and re-raises its failure."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, path: str, arrays: Dict[str, np.ndarray]) -> None:
+        self.wait()
+
+        def write():
+            try:
+                write_checkpoint(path, arrays)
+            except Exception as e:  # noqa: BLE001 - re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(
+                f"background checkpoint write failed: {err!r}") from err
 
 
 def _restore_replay(name: str, z, rep: Replay) -> None:
@@ -152,6 +219,53 @@ def _restore_replay(name: str, z, rep: Replay) -> None:
     rep.position, rep.size, rep.total = position, size, total
 
 
+def _mode(z, path: str) -> str:
+    if "format" not in z or bytes(z["format"]).decode() != FORMAT:
+        raise ValueError(f"{path} is not a {FORMAT} checkpoint")
+    return json.loads(bytes(z["extra"]).decode())["mode"]
+
+
+def _restore_state(z, ts: TrainState) -> None:
+    for field in TRAINED + TARGETS:
+        leaves = tree_leaves(getattr(ts, field))
+        _copy_leaves(f"checkpoint ts.{field}", leaves,
+                     [z[f"ts.{field}.{i}"] for i in range(len(leaves))])
+    for group, field in OPT_GROUPS.items():
+        params = tree_leaves(getattr(ts, field))
+        opt = ts.opt[group]
+        for i, p in enumerate(params):
+            moments = [z[f"opt.{group}.{k}.{i}"]
+                       for k in ("exp_avg", "exp_avg_sq")]
+            for m in moments:
+                if m.shape != tuple(p.shape):
+                    raise ValueError(
+                        f"checkpoint opt.{group}[{i}]: shape {m.shape}, "
+                        f"expected {tuple(p.shape)}")
+            opt.state[p] = {
+                "step": torch.tensor(float(z[f"opt.{group}.step.{i}"]),
+                                     dtype=torch.float32),
+                "exp_avg": torch.tensor(moments[0], device=p.device),
+                "exp_avg_sq": torch.tensor(moments[1], device=p.device),
+            }
+    lag = {}
+    for f in LagrangianState._fields:
+        want = getattr(ts.lag, f)
+        got = z[f"lag.{f}"]
+        if got.shape != tuple(want.shape):
+            raise ValueError(f"checkpoint lag.{f}: shape {got.shape}, "
+                             f"expected {tuple(want.shape)}")
+        lag[f] = torch.tensor(got, device=want.device)
+    ts.lag = LagrangianState(**lag)
+
+
+def _restore_tail(z, ts: TrainState, gen: torch.Generator
+                  ) -> Tuple[int, int]:
+    gen.set_state(torch.from_numpy(z["gen"].copy()))
+    updates, total_steps, i_episode = (int(v) for v in z["counters"])
+    ts.updates = updates
+    return total_steps, i_episode
+
+
 def restore_checkpoint(path: str, ts: TrainState, rl_replay: Replay,
                        node_replay: Replay, gen: torch.Generator
                        ) -> Tuple[int, int]:
@@ -159,41 +273,63 @@ def restore_checkpoint(path: str, ts: TrainState, rl_replay: Replay,
     from the run's config, which they are checked against); returns
     ``(total_steps, i_episode)``."""
     with np.load(path, allow_pickle=False) as z:
-        if "format" not in z or bytes(z["format"]).decode() != FORMAT:
-            raise ValueError(f"{path} is not a {FORMAT} checkpoint")
-        for field in TRAINED + TARGETS:
-            leaves = tree_leaves(getattr(ts, field))
-            _copy_leaves(f"checkpoint ts.{field}", leaves,
-                         [z[f"ts.{field}.{i}"] for i in range(len(leaves))])
-        for group, field in OPT_GROUPS.items():
-            params = tree_leaves(getattr(ts, field))
-            opt = ts.opt[group]
-            for i, p in enumerate(params):
-                moments = [z[f"opt.{group}.{k}.{i}"]
-                           for k in ("exp_avg", "exp_avg_sq")]
-                for m in moments:
-                    if m.shape != tuple(p.shape):
-                        raise ValueError(
-                            f"checkpoint opt.{group}[{i}]: shape {m.shape}, "
-                            f"expected {tuple(p.shape)}")
-                opt.state[p] = {
-                    "step": torch.tensor(float(z[f"opt.{group}.step.{i}"]),
-                                         dtype=torch.float32),
-                    "exp_avg": torch.tensor(moments[0], device=p.device),
-                    "exp_avg_sq": torch.tensor(moments[1], device=p.device),
-                }
-        lag = {}
-        for f in LagrangianState._fields:
-            want = getattr(ts.lag, f)
-            got = z[f"lag.{f}"]
-            if got.shape != tuple(want.shape):
-                raise ValueError(f"checkpoint lag.{f}: shape {got.shape}, "
-                                 f"expected {tuple(want.shape)}")
-            lag[f] = torch.tensor(got, device=want.device)
-        ts.lag = LagrangianState(**lag)
+        if _mode(z, path) != "fused":
+            raise ValueError(f"{path} is a host-loop checkpoint; resume it "
+                             "with --host_loop")
+        _restore_state(z, ts)
         for name, rep in zip(REPLAYS, (rl_replay, node_replay)):
             _restore_replay(name, z, rep)
-        gen.set_state(torch.from_numpy(z["gen"].copy()))
-        updates, total_steps, i_episode = (int(v) for v in z["counters"])
-    ts.updates = updates
-    return total_steps, i_episode
+        return _restore_tail(z, ts, gen)
+
+
+def host_checkpoint_arrays(ts: TrainState, ring, node_replay: Replay,
+                           gen: torch.Generator,
+                           env_gen: Optional[torch.Generator],
+                           total_steps: int, i_episode: int
+                           ) -> Dict[str, np.ndarray]:
+    """The host loop's training state as fresh host arrays: ``ring`` is
+    the native RL ring (``runtime_native.HostReplay``; its valid rows,
+    cursor and sampler state), ``env_gen`` the host env's generator (or
+    None)."""
+    arrays = _state_arrays(ts)
+    data, meta = ring.snapshot()
+    arrays["rl_ring.data"] = data[:int(meta[1])].copy()
+    arrays["rl_ring.meta"] = meta
+    arrays.update(_replay_arrays("node_replay", node_replay))
+    if env_gen is not None:
+        arrays["env_gen"] = env_gen.get_state().numpy()
+    arrays.update(_tail_arrays(ts, gen, total_steps, i_episode,
+                               {"mode": "host_loop"}))
+    return arrays
+
+
+def restore_host_checkpoint(path: str, ts: TrainState, ring,
+                            node_replay: Replay, gen: torch.Generator,
+                            env_gen: Optional[torch.Generator]
+                            ) -> Tuple[int, int]:
+    """Restore a host-loop checkpoint into ``ts``, the native ring (in
+    place), the NODE replay and both generators; returns ``(total_steps,
+    i_episode)``."""
+    with np.load(path, allow_pickle=False) as z:
+        if _mode(z, path) != "host_loop":
+            raise ValueError(f"{path} is not a host-loop checkpoint; resume "
+                             "it without --host_loop")
+        if ("env_gen" in z) != (env_gen is not None):
+            raise ValueError(f"{path}: the host env's generator state is "
+                             f"{'in' if 'env_gen' in z else 'not in'} the "
+                             "checkpoint but the env "
+                             f"{'has none' if env_gen is None else 'has one'}")
+        _restore_state(z, ts)
+        rows, meta = z["rl_ring.data"], z["rl_ring.meta"]
+        if rows.ndim != 2 or rows.shape[1] != ring.record_size or \
+                rows.shape[0] > ring.capacity:
+            raise ValueError(f"checkpoint rl_ring: {rows.shape} rows do not "
+                             f"fit a ({ring.capacity}, {ring.record_size}) "
+                             "ring (was the config changed since saving?)")
+        data = np.zeros((ring.capacity, ring.record_size), np.float32)
+        data[:rows.shape[0]] = rows
+        ring.restore(data, meta)
+        _restore_replay("node_replay", z, node_replay)
+        if env_gen is not None:
+            env_gen.set_state(torch.from_numpy(z["env_gen"].copy()))
+        return _restore_tail(z, ts, gen)

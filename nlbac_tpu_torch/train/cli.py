@@ -7,7 +7,10 @@ The flags, their defaults, the run-directory layout
 ``progress.txt`` columns, ``config.json``, the reference-layout weight
 files and the save cadence are the JAX CLI's; the full-state checkpoint
 is the port's own ``.npz`` (``train/checkpoint.py``). Training runs on
-the GPU unless ``--cpu`` is given.
+the GPU unless ``--cpu`` is given. ``--host_loop`` trains through the
+host-loop mode (``train/host_loop.py``: the preset's env behind the host
+gym API, the native RL ring, the updates on the device);
+``--wandb``/``--tensorboard`` add those channels when installed.
 
 Flags whose feature is not ported yet are still parsed, and raise an
 error naming the ROADMAP.md item that ports them.
@@ -23,18 +26,31 @@ from collections import deque
 
 import torch
 
-from nlbac_tpu_torch import resolve_device
+from nlbac_tpu_torch import resolve_device, runtime_native
 from nlbac_tpu_torch.agent import create_train_state
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.config import NLBACConfig, get_config
 from nlbac_tpu_torch.constraints import uses_barrier
+from nlbac_tpu_torch.envs import as_host_env, get_env
 from nlbac_tpu_torch.train.checkpoint import (
+    AsyncCheckpointer,
+    checkpoint_arrays,
     restore_checkpoint,
-    save_checkpoint,
     save_model_weights,
 )
-from nlbac_tpu_torch.train.driver import create_replays, make_episode_runner
-from nlbac_tpu_torch.train.logging import EpochLogger, StepTimer, colorize
+from nlbac_tpu_torch.train.driver import (
+    build_step_kwargs,
+    create_replays,
+    make_episode_runner,
+)
+from nlbac_tpu_torch.train.host_loop import train_host_env
+from nlbac_tpu_torch.train.logging import (
+    EpochLogger,
+    MetricsSink,
+    StepTimer,
+    colorize,
+    warn_short,
+)
 from nlbac_tpu_torch.utils.output import get_output_folder, setup_logger_kwargs
 
 # progress.txt's training columns, in the JAX CLI's order; the
@@ -134,12 +150,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default 30)")
     p.add_argument("--save_best_after", type=int, default=None,
                    help="ignore episodes < N for --save_best")
+    p.add_argument("--host_loop", action="store_true",
+                   help="train in the host-loop mode: the env on the host, "
+                        "the native C++ RL ring, the updates on the device")
     # parsed for the JAX CLI's command lines; not ported yet (ROADMAP.md)
     p.add_argument("--n_seeds", type=int, default=1)
     p.add_argument("--mode", default="train", choices=["train", "eval"])
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--host_loop", action="store_true")
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num_processes", type=int, default=1)
     p.add_argument("--process_id", type=int, default=None)
@@ -152,11 +170,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretanh_reg", type=float, default=None)
     p.add_argument("--probe_pretanh_reg", type=float, default=None)
     p.add_argument("--node_adaptive_impl", default=None,
-                   choices=["while", "scan"])
-    p.add_argument("--node_adaptive_scan_steps", type=int, default=None)
-    p.add_argument("--wandb", action="store_true")
+                   choices=["while", "scan"],
+                   help="dopri5 only: 'while' (a loop that reads the "
+                        "device once per trial step; adjoint gradients) "
+                        "or 'scan' (a fixed number of masked trials; "
+                        "autograd through them)")
+    p.add_argument("--node_adaptive_scan_steps", type=int, default=None,
+                   help="trial steps of the 'scan' form (default 16); an "
+                        "integration that runs out ends short of dt, and "
+                        "the episode prints a warning")
+    p.add_argument("--wandb", action="store_true",
+                   help="also log each episode to wandb when installed")
     p.add_argument("--wandb_project", default=None)
-    p.add_argument("--tensorboard", action="store_true")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also log each episode to <run dir>/tb when "
+                        "tensorboard is installed")
     p.add_argument("--profile_dir", default=None)
     return p
 
@@ -234,14 +262,7 @@ def check_ported(args, cfg: NLBACConfig) -> None:
     """Raise ``SystemExit`` for a flag whose feature the port does not
     have yet, naming the ROADMAP.md item that ports it."""
     unported = (
-        (cfg.node.solver == "dopri5" or args.node_adaptive_impl is not None
-         or args.node_adaptive_scan_steps is not None,
-         "the adaptive dopri5 solver (--node_solver dopri5, "
-         "--node_adaptive_*)", 15),
-        (args.host_loop, "--host_loop", 16),
         (args.mode == "eval", "--mode eval", 17),
-        (args.wandb or args.wandb_project is not None, "--wandb", 17),
-        (args.tensorboard, "--tensorboard", 17),
         (args.profile_dir is not None, "--profile_dir", 17),
         (args.n_seeds != 1, "--n_seeds", 18),
         (args.dp != 1 or args.tp != 1, "--dp/--tp", 18),
@@ -275,10 +296,31 @@ def _validate_save_best(cfg: NLBACConfig, output_dir) -> None:
             "be tracked)")
 
 
+def check_host_loop(args) -> None:
+    """The JAX CLI's refusals for ``--host_loop`` (single seed, single
+    device, training only, no best-window selection or profiling), raised
+    as ``SystemExit`` before any run directory is made."""
+    if args.mode == "eval":
+        raise SystemExit("--host_loop is a training flag; it has no effect "
+                         "with --mode eval")
+    if args.n_seeds > 1 or args.dp > 1 or args.tp > 1 \
+            or args.num_processes > 1:
+        raise SystemExit("--host_loop is single-seed, single-device: "
+                         "--n_seeds/--dp/--tp/--num_processes are "
+                         "fused-device-mode flags")
+    if args.save_best:
+        raise SystemExit("--save_best is a fused-device-mode feature; it is "
+                         "not supported with --host_loop")
+    for flag in ("profile_dir", "save_best_window", "save_best_after"):
+        if getattr(args, flag) is not None:
+            raise SystemExit(f"--{flag} is a fused-device-mode feature; it "
+                             "is not supported with --host_loop")
+
+
 def _episode_to_host(m) -> dict:
     """The episode's metrics as Python numbers, in one device read."""
     scalars = ("reward", "num_violations", "safety_cost", "reached",
-               "goal_met", "backup_steps")
+               "goal_met", "backup_steps", "short_integrations")
     flat = torch.cat(
         [torch.stack([getattr(m, k).to(torch.float32) for k in scalars]),
          m.viol_breakdown, m.cost_breakdown,
@@ -292,6 +334,14 @@ def _episode_to_host(m) -> dict:
     return host
 
 
+# pvtol's per-cause counts and costs in the wandb dict, in breakdown order
+PVTOL_BREAKDOWN = (
+    ("Collisions with Obstacles", "Obstacles"),
+    ("Violations concerning Safety Operator", "Safety Operator"),
+    ("Violations concerning ymin", "ymin"),
+    ("Violations concerning ymax", "ymax"))
+
+
 def train(cfg: NLBACConfig, output_dir: str | None = None,
           quiet: bool = False, checkpoint_path: str | None = None,
           resume_path: str | None = None, device="cuda"):
@@ -302,6 +352,15 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
     _validate_save_best(cfg, output_dir)
     logger = EpochLogger(output_dir, quiet=quiet)
     logger.save_config(cfg)
+    sink = MetricsSink(logger, use_wandb=cfg.run.log_wandb
+                       and output_dir is not None,
+                       wandb_project=cfg.run.wandb_project,
+                       wandb_config=cfg.to_dict(),
+                       tensorboard_dir=(os.path.join(output_dir, "tb")
+                                        if cfg.run.log_tensorboard
+                                        and output_dir is not None
+                                        else None))
+    ckpt_writer = AsyncCheckpointer()
     timer = StepTimer()
     is_nbc = uses_barrier(cfg.constraint.kind)
     train_columns = TRAIN_COLUMNS + (("barrier_td_loss",) if is_nbc else ())
@@ -338,6 +397,7 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
                 ts, rl_replay, node_replay, m, total_steps = run_episode(
                     ts, rl_replay, node_replay, gen, i_episode, total_steps)
                 m = _episode_to_host(m)
+            warn_short(i_episode, m["short_integrations"])
 
             if best_metric is not None and \
                     i_episode >= cfg.run.save_best_after:
@@ -366,9 +426,24 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
                         checkpoint_path = os.path.join(output_dir,
                                                        "checkpoint.npz")
                     with timer.time("checkpoint"):
-                        save_checkpoint(checkpoint_path, ts, rl_replay,
-                                        node_replay, gen, total_steps,
-                                        i_episode)
+                        ckpt_writer.save(checkpoint_path, checkpoint_arrays(
+                            ts, rl_replay, node_replay, gen, total_steps,
+                            i_episode))
+
+            wb = {"Episode Reward": m["reward"],
+                  "Episode Length": m["steps"],
+                  "Episode Safety Cost": m["safety_cost"],
+                  "Episode Number of Safety Violations":
+                      m["num_violations"],
+                  "Cumulated Number of steps": total_steps}
+            if cfg.env.name == "cars":
+                wb["Episode Number of reaching destination"] = m["reached"]
+            if cfg.env.name == "pvtol":
+                vb, cb = m["viol_breakdown"], m["cost_breakdown"]
+                for i, what in enumerate(PVTOL_BREAKDOWN):
+                    wb[f"Episode Number of {what[0]}"] = vb[i]
+                    wb[f"Episode Safety Cost Concerning {what[1]}"] = cb[i]
+            sink.log(wb)
 
             logger.store(Episode=i_episode, episode_steps=m["steps"],
                          reward_train=m["reward"],
@@ -385,18 +460,79 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
             logger.log_tabular("backup_steps", int(m["backup_steps"]))
             logger.dump_tabular()
     finally:
-        logger.close()
+        sink.close()
+        ckpt_writer.wait()
     for phase, total in timer.summary().items():
         print(colorize(f"{phase}: {total}", "cyan"))
     return ts, rl_replay, node_replay
 
 
+def train_host_loop(args, cfg: NLBACConfig, device) -> None:
+    """``--host_loop``: the preset's env behind the host gym API and
+    ``train_host_env``, with the fused mode's run layout (config.json,
+    progress.txt, weight files, checkpoint.npz in host-loop form)."""
+    env_module = get_env(cfg.env.name)
+    adapter = as_host_env(
+        env_module, seed=cfg.run.seed,
+        barrier_B=cfg.env.barrier_B if cfg.env.barrier_signals else 0.0,
+        barrier_b=cfg.env.barrier_b if cfg.env.barrier_signals else 0.0,
+        max_episode_steps=cfg.env.max_episode_steps,
+        step_kwargs=build_step_kwargs(cfg, env_module))
+    out = get_output_folder(args.output, cfg.env.name)
+    lk = setup_logger_kwargs(cfg.run.exp_name, cfg.run.seed, data_dir=out)
+    logger = EpochLogger(lk["output_dir"], quiet=args.quiet)
+    logger.save_config(cfg)
+    sink = MetricsSink(
+        use_wandb=args.wandb,
+        wandb_project=args.wandb_project or cfg.run.exp_name,
+        wandb_config=cfg.to_dict(),
+        tensorboard_dir=(os.path.join(lk["output_dir"], "tb")
+                         if args.tensorboard else None)
+    ) if (args.wandb or args.tensorboard) else None
+    checkpoint_path = args.checkpoint or os.path.join(lk["output_dir"],
+                                                      "checkpoint.npz")
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(colorize(f"NLBAC-TORCH preset={args.preset} env={cfg.env.name} "
+                   f"device={name} host-loop -> {out}", "green", bold=True))
+    try:
+        ts, _ = train_host_env(
+            cfg, adapter, logger=logger, quiet=args.quiet, sink=sink,
+            weights_dir=lk["output_dir"], checkpoint_path=checkpoint_path,
+            resume_path=args.resume, device=device)
+    finally:
+        if sink is not None:
+            sink.close()
+        logger.close()
+    save_model_weights(lk["output_dir"], ts,
+                       include_barrier=uses_barrier(cfg.constraint.kind))
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.host_loop:
+        check_host_loop(args)
     cfg = config_from_args(args)
     check_ported(args, cfg)
+    if args.host_loop:
+        if cfg.env.spawn_curriculum_episodes > 0 or \
+                cfg.env.spawn_curriculum_mode != "anneal":
+            raise SystemExit(
+                "--host_loop does not support the spawn curriculum (the "
+                "host gym API has no per-episode reset_curriculum "
+                "channel); drop the --spawn_curriculum_* flags or train "
+                "without --host_loop")
+        if not runtime_native.native_available():
+            raise SystemExit(
+                "--host_loop needs the native host data plane "
+                "(runtime/host_buffer.cpp, built with g++ into "
+                "nlbac_tpu_torch/_build/) and it could not be built; check "
+                "for a g++ toolchain")
     # before any run dir is made: raises without a GPU unless --cpu
     device = resolve_device("cpu" if args.cpu else "cuda")
+    if args.host_loop:
+        train_host_loop(args, cfg, device)
+        return
     out = get_output_folder(args.output, cfg.env.name)
     lk = setup_logger_kwargs(cfg.run.exp_name, cfg.run.seed, data_dir=out)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"

@@ -16,7 +16,8 @@ An env with a spawn curriculum (the quadrotor) resets through
 terms reach ``env.step`` only when set.
 
 The step reads the device once, for ``done`` and the backup flag together;
-everything else stays queued on the device. Capturing the step body in a
+everything else stays queued on the device (the dopri5 solver's ``while``
+form adds its own reads, one per trial step). Capturing the step body in a
 CUDA graph is queued in ROADMAP.md.
 """
 
@@ -53,6 +54,8 @@ class EpisodeMetrics(NamedTuple):
     backup_steps: torch.Tensor
     updates_done: int
     train: Dict[str, torch.Tensor]  # last update's metrics
+    # adaptive NODE integrations that ended short of their span (dopri5)
+    short_integrations: torch.Tensor
 
 
 def _f32(x: float) -> float:
@@ -142,6 +145,7 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
         goal_met = torch.zeros((), dtype=torch.bool, device=device)
         backup_steps = torch.zeros((), dtype=torch.int32, device=device)
         train_m = {k: zero for k in METRIC_NAMES}
+        shorts = torch.zeros((), dtype=torch.int64, device=device)
         episode_steps = updates_done = 0
         done = False
         while not done:
@@ -150,6 +154,7 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
                 for _ in range(scfg.updates_per_step):
                     ts, train_m = agent.update(ts, rl_replay, node_replay,
                                                gen, i_episode)
+                    shorts = shorts + train_m["short_integrations"]
                 updates_done += scfg.updates_per_step
 
             # --- 2. action selection (+ supervisor timer bumps) -----------
@@ -201,7 +206,8 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
             safety_cost=acc["safety_cost"], reached=acc["reached"],
             goal_met=goal_met, viol_breakdown=viol, cost_breakdown=cost,
             backup_steps=backup_steps, updates_done=updates_done,
-            train=train_m)
+            train=train_m,
+            short_integrations=shorts)
         return ts, rl_replay, node_replay, metrics, total_steps
 
     return run_episode

@@ -1,4 +1,4 @@
-"""Nested parameter containers: dicts of lists of tensors, as the JAX
+"""Nested containers: dicts of lists (or tuples) of tensors, as the JAX
 package's pytrees (``{"w": [...], "b": [...]}``, nested by name).
 
 Leaves are visited with dict keys in sorted order and lists in order, the
@@ -31,3 +31,23 @@ def tree_map(fn: Callable, tree, *rest):
 def detach(tree):
     """The same parameters without gradient tracking (a stop-gradient)."""
     return tree_map(lambda p: p.detach(), tree)
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure whose leaves, in ``tree_leaves``
+    order, are ``leaves``."""
+    it = iter(leaves)
+    end = object()
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(sub) for sub in node)
+        return next(it)
+
+    out = build(tree)
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the tree has")
+    return out

@@ -227,12 +227,10 @@ def test_restore_checks_the_checkpoint_against_the_config(port_runs):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--n_seeds", "2"], ["--dp", "2"], ["--tp", "2"], ["--host_loop"],
+    ["--n_seeds", "2"], ["--dp", "2"], ["--tp", "2"],
     ["--num_processes", "2", "--coordinator", "localhost:1234",
      "--process_id", "0"],
-    ["--mode", "eval"], ["--wandb"], ["--tensorboard"],
-    ["--profile_dir", "trace"], ["--node_solver", "dopri5"],
-    ["--node_adaptive_impl", "scan"], ["--node_adaptive_scan_steps", "8"],
+    ["--mode", "eval"], ["--profile_dir", "trace"],
 ])
 def test_unported_flags_fail_before_any_run_dir(extra, tmp_path):
     out = tmp_path / "out"

@@ -314,3 +314,101 @@ def test_cli_trains_each_preset_on_the_card(preset, tmp_path):
     assert ("barrier_td_loss" in values) == nbc
     launched = nk.launch_counts["node_euler"] - before
     assert (launched > 0) == (preset not in ("cars", "quadrotor"))
+
+
+def _dopri5_inputs(rows, gen):
+    cfg = get_config("unicycle")
+    params = _params(3, 2, gen)
+    x = torch.randn(rows, 3, device="cuda", generator=gen)
+    u = (torch.rand(rows, 2, device="cuda", generator=gen) * 2 - 1) * \
+        torch.tensor([3.5, 12.0], device="cuda")
+    return cfg, params, torch.cat([x, u], dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["while", "scan"])
+@pytest.mark.parametrize("rows", [128, 32768])
+def test_dopri5_on_the_card_matches_the_cpu(impl, rows):
+    """The adaptive solver on the unicycle NODE field at full width over
+    its 0.02 span: the card's values within rtol 1e-4 / atol 1e-5 of the
+    CPU's (float32 both; each accepted step within the solver's rtol
+    1e-5), both reaching dt."""
+    _require_gpu()
+    from nlbac_tpu_torch.nn import make_field
+    from nlbac_tpu_torch.ode import solve_adaptive
+    from nlbac_tpu_torch.tree import tree_map
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    cfg, params, s0 = _dopri5_inputs(rows, gen)
+    field = make_field(cfg.node)
+    kw = dict(impl=impl, max_steps=cfg.node.adaptive_scan_steps
+              if impl == "scan" else 512, return_final_t=True)
+    with torch.no_grad():
+        y_d, t_d = solve_adaptive(field, params, s0, 0.0, cfg.env.dt, **kw)
+        y_c, t_c = solve_adaptive(
+            field, tree_map(lambda p: p.detach().cpu(), params), s0.cpu(),
+            0.0, cfg.env.dt, **kw)
+    torch.testing.assert_close(y_d.cpu(), y_c, rtol=1e-4, atol=1e-5)
+    assert float(t_d) == float(t_c) == float(torch.tensor(cfg.env.dt))
+
+
+@pytest.mark.gpu
+def test_dopri5_adjoint_gradients_match_the_scan_form_on_the_card():
+    """The while form's adjoint gradients (parameters and y0) against
+    autograd through the scan form, within 5e-2 of each leaf's largest
+    entry: at the 0.02 span the scan form's gradient through the step
+    sizes is float32 noise (``scripts/dopri5_probe.py``)."""
+    _require_gpu()
+    from nlbac_tpu_torch.nn import make_field
+    from nlbac_tpu_torch.ode import odeint_adjoint, solve_adaptive
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    cfg, params, s0 = _dopri5_inputs(128, gen)
+    field = make_field(cfg.node)
+    cot = torch.randn(128, 5, device="cuda", generator=gen)
+    grads = []
+    for adjoint in (True, False):
+        s = s0.clone().requires_grad_(True)
+        y = (odeint_adjoint(field, params, s, 0.0, cfg.env.dt,
+                            method="dopri5") if adjoint
+             else solve_adaptive(field, params, s, 0.0, cfg.env.dt,
+                                 impl="scan", max_steps=16))
+        grads.append(torch.autograd.grad((y * cot).sum(),
+                                         tree_leaves(params) + [s]))
+    for a, b in zip(*grads):
+        assert (a - b).abs().max() <= 5e-2 * b.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [
+    ["--host_loop"], ["--node_solver", "dopri5"],
+    ["--node_solver", "dopri5", "--node_adaptive_impl", "scan"],
+    ["--host_loop", "--node_solver", "dopri5"]],
+    ids=["host_loop", "dopri5_while", "dopri5_scan", "host_loop_dopri5"])
+def test_cli_trains_unicycle_on_the_card_in_the_new_modes(extra, tmp_path):
+    """unicycle through main() on the GPU in the host-loop mode and under
+    dopri5: a finite progress row after updates, K1 launched only under
+    Euler, the host loop's checkpoint in its own mode."""
+    _require_gpu()
+    import glob
+    import json
+
+    import numpy as np
+
+    from nlbac_tpu_torch.train import cli
+
+    before = nk.launch_counts["node_euler"]
+    cli.main(["--preset", "unicycle", "--quiet", "--output", str(tmp_path),
+              "--max_episodes", "1", "--max_episode_steps", "24",
+              "--start_steps", "20", "--batch_size", "16",
+              "--replay_size", "1000", *extra])
+    (run,) = glob.glob(str(tmp_path / "*-run*" / "*" / "*_s*"))
+    header, row = (Path(run) / "progress.txt").read_text().splitlines()
+    values = dict(zip(header.split("\t"), map(float, row.split("\t"))))
+    assert values["updates"] > 0
+    assert all(v == v and abs(v) != float("inf") for v in values.values())
+    launched = nk.launch_counts["node_euler"] - before
+    assert (launched > 0) == ("dopri5" not in extra)
+    with np.load(Path(run) / "checkpoint.npz") as z:
+        mode = json.loads(bytes(z["extra"]).decode())["mode"]
+    assert mode == ("host_loop" if "--host_loop" in extra else "fused")

@@ -184,16 +184,53 @@ def test_learned_barrier_terms_match_reference(env_name, include_clf):
 
 
 def test_learned_barrier_identity_branch_names_its_item():
+    """The builder's registry entry and constants; its ``identity`` branch
+    (a host env whose obs is the NODE state, as the host loop drives it)
+    against the JAX package's, values and the gradient with respect to
+    the action; an unknown env still raises."""
     cfg = tiny_cfg(tconfig, "nbc_unicycle")
     assert get_builder("learned_barrier") is tterms
     assert tterms.USES_BARRIER and tterms.NUM_PRIMARY == 2 and \
         tterms.NUM_BACKUP == 1
-    obs = torch.zeros(BATCH, 3)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tterms.terms(cfg.constraint, cfg.node, None, None, None, obs,
-                     torch.zeros(BATCH, 2), None, 0.02, env_name="identity")
+    kw = dict(form="mlp", state_dim=2, action_dim=1, hidden_dim=8,
+              mlp_hidden_layers=1)
+    ncfg_j, ncfg_t = jconfig.NodeConfig(**kw), tconfig.NodeConfig(**kw)
+    node = node_init(jax.random.PRNGKey(1), ncfg_j)
+    lyap = lyapunov_init(jax.random.PRNGKey(2), 2, 16)
+    policy = gaussian_policy_init(jax.random.PRNGKey(3), 2, 1, 16)
+    barrier = barrier_init(jax.random.PRNGKey(6), 2, 1, 16)
+    rng = np.random.default_rng(9)
+    obs = rng.normal(size=(BATCH, 2)).astype(np.float32)
+    lyap_t = rng.normal(size=(BATCH, 2)).astype(np.float32)
+    action = rng.uniform(-1, 1, size=(BATCH, 1)).astype(np.float32)
+    cot = rng.normal(size=(BATCH, 2)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    jspec = JActionSpec.from_bounds((-1.0,), (1.0,))
+
+    def j_terms(a):
+        return jterms.terms(
+            cfg.constraint, ncfg_j, node, make_field(ncfg_j), lyap, obs, a,
+            lyap_t, key, 0.1, env_name="identity", barrier_params=barrier,
+            resample=lambda o, k: gaussian_policy_sample(policy, o, k,
+                                                         jspec)[0])
+
+    tj = j_terms(action)
+    gj = jax.grad(lambda a: jnp.sum(j_terms(a) * cot))(action)
+    draws = draw(key, BATCH, 1)[None]
+    tspec = TActionSpec.from_bounds((-1.0,), (1.0,))
+    ta = torch.tensor(action, requires_grad=True)
+    tt = tterms.terms(
+        cfg.constraint, ncfg_t, to_torch(node), t_make_field(ncfg_t),
+        to_torch(lyap), torch.tensor(obs), ta, torch.tensor(lyap_t), 0.1,
+        env_name="identity", barrier_params=to_torch(barrier),
+        resample=lambda o, k: t_policy_sample(to_torch(policy), o, tspec,
+                                              noise=draws[k])[0])
+    close(tj, tt)
+    (gt,) = torch.autograd.grad((tt * torch.tensor(cot)).sum(), ta)
+    close(gj, gt)
+    zeros = torch.zeros(BATCH, 3)
     with pytest.raises(ValueError, match="unsupported env"):
-        tterms.terms(cfg.constraint, cfg.node, None, None, None, obs,
+        tterms.terms(cfg.constraint, cfg.node, None, None, None, zeros,
                      torch.zeros(BATCH, 2), None, 0.02, env_name="cars")
 
 

@@ -151,9 +151,12 @@ def test_fixed_step_solvers(method):
         y_t = tsolvers.odeint(field_t, torch.tensor(w), torch.tensor(y0),
                               0.0, 0.1, method=method, num_steps=steps)
         close(y_j, y_t)
-    with pytest.raises(ValueError, match="not ported"):
-        tsolvers.odeint(field_t, torch.tensor(w), torch.tensor(y0), 0.0,
-                        0.1, method="dopri5")
+    # the adaptive method through the same front end (its own tests are in
+    # tests/test_torch_port_ode.py)
+    y_j = jsolvers.odeint(field_j, w, y0, 0.0, 0.1, method="dopri5")
+    y_t = tsolvers.odeint(field_t, torch.tensor(w), torch.tensor(y0), 0.0,
+                          0.1, method="dopri5")
+    close(y_j, y_t)
 
 
 @pytest.mark.parametrize("form", ["control_affine", "mlp"])
