@@ -8,7 +8,9 @@ Phases, one line each (any failure raises and exits nonzero):
 1. the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build the NODE Euler kernel (csrc/node_euler.cu) with nvcc, printing
    ptxas's registers, shared memory and spills per kernel, and count the
-   tensor-core (HMMA) instructions in its SASS;
+   tensor-core (HMMA) instructions in its SASS; then find where
+   ``torch.tanh`` first returns 1.0 on the card and on the CPU, and the
+   policy's squash term's gap to float64 on each, over |x| in [3, 9.1];
 3. hold the kernel against its plain PyTorch version on the card, forward
    and gradients, at the rows the main path gives it (128 and 32768), at
    the tile edges (1, 16, 17, 127, 129), at a ragged 1000 and at the
@@ -58,11 +60,26 @@ Phases, one line each (any failure raises and exits nonzero):
    checkpoint's ``host_loop`` mode, progress.txt from the native writer;
 11. unicycle under ``--host_loop --node_solver dopri5`` (the while form
    and the adjoint) through the CLI: env-steps/s and ms per update;
-12. a JSON line of the kernel's numbers, the script's total time, then the
-   result line.
+12. evaluation: ``--mode eval`` through the CLI on the unicycle run of
+   phase 5, ``python -m nlbac_tpu_torch.utils.evaluate ... --json`` in its
+   own process (return, length, violations and ms per episode), and the
+   quadrotor run's deterministic rollouts (EVAL_QUAD_STEPS steps) on the
+   card against the CPU;
+13. export: the unicycle policy exported with ``torch.export`` on the card
+   and on the CPU, loaded back (the CPU one moved with ``.to``) and held
+   against the policy's deterministic head on the card; host µs per call;
+14. profile: unicycle through the CLI with ``--profile_dir``: the trace of
+   the second episode must hold K1's kernel (the trace is then removed);
+15. the point-mass envs of examples/torch_custom_env.py (a hand-written
+   CBF) and examples/torch_custom_barrier_env.py (a learned barrier),
+   registered at runtime, trained on the card (K1 on their path; the
+   barrier critic's TD loss must move off zero);
+16. a JSON line of the kernel's numbers (and the tanh phase's), the
+   script's total time, then the result line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
-QUAD_*, DOPRI5_RUN, HOST_RUNS below); the widths are the presets'.
+QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN below); the widths
+are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -75,6 +92,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -162,6 +180,21 @@ DOPRI5_CHECK_NODE_ROWS = 512
 # fits wherever it starts; dopri5's window also times each update alone
 # to give the fit's cost apart.
 DOPRI5_UPDATE_TIMING = (1, 10)
+# The squash term's action scales (unicycle v, omega; PVTOL's thrust).
+TANH_SCALES = (3.5, 12.0, 15.0)
+# The quadrotor's card-vs-CPU evaluation stops after this many steps, clear
+# of float32 divergence between the two devices' rollouts.
+EVAL_QUAD_STEPS = 50
+# The exported head on the card vs the policy's own head on the card: the
+# same ops on the same device.
+EXPORT_ATOL = 1e-6
+EXPORT_BATCHES = (1, 7, 128)
+# (episodes, steps per episode) of the profiled unicycle run: the first
+# episode fills the replay past a batch (128 rows), so the traced second
+# one holds updates (from step 130 of the run on) and K1's launches; and
+# of each custom env's run.
+PROFILE_RUN = (2, 70)
+CUSTOM_RUN = (2, 150)
 OUT = Path("chiprun_out") / "chip_smoke"
 SEED = 0
 SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
@@ -1031,6 +1064,253 @@ def host_loop_runs(dev, card):
             "unicycle_host_loop_dopri5": launches3}
 
 
+def tanh_saturation(card):
+    """Where ``torch.tanh`` first returns exactly 1.0 on the card and on the
+    CPU, and the policy's squash term log(scale (1 - tanh^2) + 1e-6) on
+    each against a float64 evaluation, below |x| = 7.99 and over the rest
+    of tests/test_torch_port_squash.py's float32 grid (|x| in [3, 9.1];
+    XLA's CPU tanh saturates from 7.9988, the CPU's torch.tanh from
+    9.0108)."""
+    half = np.linspace(3.0, 9.1, 122001, dtype=np.float32)
+    x = np.concatenate([-half[::-1], half])
+    below = np.abs(x) < 7.99
+    y64 = np.tanh(x.astype(np.float64))
+    found = {}
+    for where in ("cuda", "cpu"):
+        xt = torch.from_numpy(x).to(where)
+        y = torch.tanh(xt)
+        sat = (y.abs() == 1.0).cpu().numpy()
+        first = float(np.abs(x[sat]).min()) if sat.any() else None
+        gaps = []
+        for scale in TANH_SCALES:
+            term = torch.log(torch.tensor(scale, device=where)
+                             * (1.0 - torch.square(y)) + 1e-6)
+            ref = np.log(scale * (1.0 - np.square(y64)) + 1e-6)
+            err = np.abs(term.cpu().numpy() - ref)
+            gaps.append((float(err[below].max()), float(err[~below].max())))
+        found[where] = (first, gaps, y.cpu().numpy())
+    if found["cuda"][0] is None:
+        raise RuntimeError("tanh: no grid point saturates on the card")
+    apart = int((found["cuda"][2] != found["cpu"][2]).sum())
+    scales = "/".join(f"{s:g}" for s in TANH_SCALES)
+
+    def show(gaps, i):
+        return "/".join(f"{g[i]:.4f}" for g in gaps)
+
+    phase(f"tanh: torch.tanh first returns 1.0 at |x| = "
+          f"{found['cuda'][0]:.5f} on the card, {found['cpu'][0]:.5f} on "
+          f"the CPU ({apart} of {x.size} grid values differ); squash term's "
+          f"largest gap to float64 at scales {scales}, over [3, 7.99): card "
+          f"{show(found['cuda'][1], 0)}, CPU {show(found['cpu'][1], 0)}; "
+          f"over [7.99, 9.1]: card {show(found['cuda'][1], 1)}, CPU "
+          f"{show(found['cpu'][1], 1)} nats, on {card}")
+    return {"first_saturated_cuda": found["cuda"][0],
+            "first_saturated_cpu": found["cpu"][0],
+            "gap_to_f64_below_7_99_cuda": [g[0] for g in found["cuda"][1]],
+            "gap_to_f64_below_7_99_cpu": [g[0] for g in found["cpu"][1]],
+            "gap_to_f64_cuda": [g[1] for g in found["cuda"][1]],
+            "gap_to_f64_cpu": [g[1] for g in found["cpu"][1]]}
+
+
+def main_run_dir():
+    (run,) = (OUT / "unicycle").glob("*-run*/*/*_s*")
+    return run
+
+
+def eval_runs(card, quad_dir):
+    """The evaluator on the card: ``--mode eval`` through the CLI on the
+    main path's run directory, ``python -m nlbac_tpu_torch.utils.evaluate
+    ... --json`` in its own process, and the quadrotor's deterministic
+    rollouts on the card held against the CPU's."""
+    from nlbac_tpu_torch.utils.evaluate import load_trained_state, run_policy
+
+    run = main_run_dir()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["--preset", "unicycle", "--mode", "eval", "--seed", str(SEED),
+              "--max_episode_steps", str(EPISODE_STEPS), "--output",
+              str(run)])
+    torch.cuda.synchronize()
+    phase(f"eval: nlbac-train-torch --mode eval, 5 episodes of at most "
+          f"{EPISODE_STEPS} steps, {time.perf_counter() - t0:.2f} s on "
+          f"{card}")
+
+    path = OUT / "eval.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "nlbac_tpu_torch.utils.evaluate", str(run),
+         "--preset", "unicycle", "--episodes", "2", "--json", str(path)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"evaluate: rc {proc.returncode}\n{proc.stderr}")
+    data = json.loads(path.read_text())
+    ms = [float(v) for v in re.findall(r" ms=([0-9.]+)", proc.stdout)]
+    if (list(data) != ["preset", "run_dir", "seed", "deterministic",
+                       "episodes", "mean"] or len(data["episodes"]) != 2
+            or len(ms) != 2 or not all(math.isfinite(v) for e in
+                                       data["episodes"] for v in e.values())):
+        raise RuntimeError(f"evaluate --json: {data}\n{proc.stdout}")
+    for i, (e, t) in enumerate(zip(data["episodes"], ms)):
+        phase(f"evaluate --json episode {i} (unicycle, full 1200-step "
+              f"budget): return {e['return']:.4f} length {e['length']} "
+              f"violations {e['violations']:.0f}, {t:.1f} ms for the "
+              f"episode ({t / e['length']:.3f} ms per step, one device read "
+              f"each) on {card}")
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["--preset", "quadrotor", "--seed", str(SEED), "--max_episode_steps",
+         str(EVAL_QUAD_STEPS)] + QUAD_FLAGS))
+    res = {}
+    for where in ("cuda", "cpu"):
+        ts = load_trained_state(cfg, str(quad_dir), torch.device(where))
+        res[where] = run_policy(cfg, ts, episodes=2, seed=SEED)
+    worst = 0.0
+    for a, b in zip(res["cuda"], res["cpu"]):
+        for k in ("return", "length", "violations"):
+            gap = abs(a[k] - b[k])
+            if gap > UPDATE_ATOL + UPDATE_RTOL * abs(b[k]):
+                raise RuntimeError(f"quadrotor eval, card vs CPU: {k} "
+                                   f"{a[k]} vs {b[k]}")
+            worst = max(worst, gap)
+    phase(f"quadrotor eval (the run's weights, ground start, at most "
+          f"{EVAL_QUAD_STEPS} steps), card vs CPU: returns "
+          + ", ".join(f"{a['return']:.5f}/{b['return']:.5f}"
+                      for a, b in zip(res["cuda"], res["cpu"]))
+          + f", lengths {[a['length'] for a in res['cuda']]}, violations "
+          f"{[a['violations'] for a in res['cuda']]}; largest gap {worst:.3g}"
+          f" (rtol {UPDATE_RTOL} / atol {UPDATE_ATOL}) on {card}")
+
+
+def export_run(dev, card):
+    """The main path's policy exported with torch.export (on the card, and
+    on the CPU then moved with .to), loaded back and held against the
+    policy's deterministic head on the card; host µs per call at batch
+    1."""
+    from nlbac_tpu_torch.nn import ActionSpec, policy_mean_action
+    from nlbac_tpu_torch.utils.evaluate import load_trained_state
+    from nlbac_tpu_torch.utils.export_policy import export_policy, load_policy
+
+    run = main_run_dir()
+    cfg = get_config("unicycle")
+    acts = {}
+    for where in ("cuda", "cpu"):
+        ts = load_trained_state(cfg, str(run), torch.device(where))
+        path = OUT / f"policy_{where}.pt2"
+        t0 = time.perf_counter()
+        export_policy(cfg, ts, str(path))
+        secs = time.perf_counter() - t0
+        act, manifest = load_policy(str(path))
+        acts[where] = (act.to(dev), secs, path.stat().st_size)
+        if where == "cuda":
+            ts_card = ts
+    spec = ActionSpec.from_bounds(get_env("unicycle").SPEC.action_low,
+                                  get_env("unicycle").SPEC.action_high, dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 5)
+    worst = 0.0
+    with torch.no_grad():
+        for n in EXPORT_BATCHES:
+            obs = torch.randn(n, cfg.obs_dim, device=dev, generator=gen)
+            det = policy_mean_action(ts_card.policy, obs, spec)
+            for where, (act, _, _) in acts.items():
+                err = (act(obs) - det).abs().max().item()
+                if not err <= EXPORT_ATOL:
+                    raise RuntimeError(f"export ({where}) at batch {n}: "
+                                       f"{err} from det_action")
+                worst = max(worst, err)
+        obs1 = torch.randn(1, cfg.obs_dim, device=dev, generator=gen)
+        act = acts["cuda"][0]
+        us = host_us(lambda: act(obs1))
+        us_plain = host_us(lambda: policy_mean_action(ts_card.policy, obs1,
+                                                      spec))
+    phase(f"export: torch.export of the deterministic head (symbolic batch, "
+          f"{acts['cuda'][2]} bytes) in {acts['cuda'][1]:.2f} s on the card, "
+          f"{acts['cpu'][1]:.2f} s on the CPU; loaded, at batch "
+          f"{'/'.join(map(str, EXPORT_BATCHES))} within {worst:.3g} of "
+          f"det_action on the card (both artifacts, the CPU one moved with "
+          f".to('cuda'); limit {EXPORT_ATOL}); host {us:.2f} µs per call at "
+          f"batch 1 ({us_plain:.2f} µs for the policy's own head) on {card}")
+
+
+def profile_run(card):
+    """A 2-episode unicycle run with --profile_dir: the trace of episode 1
+    holds the card's kernels, K1 among them. The trace is read, then
+    removed (it is tens of MB)."""
+    trace_dir = OUT / "profile_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    episodes, steps = PROFILE_RUN
+    argv = ["--max_episodes", str(episodes), "--max_episode_steps",
+            str(steps), "--profile_dir", str(trace_dir)]
+    _, launches, _, updates, _ = cli_run("unicycle", argv, card,
+                                         "unicycle_profiled")
+    traces = sorted(trace_dir.iterdir())
+    if [t.name for t in traces] != ["episode1.trace.json"]:
+        raise RuntimeError(f"profile: traces {traces}")
+    size = traces[0].stat().st_size
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    shutil.rmtree(trace_dir)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "node_euler" in e.get("name", "")]
+    if not k1 or updates <= 0:
+        raise RuntimeError(f"profile: {len(kernels)} kernel events, "
+                           f"{len(k1)} of K1, {updates} updates")
+    k1_ms = sum(e.get("dur", 0) for e in k1) / 1e3
+    phase(f"profile: episode 1's trace {size} bytes, {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events, {len(k1)} of them K1 "
+          f"({k1_ms:.3f} ms; {launches} K1 launches in the run, {updates} "
+          f"updates) on {card}")
+    return launches
+
+
+def custom_env_runs(card):
+    """The point-mass envs of examples/torch_custom_env.py (a hand-written
+    CBF) and examples/torch_custom_barrier_env.py (a learned barrier, its
+    builder USES_BARRIER), each registered at runtime and trained
+    CUSTOM_RUN episodes on the card through the CLI module's train();
+    their control-affine NODE runs K1. Returns the K1 launches of each."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import torch_custom_barrier_env
+    import torch_custom_env
+    from nlbac_tpu_torch.train.cli import train
+
+    episodes, steps = CUSTOM_RUN
+    launches = {}
+    for name, example, make in (
+            ("custom_env", torch_custom_env, torch_custom_env.make_config),
+            ("custom_barrier_env", torch_custom_barrier_env,
+             torch_custom_barrier_env.make_barrier_config)):
+        example.register()
+        cfg = make(max_episodes=episodes)
+        cfg = dataclasses.replace(cfg, env=dataclasses.replace(
+            cfg.env, max_episode_steps=steps))
+        out = OUT / name
+        shutil.rmtree(out, ignore_errors=True)
+        node_kernel.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _, _ = train(cfg, output_dir=str(out), quiet=True,
+                         device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[name] = node_kernel.launch_counts["node_euler"]
+        rows = progress_rows(out)
+        bad = [k for r in rows for k, v in r.items() if not math.isfinite(v)]
+        n_steps = int(sum(r["episode_steps"] for r in rows))
+        barrier = cfg.env.barrier_signals
+        btd = max(r.get("barrier_td_loss", 0.0) for r in rows)
+        if (bad or len(rows) != episodes or ts.updates <= 0
+                or launches[name] <= 0 or (barrier and not btd > 0)):
+            raise RuntimeError(f"{name}: rows {rows}, {ts.updates} "
+                               f"updates, {launches[name]} K1 launches, "
+                               f"non-finite {bad}")
+        phase(f"{name} ({cfg.env.name}, registered at runtime): {n_steps} "
+              f"env steps, {ts.updates} updates, {launches[name]} K1 "
+              f"launches, rewards "
+              f"{[round(r['reward_train'], 3) for r in rows]}"
+              + (f", largest barrier_td_loss {btd:.4g}" if barrier else "")
+              + f", {n_steps / secs:.2f} env-steps/s on {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1048,6 +1328,7 @@ def main() -> int:
     lib = node_kernel.build(verbose=True)
     phase(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
     tensor_core_check(lib)
+    tanh = tanh_saturation(card)
 
     gen = torch.Generator(dev).manual_seed(SEED)
     max_err = check_kernel(dev, gen)
@@ -1072,13 +1353,18 @@ def main() -> int:
     for preset in NBC_RUNS:
         run, argv, by_path[preset] = nbc_run(preset, card)
         check_preset(preset, argv, run, dev, card)
-    run, argv = quad_run(card)
+    quad_dir, argv = quad_run(card)
     by_path["quadrotor"] = 0
-    check_preset("quadrotor", argv, run, dev, card)
+    check_preset("quadrotor", argv, quad_dir, dev, card)
 
     dopri5_on_card(dev, gen, card)
     by_path["unicycle_dopri5_scan"] = dopri5_run(dev, card)
     by_path.update(host_loop_runs(dev, card))
+
+    eval_runs(card, quad_dir)
+    export_run(dev, card)
+    by_path["unicycle_profiled"] = profile_run(card)
+    by_path.update(custom_env_runs(card))
 
     big = times[32768]
     print(json.dumps({"kernels": [{
@@ -1095,7 +1381,7 @@ def main() -> int:
         "host_us_per_call": times[128]["host_us_per_call"],
         "at_128_rows": times[128], "pvtol_chain": chain,
         "nbc_calls_max_abs_err": nbc_err,
-        "launches_by_path": by_path}]}), flush=True)
+        "launches_by_path": by_path}], "tanh": tanh}), flush=True)
     phase(f"total: {time.perf_counter() - start:.2f} s from the build to "
           f"the end on {card}")
     print(json.dumps({"ok": True, "device": {

@@ -109,7 +109,7 @@ def _pos(x):
     return torch.stack([x[0], x[2]])
 
 
-def ground_probe_obs(device="cpu") -> torch.Tensor:
+def ground_probe_obs(device) -> torch.Tensor:
     """The fixed 13-row probe batch around the ground spawn state (the
     spawn state, then x, z, vx, vz, theta and omega offsets), on which
     ``SacConfig.probe_pretanh_reg`` pulls the policy's pre-tanh mean."""
@@ -142,8 +142,7 @@ def _spawn(pos) -> Tuple[QuadrotorState, torch.Tensor]:
     return QuadrotorState(x=x, step=0), get_obs(x)
 
 
-def spawn_at_alpha(alpha, device="cpu") -> Tuple[QuadrotorState,
-                                                   torch.Tensor]:
+def spawn_at_alpha(alpha, device) -> Tuple[QuadrotorState, torch.Tensor]:
     """A jitter-free reset at ``alpha`` on the curriculum arc (1 is the
     ground start, towards 0 the goal ring)."""
     a = torch.as_tensor(alpha, dtype=torch.float32, device=device)

@@ -31,4 +31,5 @@ from nlbac_tpu_torch.nn.policy import (  # noqa: F401
     gaussian_policy_forward,
     gaussian_policy_init,
     gaussian_policy_sample,
+    policy_mean_action,
 )

@@ -31,6 +31,11 @@ class ActionSpec(NamedTuple):
         return ActionSpec(scale=(high - low) / 2.0, bias=(high + low) / 2.0)
 
 
+def _squash(mean, spec: ActionSpec):
+    """The deterministic head: tanh(mean) * scale + bias."""
+    return torch.tanh(mean) * spec.scale + spec.bias
+
+
 def gaussian_policy_init(gen, obs_dim: int, action_dim: int, hidden: int,
                          device=None):
     return {
@@ -74,8 +79,7 @@ def gaussian_policy_sample(params, obs, spec: ActionSpec,
     log_prob = log_prob - torch.log(spec.scale * (1.0 - torch.square(y))
                                     + EPS)
     log_prob = torch.sum(log_prob, dim=-1, keepdim=True)
-    det_action = torch.tanh(mean) * spec.scale + spec.bias
-    return action, log_prob, det_action
+    return action, log_prob, _squash(mean, spec)
 
 
 def deterministic_policy_init(gen, obs_dim: int, action_dim: int,
@@ -91,10 +95,21 @@ def deterministic_policy_sample(params, obs, spec: ActionSpec,
                                 noise_clip: float = 0.25):
     """tanh(mean)*scale + bias plus clipped N(0, noise_std) noise; ``noise``
     is the standard-normal draw."""
-    mean = mlp_apply(params, obs)
-    mean = torch.tanh(mean) * spec.scale + spec.bias
+    mean = _squash(mlp_apply(params, obs), spec)
     if noise is None:
         noise = torch.randn(mean.shape, generator=gen, device=mean.device,
                             dtype=mean.dtype)
     noise = torch.clamp(noise_std * noise, -noise_clip, noise_clip)
     return mean + noise, mean.new_zeros(mean.shape[:-1] + (1,)), mean
+
+
+def policy_mean_action(params, obs, spec: ActionSpec,
+                       policy_type: str = "gaussian"):
+    """The deterministic head ``tanh(mean) * scale + bias`` without a draw:
+    the third output of ``gaussian_policy_sample`` (``policy_type``
+    'gaussian') or of ``deterministic_policy_sample`` ('deterministic')."""
+    if policy_type == "deterministic":
+        mean = mlp_apply(params, obs)
+    else:
+        mean, _ = gaussian_policy_forward(params, obs)
+    return _squash(mean, spec)

@@ -10,7 +10,10 @@ is the port's own ``.npz`` (``train/checkpoint.py``). Training runs on
 the GPU unless ``--cpu`` is given. ``--host_loop`` trains through the
 host-loop mode (``train/host_loop.py``: the preset's env behind the host
 gym API, the native RL ring, the updates on the device);
-``--wandb``/``--tensorboard`` add those channels when installed.
+``--wandb``/``--tensorboard`` add those channels when installed;
+``--profile_dir`` writes a ``torch.profiler`` trace of the second episode
+the process runs. ``--mode eval`` rolls out the weights in ``--output``
+(a run directory) for 5 episodes (``utils/evaluate.py``).
 
 Flags whose feature is not ported yet are still parsed, and raise an
 error naming the ROADMAP.md item that ports them.
@@ -153,9 +156,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host_loop", action="store_true",
                    help="train in the host-loop mode: the env on the host, "
                         "the native C++ RL ring, the updates on the device")
+    p.add_argument("--mode", default="train", choices=["train", "eval"],
+                   help="eval: roll out the weights in --output (a run "
+                        "directory) for 5 episodes")
     # parsed for the JAX CLI's command lines; not ported yet (ROADMAP.md)
     p.add_argument("--n_seeds", type=int, default=1)
-    p.add_argument("--mode", default="train", choices=["train", "eval"])
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--coordinator", default=None)
@@ -185,7 +190,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tensorboard", action="store_true",
                    help="also log each episode to <run dir>/tb when "
                         "tensorboard is installed")
-    p.add_argument("--profile_dir", default=None)
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace (Chrome JSON) of the "
+                        "second episode this process runs into this "
+                        "directory")
     return p
 
 
@@ -262,8 +270,6 @@ def check_ported(args, cfg: NLBACConfig) -> None:
     """Raise ``SystemExit`` for a flag whose feature the port does not
     have yet, naming the ROADMAP.md item that ports it."""
     unported = (
-        (args.mode == "eval", "--mode eval", 17),
-        (args.profile_dir is not None, "--profile_dir", 17),
         (args.n_seeds != 1, "--n_seeds", 18),
         (args.dp != 1 or args.tp != 1, "--dp/--tp", 18),
         (args.num_processes != 1 or args.coordinator is not None
@@ -317,6 +323,22 @@ def check_host_loop(args) -> None:
                              "is not supported with --host_loop")
 
 
+def check_eval(args) -> None:
+    """The JAX CLI's refusals for ``--mode eval``: flags that mean nothing
+    for an evaluation, raised as ``SystemExit`` before anything runs."""
+    for flag in ("resume", "checkpoint", "profile_dir", "wandb",
+                 "tensorboard"):
+        if getattr(args, flag, None):
+            raise SystemExit(f"--{flag} has no effect with --mode eval; "
+                             "drop it")
+    if args.n_seeds > 1:
+        raise SystemExit("--n_seeds has no effect with --mode eval — "
+                         "evaluate each s<seed>/ run dir separately")
+    if args.dp > 1 or args.tp > 1 or args.num_processes > 1:
+        raise SystemExit("--dp/--tp/--num_processes are training flags; "
+                         "they have no effect with --mode eval")
+
+
 def _episode_to_host(m) -> dict:
     """The episode's metrics as Python numbers, in one device read."""
     scalars = ("reward", "num_violations", "safety_cost", "reached",
@@ -334,6 +356,31 @@ def _episode_to_host(m) -> dict:
     return host
 
 
+def start_profile(device):
+    """A started ``torch.profiler`` of the host's ops, and the card's
+    kernels when ``device`` is a GPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, device, profile_dir: str, i_episode: int) -> None:
+    """Stop ``prof`` once the card has finished the episode's work, and
+    write its Chrome trace to ``<profile_dir>/episode<N>.trace.json``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"episode{i_episode}.trace.json")
+    prof.export_chrome_trace(path)
+    print(colorize(f"profile of episode {i_episode} -> {path}", "yellow"))
+
+
 # pvtol's per-cause counts and costs in the wandb dict, in breakdown order
 PVTOL_BREAKDOWN = (
     ("Collisions with Obstacles", "Obstacles"),
@@ -344,10 +391,13 @@ PVTOL_BREAKDOWN = (
 
 def train(cfg: NLBACConfig, output_dir: str | None = None,
           quiet: bool = False, checkpoint_path: str | None = None,
-          resume_path: str | None = None, device="cuda"):
+          resume_path: str | None = None, device="cuda",
+          profile_dir: str | None = None):
     """The training loop: episodes of ``run_episode`` with the JAX CLI's
     logging, weight files, checkpoint cadence and best-window selection.
-    Returns ``(ts, rl_replay, node_replay)``."""
+    With ``profile_dir``, the second episode this process runs (a steady
+    one, also under ``resume_path``) is traced into it. Returns ``(ts,
+    rl_replay, node_replay)``."""
     device = resolve_device(device)
     _validate_save_best(cfg, output_dir)
     logger = EpochLogger(output_dir, quiet=quiet)
@@ -393,10 +443,14 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
     try:
         for i_episode in range(start_episode, cfg.run.max_episodes):
             phase = "episode_first" if i_episode == 0 else "episode"
+            prof = (start_profile(device) if profile_dir is not None
+                    and i_episode == start_episode + 1 else None)
             with timer.time(phase):
                 ts, rl_replay, node_replay, m, total_steps = run_episode(
                     ts, rl_replay, node_replay, gen, i_episode, total_steps)
                 m = _episode_to_host(m)
+            if prof is not None:
+                stop_profile(prof, device, profile_dir, i_episode)
             warn_short(i_episode, m["short_integrations"])
 
             if best_metric is not None and \
@@ -512,6 +566,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.host_loop:
         check_host_loop(args)
+    if args.mode == "eval":
+        check_eval(args)
     cfg = config_from_args(args)
     check_ported(args, cfg)
     if args.host_loop:
@@ -530,6 +586,15 @@ def main(argv=None):
                 "for a g++ toolchain")
     # before any run dir is made: raises without a GPU unless --cpu
     device = resolve_device("cpu" if args.cpu else "cuda")
+    if args.mode == "eval":
+        # the weights in --output, which names a run directory here
+        from nlbac_tpu_torch.utils.evaluate import (
+            load_trained_state,
+            run_policy,
+        )
+        ts = load_trained_state(cfg, args.output, device)
+        run_policy(cfg, ts, episodes=5, seed=cfg.run.seed)
+        return
     if args.host_loop:
         train_host_loop(args, cfg, device)
         return
@@ -541,7 +606,7 @@ def main(argv=None):
                    f"device={name} -> {out}", "green", bold=True))
     train(cfg, output_dir=lk["output_dir"], quiet=args.quiet,
           checkpoint_path=args.checkpoint, resume_path=args.resume,
-          device=device)
+          device=device, profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

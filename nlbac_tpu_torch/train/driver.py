@@ -106,13 +106,18 @@ def curriculum_kwargs(cfg: NLBACConfig, env) -> dict | None:
             "mix_alpha_min": cfg.env.spawn_mix_alpha_min}
 
 
-def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
+def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None,
+                        env_override=None):
     """Build ``run_episode(ts, rl_replay, node_replay, gen, i_episode,
     total_steps) -> (ts, rl_replay, node_replay, EpisodeMetrics,
-    total_steps)``. State, replays and ``gen`` live on ``device``."""
+    total_steps)``. State, replays and ``gen`` live on ``device``.
+    ``env_override`` runs an env that is not in the registry (any object
+    with the ``envs/base.py`` contract) in place of ``cfg.env.name``'s."""
     device = resolve_device(device)
-    env = get_env(cfg.env.name)
-    agent = agent if agent is not None else make_agent(cfg, device)
+    env = env_override if env_override is not None else \
+        get_env(cfg.env.name)
+    agent = agent if agent is not None else \
+        make_agent(cfg, device, env_override=env_override)
     scfg = cfg.sac
     dt = cfg.env.dt
     max_steps = cfg.env.max_episode_steps
@@ -213,9 +218,11 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None):
     return run_episode
 
 
-def create_replays(cfg: NLBACConfig, device="cuda"):
+def create_replays(cfg: NLBACConfig, device="cuda", env_override=None):
     device = resolve_device(device)
-    spec = get_env(cfg.env.name).SPEC
+    env = env_override if env_override is not None else \
+        get_env(cfg.env.name)
+    spec = env.SPEC
     rl = replay_lib.create(cfg.replay.capacity, spec.obs_dim,
                            spec.action_dim, spec.lyap_dim, device)
     node = replay_lib.create(cfg.replay.node_capacity, spec.obs_dim,

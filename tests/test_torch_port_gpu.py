@@ -412,3 +412,69 @@ def test_cli_trains_unicycle_on_the_card_in_the_new_modes(extra, tmp_path):
     with np.load(Path(run) / "checkpoint.npz") as z:
         mode = json.loads(bytes(z["extra"]).decode())["mode"]
     assert mode == ("host_loop" if "--host_loop" in extra else "fused")
+
+
+@pytest.mark.gpu
+def test_eval_on_the_card_matches_the_cpu(tmp_path):
+    """run_policy's deterministic quadrotor rollouts (the ground start,
+    40 steps) on the card against the CPU on the same weights: return,
+    length and violations within rtol 1e-3 / atol 1e-4; then --mode eval
+    through main() on the card."""
+    _require_gpu()
+    import dataclasses
+
+    from nlbac_tpu_torch.agent import create_train_state
+    from nlbac_tpu_torch.train import cli
+    from nlbac_tpu_torch.train.checkpoint import save_model_weights
+    from nlbac_tpu_torch.utils.evaluate import load_trained_state, run_policy
+
+    cfg = get_config("quadrotor")
+    cfg = dataclasses.replace(cfg, env=dataclasses.replace(
+        cfg.env, max_episode_steps=40))
+    save_model_weights(str(tmp_path), create_train_state(
+        cfg, torch.Generator().manual_seed(3), "cpu"), include_barrier=True)
+    res = {dev: run_policy(cfg, load_trained_state(cfg, str(tmp_path),
+                                                   torch.device(dev)),
+                           episodes=2, seed=0)
+           for dev in ("cuda", "cpu")}
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert a["length"] == b["length"]
+        for k in ("return", "violations"):
+            assert abs(a[k] - b[k]) <= 1e-4 + 1e-3 * abs(b[k]), (k, a, b)
+    cli.main(["--preset", "quadrotor", "--mode", "eval", "--output",
+              str(tmp_path), "--max_episode_steps", "40"])
+
+
+@pytest.mark.gpu
+def test_export_on_the_card_matches_det_action(tmp_path):
+    """The exported deterministic head traced on the card, and one traced
+    on the CPU then moved with .to("cuda"), against the policy's own
+    det_action on the card at batch 1, 7 and 128 (atol 1e-6)."""
+    _require_gpu()
+    from nlbac_tpu_torch.agent import create_train_state
+    from nlbac_tpu_torch.envs import unicycle
+    from nlbac_tpu_torch.nn import ActionSpec, gaussian_policy_sample
+    from nlbac_tpu_torch.utils.export_policy import export_policy, load_policy
+
+    cfg = get_config("unicycle")
+    ts = {dev: create_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                  dev) for dev in ("cuda", "cpu")}
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(ts["cuda"].policy),
+                        tree_leaves(ts["cpu"].policy)):
+            b.copy_(a.cpu())
+    export_policy(cfg, ts["cuda"], str(tmp_path / "card.pt2"))
+    export_policy(cfg, ts["cpu"], str(tmp_path / "cpu.pt2"))
+    card, _ = load_policy(str(tmp_path / "card.pt2"))
+    moved, _ = load_policy(str(tmp_path / "cpu.pt2"))
+    moved = moved.to("cuda")
+    spec = ActionSpec.from_bounds(unicycle.SPEC.action_low,
+                                  unicycle.SPEC.action_high, "cuda")
+    for n in (1, 7, 128):
+        obs = torch.randn(n, 7, device="cuda")
+        with torch.no_grad():
+            det = gaussian_policy_sample(ts["cuda"].policy, obs, spec,
+                                         noise=torch.zeros(n, 2,
+                                                           device="cuda"))[2]
+            for act in (card, moved):
+                torch.testing.assert_close(act(obs), det, rtol=0, atol=1e-6)

@@ -200,7 +200,7 @@ def test_reset_curriculum_range_checks(kwargs, match):
 @pytest.mark.parametrize("alpha", [0.0, 0.15, 0.5, 0.73, 1.0])
 def test_spawn_at_alpha_matches_reference(alpha):
     st_j, obs_j = jquad.spawn_at_alpha(alpha)
-    st_t, obs_t = tquad.spawn_at_alpha(alpha)
+    st_t, obs_t = tquad.spawn_at_alpha(alpha, "cpu")
     close(obs_j, obs_t)
     assert st_t.step == 0
     if alpha == 1.0:
