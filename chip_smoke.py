@@ -74,12 +74,23 @@ Phases, one line each (any failure raises and exits nonzero):
    CBF) and examples/torch_custom_barrier_env.py (a learned barrier),
    registered at runtime, trained on the card (K1 on their path; the
    barrier critic's TD loss must move off zero);
-16. a JSON line of the kernel's numbers (and the tanh phase's), the
+16. the parallel modes: ``--n_seeds SEEDS`` through the CLI's
+   ``train_multi_seed`` (worker processes) at the main path's depth (each
+   seed's env steps, updates and K1 launches, the aggregate env-steps/s
+   beside phase 5's one-seed run, seed 0's first episode against
+   phase 5's); then a dp=2 and a tp=2 gang of two ranks
+   sharing the card over gloo (``make_dp_episode_runner`` /
+   ``make_tp_episode_runner``), each one full-width unicycle episode of
+   GANG_STEPS steps against one rank from the same state and seed: the
+   reward and the whole state within ``tests/test_parallel.py``'s
+   tolerances, the ranks' states bit-equal, K1's launches per dp rank
+   those of one rank at half the rows, none under tp;
+17. a JSON line of the kernel's numbers (and the tanh phase's), the
    script's total time, then the result line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
-QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN below); the widths
-are the presets'.
+QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN, GANG_STEPS below);
+the widths are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -92,6 +103,7 @@ import dataclasses
 import itertools
 import json
 import math
+import pickle
 import re
 import shutil
 import statistics
@@ -111,10 +123,12 @@ from nlbac_tpu_torch.config import get_config
 from nlbac_tpu_torch.envs import get_env
 from nlbac_tpu_torch.nn import make_field, node_init, pack_input
 from nlbac_tpu_torch.ode import odeint_adjoint, solve_adaptive
+from nlbac_tpu_torch import parallel
 from nlbac_tpu_torch.ops import node_kernel
 from nlbac_tpu_torch.replay import create as create_replay
 from nlbac_tpu_torch.replay import sample, unpack_rows
 from nlbac_tpu_torch.train import cli, create_replays, make_episode_runner
+from nlbac_tpu_torch.train.driver import episode_to_host
 from nlbac_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     restore_host_checkpoint,
@@ -136,10 +150,10 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 # cuBLAS and the CPU's BLAS sum in different orders and the difference
 # passes through Adam's normalisation and the constraint's /dt.
 UPDATE_RTOL, UPDATE_ATOL = 1e-3, 1e-4
-# Depth of the CLI runs (the presets' widths are kept): unicycle 3
-# episodes of 300 steps (preset: 200 of 1200), resumed for a fourth; cars
+# Depth of the CLI runs (the presets' widths are kept): unicycle 2
+# episodes of 300 steps (preset: 200 of 1200), resumed for a third; cars
 # 2 of 300 (preset: 200 of 300); PVTOL 1 of 600 (preset: 400 of 2000).
-EPISODES, EPISODE_STEPS = 3, 300
+EPISODES, EPISODE_STEPS = 2, 300
 PRESET_RUNS = {"cars": (2, 300), "pvtol": (1, 600)}
 # nbc_unicycle 1 episode of 400 steps (preset: 200 of 1200), nbc_pvtol 1
 # of 500 (preset: 210 of 2000); the quadrotor in chunks of QUAD_CHUNK
@@ -200,6 +214,19 @@ SEED = 0
 SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
 HOST_CALLS = 1000
 UPDATE_TIMING = (3, 20)
+# --n_seeds of the seeds phase (at the main path's depth)
+SEEDS = 4
+# The gangs on one card: one unicycle episode of GANG_STEPS steps (its
+# updates start at step 129: 2 per step, a NODE fit every 10th), each
+# gang given GANG_TIMEOUT seconds. Against one rank: tests/test_parallel.py's
+# tolerances, the reward rtol/atol and the whole state's.
+GANG_STEPS = 140
+GANG_TIMEOUT = 300
+GANG_REWARD_RTOL, GANG_REWARD_ATOL = 2e-4, 1e-4
+GANG_STATE_RTOL, GANG_STATE_ATOL = 2e-3, 5e-4
+# The row counts K1 takes on a dp rank's share at dp=2 and 4 (the main
+# path's 128-row rollouts and 32768-row fit, PVTOL's 256-row chain)
+DP_ROWS = (64, 32, 16384, 8192)
 
 
 def phase(msg: str) -> None:
@@ -281,12 +308,12 @@ def time_ms(fn, runs=30, inner=10):
 
 
 def check_rows():
-    """The row counts phase 3 checks: the main path's, the 16-row tile's
-    edges, a ragged count, and both sides of the small/large tile
-    switch."""
+    """The row counts phase 3 checks: the main path's (and a dp rank's
+    share of them at dp=2 and 4), the 16-row tile's edges, a ragged
+    count, and both sides of the small/large tile switch."""
     switch = node_kernel.SMALL_TILE_MAX_ROWS
     return sorted({1, 16, 17, 127, 128, 129, 1000, switch - 1, switch,
-                   switch + 1, 32768})
+                   switch + 1, 32768} | set(DP_ROWS))
 
 
 def check_kernel(dev, gen):
@@ -574,8 +601,8 @@ def main_path(dev, card):
     from its checkpoint for one more episode."""
     argv = ["--max_episodes", str(EPISODES), "--max_episode_steps",
             str(EPISODE_STEPS)]
-    run, launches, steps, updates, _ = cli_run("unicycle", argv, card,
-                                               "unicycle")
+    run, launches, steps, updates, seconds = cli_run("unicycle", argv, card,
+                                                     "unicycle")
     # each update launches K1 twice at 128 rows (primary and backup
     # rollouts) and once more at 32768 rows on every 10th (the NODE fit)
     fits = launches - 2 * updates
@@ -602,8 +629,10 @@ def main_path(dev, card):
           f"{EPISODES - 1}'s checkpoint, {total} env steps and {ts.updates} "
           f"updates in all")
     cfg, ts, rl, node, _, _ = restored("unicycle", argv, run, dev)
+    one_seed = {"run": run, "steps": steps, "seconds": seconds}
     return cfg, ts, rl, node, launches, {"unicycle": launches,
-                                         "unicycle_resumed": launches2}
+                                         "unicycle_resumed": launches2}, \
+        one_seed
 
 
 def profile_steps(cfg, ts, rl, node, dev, card, steps=10):
@@ -1311,6 +1340,179 @@ def custom_env_runs(card):
     return launches
 
 
+def seeds_run(dev, card, one_seed):
+    """``--n_seeds SEEDS`` at the main path's depth through the CLI's
+    ``train_multi_seed`` (its worker processes; each worker's K1 counts
+    start at 0 with it and come back with every episode): each seed's env
+    steps, updates and K1 launches, the aggregate env-steps/s beside the
+    main path's one-seed run of this call, and seed 0's first episode
+    against that run's."""
+    out = OUT / "unicycle_seeds"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--preset", "unicycle", "--quiet", "--seed", str(SEED),
+            "--n_seeds", str(SEEDS), "--max_episodes", str(EPISODES),
+            "--max_episode_steps", str(EPISODE_STEPS)]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    node_kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, launches = cli.train_multi_seed(cfg, SEEDS, str(out), quiet=True,
+                                       device=dev)
+    seconds = time.perf_counter() - t0
+    steps_all = 0
+    for i in range(SEEDS):
+        rows = progress_rows(out / f"s{SEED + i}")
+        steps = int(sum(r["episode_steps"] for r in rows))
+        updates = int(rows[-1]["updates"])
+        bad = [k for r in rows for k, v in r.items() if not math.isfinite(v)]
+        if bad or len(rows) != EPISODES or updates <= 0 or launches[i] <= 0:
+            raise RuntimeError(f"seed {SEED + i}: {len(rows)} episodes, "
+                               f"{updates} updates, {launches[i]} K1 "
+                               f"launches, non-finite {bad}")
+        steps_all += steps
+        phase(f"seeds: seed {SEED + i}: {steps} env steps, {updates} "
+              f"updates, {launches[i]} K1 launches, rewards "
+              f"{[round(r['reward_train'], 3) for r in rows]}")
+    first = progress_rows(out / f"s{SEED}")[0]
+    alone = progress_rows(one_seed["run"])[0]
+    gaps = {k: abs(first[k] - alone[k]) / max(abs(alone[k]), 1e-30)
+            for k in ("reward_train", "node_loss")}
+    if any(g > 1e-5 for g in gaps.values()):
+        raise RuntimeError(f"seeds: seed {SEED}'s first episode vs the "
+                           f"standalone run: relative gaps {gaps}")
+    rate, rate1 = steps_all / seconds, one_seed["steps"] / one_seed["seconds"]
+    phase(f"seeds: --n_seeds {SEEDS} ({EPISODES} x {EPISODE_STEPS} steps "
+          f"each, worker processes): {steps_all} env steps in "
+          f"{seconds:.2f} s for the whole train_multi_seed() call (the "
+          f"workers' start included), {rate:.2f} env-steps/s in all, "
+          f"against {rate1:.2f} for the one-seed run of phase 5 "
+          f"({rate / rate1:.3f} times); {sum(launches)} K1 launches; seed "
+          f"{SEED}'s first episode vs the standalone run: reward relative "
+          f"gap {gaps['reward_train']:.3e}, node_loss "
+          f"{gaps['node_loss']:.3e} (limit 1e-5) on {card}")
+    return {"unicycle_seeds": sum(launches)}
+
+
+def gang_cfg():
+    cfg = get_config("unicycle")
+    return dataclasses.replace(
+        cfg, env=dataclasses.replace(cfg.env, max_episode_steps=GANG_STEPS),
+        run=dataclasses.replace(cfg.run, max_episodes=1, seed=SEED))
+
+
+def state_arrays(ts):
+    """A whole state's parameters, targets, Adam moments, Lagrangian state
+    and update count, on the host, in a fixed order."""
+    out = [t.detach().cpu().numpy() for name in (
+        "policy", "backup_policy", "critic", "critic_target", "lyap",
+        "lyap_target", "barrier", "barrier_target", "node", "log_alpha",
+        "backup_log_alpha") for t in tree_leaves(getattr(ts, name))]
+    for opt in ts.opt.values():
+        for p in opt.param_groups[0]["params"]:
+            if p in opt.state:
+                out += [opt.state[p][k].cpu().numpy()
+                        for k in ("exp_avg", "exp_avg_sq")]
+    out += [t.cpu().numpy() for t in ts.lag]
+    return out, ts.updates
+
+
+def one_episode(cfg, place, run, dev):
+    """One episode from seed SEED's state and generator (given to every
+    rank by ``place``), K1's launches counted and the time taken around
+    it alone; the same episode runs once before, untimed, so that the
+    process's first-call set-up (cuBLAS, K1's library) is not timed."""
+    for _ in range(2):  # an untimed first pass, then the timed one
+        gen = torch.Generator(dev).manual_seed(SEED)
+        ts = create_train_state(cfg, gen, dev)
+        rl, node = create_replays(cfg, dev)
+        ts, rl, node, gen, total = place((ts, rl, node, gen, 0))
+        torch.cuda.synchronize()
+        node_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        ts, rl, node, m, total = run(ts, rl, node, gen, 0, total)
+        host = episode_to_host(m)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return ts, {"reward": host["reward"], "steps": host["steps"],
+                "seconds": seconds,
+                "launches": node_kernel.launch_counts["node_euler"],
+                "rows": dict(node_kernel.launches_by_rows)}
+
+
+def gang_rank(rank, world, coordinator, dp, tp, device):
+    """One rank of a gang sharing ``device`` (the card) over gloo: one
+    episode, then its (under tp, the gathered) whole state to
+    OUT/gang_r<rank>.pkl."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    parallel.init_distributed(coordinator, world, rank, backend="gloo",
+                              device=dev)
+    cfg = gang_cfg()
+    grid = parallel.make_mesh((dp, tp))
+    place, run = parallel.make_parallel_runner(cfg, grid, dev)
+    ts, result = one_episode(cfg, place, run, dev)
+    whole = parallel.gather_state_tp(ts) if tp > 1 else ts
+    result["state"] = state_arrays(whole)
+    (OUT / f"gang_r{rank}.pkl").write_bytes(pickle.dumps(result))
+
+
+def gang_runs(dev, card):
+    """A dp=2 and a tp=2 gang of two ranks on this one card (gloo, as
+    ranks that share a card must), each one full-width unicycle episode
+    against one rank from the same state and seed."""
+    cfg = gang_cfg()
+    ts1, one = one_episode(cfg, lambda tree: tree,
+                           make_episode_runner(cfg, dev), dev)
+    want, updates = state_arrays(ts1)
+    if one["launches"] <= 0 or updates <= 0:
+        raise RuntimeError(f"gangs: one rank ran {updates} updates, "
+                           f"{one['launches']} K1 launches")
+    phase(f"gangs: one rank: {one['steps']} steps, {updates} updates, "
+          f"{one['launches']} K1 launches by rows {one['rows']}, "
+          f"{one['seconds']:.2f} s, reward {one['reward']:.6g} on {card}")
+    launches = {}
+    rank_dev = "cuda:0" if dev.type == "cuda" else str(dev)
+    for name, (dp, tp) in (("dp", (2, 1)), ("tp", (1, 2))):
+        for r in range(2):
+            (OUT / f"gang_r{r}.pkl").unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        parallel.run_gang(gang_rank, 2, (dp, tp, rank_dev),
+                          timeout=GANG_TIMEOUT)
+        wall = time.perf_counter() - t0
+        ranks = [pickle.loads((OUT / f"gang_r{r}.pkl").read_bytes())
+                 for r in range(2)]
+        got, got_updates = ranks[0]["state"]
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(got, ranks[1]["state"][0])) and \
+            got_updates == ranks[1]["state"][1]
+        gap = max(float(np.max(np.abs(a - b))) for a, b in zip(got, want))
+        state_ok = got_updates == updates and all(
+            np.allclose(a, b, rtol=GANG_STATE_RTOL, atol=GANG_STATE_ATOL)
+            for a, b in zip(got, want))
+        reward_gap = abs(ranks[0]["reward"] - one["reward"])
+        reward_ok = reward_gap <= GANG_REWARD_ATOL + \
+            GANG_REWARD_RTOL * abs(one["reward"])
+        half = {rows // dp: n for rows, n in one["rows"].items()}
+        k1_ok = all((r["rows"] == half) if name == "dp"
+                    else r["launches"] == 0 for r in ranks)
+        for r, res in enumerate(ranks):
+            launches[f"unicycle_{name}2_rank{r}"] = res["launches"]
+        phase(f"gangs: {name}=2 on one card (gloo): rank seconds "
+              f"{[round(r['seconds'], 2) for r in ranks]} for the episode "
+              f"(one rank {one['seconds']:.2f}), {wall:.2f} s with the "
+              f"spawn; reward {ranks[0]['reward']:.6g} (gap "
+              f"{reward_gap:.3e}); whole state's largest gap {gap:.3e} "
+              f"(rtol {GANG_STATE_RTOL} atol {GANG_STATE_ATOL}); ranks "
+              f"bit-equal {same}; K1 launches by rows per rank "
+              f"{[r['rows'] for r in ranks]} on {card}")
+        if not (same and state_ok and reward_ok and k1_ok):
+            raise RuntimeError(f"gangs: {name}=2 vs one rank: state ok "
+                               f"{state_ok}, reward ok {reward_ok}, ranks "
+                               f"equal {same}, K1 ok {k1_ok}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1335,7 +1537,7 @@ def main() -> int:
     times = time_kernel(dev, gen, card)
     chain = pvtol_chain(dev, gen, card)
     sweep(dev, gen, card)
-    cfg, ts, rl, node, launches, by_path = main_path(dev, card)
+    cfg, ts, rl, node, launches, by_path, one_seed = main_path(dev, card)
     profile_steps(cfg, ts, rl, node, dev, card)
     time_updates(cfg, ts, rl, node, dev, card)
     update_on_card_vs_cpu(cfg, rl, node, dev)
@@ -1365,6 +1567,8 @@ def main() -> int:
     export_run(dev, card)
     by_path["unicycle_profiled"] = profile_run(card)
     by_path.update(custom_env_runs(card))
+    by_path.update(seeds_run(dev, card, one_seed))
+    by_path.update(gang_runs(dev, card))
 
     big = times[32768]
     print(json.dumps({"kernels": [{

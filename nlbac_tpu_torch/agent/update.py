@@ -20,8 +20,31 @@ optimizer state are updated in place; ``update_core`` returns the same
 ``TrainState`` and a dict of 0-d device tensors.
 
 ``update`` samples both replays on the device; ``update_presampled``
-takes an RL batch sampled elsewhere (the host loop's native ring). The
-data-parallel entry points are not ported yet (ROADMAP.md).
+takes an RL batch sampled elsewhere (the host loop's native ring);
+``update_from_batch`` takes both batches whole (the data-parallel entry
+point of ``parallel.make_dp_update``).
+
+Data parallelism (``make_agent(dp_group=...)``): each rank of a dp group
+runs the update on its own rows of the batch, ``rows(n)``. Every draw is
+made whole from the rank's generator and cut to those rows (the replay
+indices, each policy sample's standard normal, the chain's resamples),
+so the generator's stream stays the same on every rank and in a run of
+one. JAX's GSPMD makes every batch reduction global by itself; here each
+is written out, named where it happens:
+
+- the means (the TD and NODE-fit MSEs, the policy and backup SAC terms,
+  the pre-tanh regularizer) are the local sum over the global count
+  (``mean``), and the group sums each optimizer group's gradients in one
+  flat bucket (``step``);
+- the constraint means feed a loss that is nonlinear in them, so they
+  are summed over the group inside the forward pass (``filtered_means``'s
+  ``reduce``), with the gradient passed through unchanged;
+- the entropy errors are summed over the group, so each temperature
+  steps on the global mean and needs no gradient sum; so are the
+  metrics that are batch means.
+
+Parameters, Adam moments, the multipliers, rho and the counters stay the
+same on every rank of the group.
 """
 
 from __future__ import annotations
@@ -58,14 +81,11 @@ METRIC_NAMES = ("qf1_loss", "qf2_loss", "lf_loss", "policy_loss",
                 "barrier_td_loss", "rho", "lam_max")
 
 
-def _mse(a, b):
-    return torch.mean(torch.square(a - b))
-
-
-def _step(optimizer, params, loss) -> None:
-    """One optimizer step of ``params`` on ``loss``."""
-    grads = torch.autograd.grad(loss, tree_leaves(params))
-    apply_grads(optimizer, params, grads)
+# The injected draws that hold one (B, action_dim) draw per chain step
+RESAMPLE_DRAWS = ("resample", "backup_resample")
+# The metrics that are batch means: a data-parallel rank's are its share
+METRIC_MEANS = ("qf1_loss", "qf2_loss", "lf_loss", "policy_loss",
+                "node_loss", "barrier_td_loss")
 
 
 class Agent(NamedTuple):
@@ -76,13 +96,17 @@ class Agent(NamedTuple):
     update: Callable
     update_presampled: Callable
     update_core: Callable
+    update_from_batch: Callable
     node_fit: Callable
 
 
-def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
+def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
+               dp_group=None) -> Agent:
     """``env_override`` stands in for the registry's env (a host-env
     adapter, ``envs.host_adapter``): it exposes ``SPEC`` and, where its obs
-    is not the NODE state, ``obs_to_state``."""
+    is not the NODE state, ``obs_to_state``. ``dp_group`` (a
+    ``parallel.mesh.Comm``) runs each update on this rank's rows of the
+    batch, as the module's note sets out."""
     env = env_override if env_override is not None else \
         get_env(cfg.env.name)
     builder = get_builder(cfg.constraint.kind)
@@ -117,9 +141,61 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
         probe_obs = env.ground_probe_obs(device)
     sample_policy = (gaussian_policy_sample if is_gaussian
                      else deterministic_policy_sample)
+    n_dp = 1 if dp_group is None else dp_group.size
+    for name, n in (("sac.batch_size", scfg.batch_size),
+                    ("node.max_batch", ncfg.max_batch)):
+        if n % n_dp:
+            raise ValueError(f"--dp {n_dp} requires cfg.{name} ({n}) to be "
+                             "divisible by the dp width")
+
+    def rows(n: int):
+        """This rank's rows of an ``n``-row batch (None: all of them)."""
+        if dp_group is None:
+            return None
+        k = n // n_dp
+        return slice(dp_group.index * k, (dp_group.index + 1) * k)
 
     def sample_fn(params, obs_b, gen, noise=None):
         return sample_policy(params, obs_b, spec, gen=gen, noise=noise)
+
+    def batch_sample_fn(params, obs_b, gen, noise=None):
+        """``sample_fn`` over this rank's rows of the batch: under dp a
+        standard normal not given is drawn for the whole batch and cut to
+        the rows."""
+        if dp_group is not None and noise is None:
+            n = obs_b.shape[0] * n_dp
+            noise = torch.randn((n, cfg.action_dim), generator=gen,
+                                device=obs_b.device,
+                                dtype=obs_b.dtype)[rows(n)]
+        return sample_fn(params, obs_b, gen, noise)
+
+    def mean(x):
+        """A batch mean: under dp the rank's local sum over the global
+        count, so that the group's sum is the global mean."""
+        if dp_group is None:
+            return torch.mean(x)
+        return torch.sum(x) / (x.numel() * n_dp)
+
+    def global_mean(x):
+        """A batch mean that every rank needs whole, without a gradient
+        (the entropy errors): summed over the dp group."""
+        if dp_group is None:
+            return torch.mean(x)
+        return dp_group.all_reduce(torch.sum(x)) / (x.numel() * n_dp)
+
+    def mse(a, b):
+        return mean(torch.square(a - b))
+
+    def step(optimizer, params, loss, batch_loss: bool = True) -> None:
+        """One optimizer step of ``params`` on ``loss``. Under dp a
+        ``batch_loss`` (a rank's share of a batch mean) has its gradients
+        summed over the group, in one flat bucket per optimizer group."""
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        if dp_group is not None and batch_loss:
+            grads = dp_group.sum_flat(list(grads))
+        apply_grads(optimizer, params, grads)
+
+    reduce_means = None if dp_group is None else dp_group.sum_fwd
 
     action_low = torch.tensor(env.SPEC.action_low, dtype=torch.float32,
                               device=device)
@@ -159,20 +235,22 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
         x_next = obs_to_node_state(batch["next_obs"])
         t = batch["t"][:, None] if ncfg.time_input else None
         loss = node_loss(ncfg, node_params, x, batch["action"], x_next, dt,
-                         t=t, field=field, shorts=shorts)
-        _step(node_opt, node_params, loss)
+                         t=t, field=field, shorts=shorts, mean=mean)
+        step(node_opt, node_params, loss)
         return loss.detach()
 
     def node_fit(node_params, node_opt, node_replay, gen):
         """Fit on ``max_batch`` rows drawn from the whole buffer."""
-        batch = replay_lib.sample(node_replay, gen, ncfg.max_batch)
+        batch = replay_lib.sample(node_replay, gen, ncfg.max_batch,
+                                  rows(ncfg.max_batch))
         return node_fit_batch(node_params, node_opt, batch)
 
     # ------------------------------------------------------------------
     def update(ts: TrainState, rl_replay, node_replay, gen, i_episode: int
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """Sample the RL buffer, then ``update_presampled``."""
-        batch = replay_lib.sample(rl_replay, gen, scfg.batch_size)
+        batch = replay_lib.sample(rl_replay, gen, scfg.batch_size,
+                                  rows(scfg.batch_size))
         return update_presampled(ts, batch, node_replay, gen, i_episode)
 
     def update_presampled(ts: TrainState, batch, node_replay, gen,
@@ -183,8 +261,29 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
         ``node_replay`` only when the fit is gated on."""
         return update_core(
             ts, batch,
-            lambda: replay_lib.sample(node_replay, gen, ncfg.max_batch),
+            lambda: replay_lib.sample(node_replay, gen, ncfg.max_batch,
+                                      rows(ncfg.max_batch)),
             gen, i_episode)
+
+    def update_from_batch(ts: TrainState, batch, node_batch, gen,
+                          i_episode: int, noise: Optional[dict] = None
+                          ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The update over whole pre-sampled batches (the dp entry point):
+        under dp this rank keeps its rows of both batches and of any
+        injected draws (``noise``, as ``update_core`` takes them)."""
+        if dp_group is not None:
+            batch = {k: v[rows(v.shape[0])] for k, v in batch.items()}
+            node_batch = {k: v[rows(v.shape[0])]
+                          for k, v in node_batch.items()}
+            if noise is not None:
+                # a sample's draw is (B, n_u); the chain's resamples hold
+                # one such draw per step
+                noise = {k: ([d[rows(d.shape[0])] for d in v]
+                             if k in RESAMPLE_DRAWS
+                             else v[rows(v.shape[0])])
+                         for k, v in noise.items()}
+        return update_core(ts, batch, lambda: node_batch, gen, i_episode,
+                           noise=noise)
 
     def update_core(ts: TrainState, batch, node_batch_thunk, gen,
                     i_episode: int, noise: Optional[dict] = None
@@ -197,15 +296,18 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
         per resampling step, in the primary and backup loss); the rest are
         drawn from ``gen``. Its metrics hold, besides ``METRIC_NAMES``,
         ``short_integrations``: how many of its adaptive NODE
-        integrations ended short of their span."""
+        integrations ended short of their span. Under dp, ``batch`` holds
+        this rank's rows and ``noise`` their draws."""
         noise = noise or {}
         shorts = []  # predict_next_state's ended-short flags
         obs, action = batch["obs"], batch["action"]
-        if obs.shape[0] != scfg.batch_size:
+        if obs.shape[0] * n_dp != scfg.batch_size:
             raise ValueError(
                 f"batch has {obs.shape[0]} rows but cfg.sac.batch_size="
-                f"{scfg.batch_size}; constraint means are normalized by "
-                "the configured size, so they must match")
+                f"{scfg.batch_size}"
+                + (f" over {n_dp} dp ranks" if n_dp > 1 else "")
+                + "; constraint means are normalized by the configured "
+                "size, so they must match")
         reward = batch["reward"][:, None]
         constraint = batch["constraint"][:, None]
         mask = batch["mask"][:, None]
@@ -231,8 +333,8 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
         else:
             alpha = torch.exp(ts.log_alpha.detach()[0])
         with torch.no_grad():
-            next_a, next_logp, _ = sample_fn(ts.policy, batch["next_obs"],
-                                             gen, noise.get("next"))
+            next_a, next_logp, _ = batch_sample_fn(
+                ts.policy, batch["next_obs"], gen, noise.get("next"))
             q1_t, q2_t = twin_q_apply(ts.critic_target, batch["next_obs"],
                                       next_a)
             min_q_t = torch.minimum(q1_t, q2_t) - alpha * next_logp
@@ -241,11 +343,11 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
             next_l = constraint + mask * scfg.gamma * lf_t
 
         q1, q2 = twin_q_apply(ts.critic, obs, action)
-        qf1_loss, qf2_loss = _mse(q1, next_q), _mse(q2, next_q)
-        _step(ts.opt["critic"], ts.critic, qf1_loss + qf2_loss)
+        qf1_loss, qf2_loss = mse(q1, next_q), mse(q2, next_q)
+        step(ts.opt["critic"], ts.critic, qf1_loss + qf2_loss)
 
-        lf_loss = _mse(lyapunov_apply(ts.lyap, batch["lyap_t"]), next_l)
-        _step(ts.opt["lyap"], ts.lyap, lf_loss)
+        lf_loss = mse(lyapunov_apply(ts.lyap, batch["lyap_t"]), next_l)
+        step(ts.opt["lyap"], ts.lyap, lf_loss)
 
         barrier_td_loss = zero()
         if is_nbc:
@@ -255,8 +357,8 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
                                        next_a)
                 next_b = (batch["barrier_signal"][:, None]
                           + mask * scfg.gamma * b_next)
-            b_loss = _mse(barrier_apply(ts.barrier, obs, action), next_b)
-            _step(ts.opt["barrier"], ts.barrier, b_loss)
+            b_loss = mse(barrier_apply(ts.barrier, obs, action), next_b)
+            step(ts.opt["barrier"], ts.barrier, b_loss)
             barrier_td_loss = b_loss.detach()
 
         # The policy losses see the stepped critic, Lyapunov net, barrier
@@ -285,29 +387,33 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
             optimized; it carries no gradient."""
             def resample(obs_k, k):
                 with torch.no_grad():
-                    a, _, _ = sample_fn(policy, obs_k, gen,
-                                        None if draws is None else draws[k])
+                    a, _, _ = batch_sample_fn(
+                        policy, obs_k, gen,
+                        None if draws is None else draws[k])
                 return a
             return resample
 
-        pi, logp, _ = sample_fn(ts.policy, obs, gen, noise.get("pi"))
+        pi, logp, _ = batch_sample_fn(ts.policy, obs, gen, noise.get("pi"))
         pq1, pq2 = twin_q_apply(pg_critic, obs, pi)
-        policy_loss_1 = torch.mean(alpha * logp - torch.minimum(pq1, pq2))
+        policy_loss_1 = mean(alpha * logp - torch.minimum(pq1, pq2))
         terms = builder.terms(
             obs=obs, action=pi, include_clf=True,
             resample=make_resampler(ts.policy, noise.get("resample")),
             **term_kwargs)
         policy_loss_2, lam_new, rho1 = lag_primary_loss(
             ccfg, terms, ts.lag.lam, ts.lag.rho, do_lam, scfg.batch_size,
-            do_rho_growth=lag_live)
+            do_rho_growth=lag_live, reduce=reduce_means)
         loss = policy_loss_1 + policy_loss_2
         if pretanh_reg:
             mu, _ = gaussian_policy_forward(ts.policy, obs)
-            loss = loss + pretanh_reg * torch.mean(torch.square(mu))
+            loss = loss + pretanh_reg * mean(torch.square(mu))
         if probe_pretanh_reg:
+            # the probe batch is the same on every rank: each takes
+            # 1/n_dp of its term, so the group's gradient sum is whole
             mu_p, _ = gaussian_policy_forward(ts.policy, probe_obs)
-            loss = loss + probe_pretanh_reg * torch.mean(torch.square(mu_p))
-        _step(ts.opt["policy"], ts.policy, loss)
+            loss = loss + probe_pretanh_reg * torch.mean(
+                torch.square(mu_p)) / n_dp
+        step(ts.opt["policy"], ts.policy, loss)
         logp = logp.detach()
 
         # --- 4. backup policy branch --------------------------------------
@@ -324,11 +430,11 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
                     backup_alpha = scfg.alpha_init
                 else:
                     backup_alpha = torch.exp(ts.backup_log_alpha.detach()[0])
-                bpi, blogp, _ = sample_fn(ts.backup_policy, obs, gen,
-                                          noise.get("backup"))
+                bpi, blogp, _ = batch_sample_fn(ts.backup_policy, obs, gen,
+                                                noise.get("backup"))
                 bq1, bq2 = twin_q_apply(pg_critic, obs, bpi)
-                bloss1 = torch.mean(backup_alpha * blogp
-                                    - torch.minimum(bq1, bq2))
+                bloss1 = mean(backup_alpha * blogp
+                              - torch.minimum(bq1, bq2))
                 bterms = builder.terms(
                     obs=obs, action=bpi, include_clf=False,
                     resample=make_resampler(ts.backup_policy,
@@ -336,13 +442,15 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
                     **term_kwargs)
                 bloss2, backup_lam, backup_rho_out = lag_backup_loss(
                     ccfg, bterms, backup_lam, backup_rho_out, do_lam,
-                    scfg.batch_size, do_rho_growth=lag_live)
-                _step(ts.opt["backup_policy"], ts.backup_policy,
-                      bloss1 + bloss2)
+                    scfg.batch_size, do_rho_growth=lag_live,
+                    reduce=reduce_means)
+                step(ts.opt["backup_policy"], ts.backup_policy,
+                     bloss1 + bloss2)
                 if entropy_tuning:
-                    ent_err = torch.mean(blogp.detach()) + target_entropy
-                    _step(ts.opt["backup_alpha"], ts.backup_log_alpha,
-                          -(ts.backup_log_alpha[0] * ent_err))
+                    ent_err = global_mean(blogp.detach()) + target_entropy
+                    step(ts.opt["backup_alpha"], ts.backup_log_alpha,
+                         -(ts.backup_log_alpha[0] * ent_err),
+                         batch_loss=False)
             if ccfg.separate_backup_rho:
                 rho_final, backup_rho_final = rho1, backup_rho_out
             else:
@@ -354,10 +462,10 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
         # --- 5. primary entropy temperature -------------------------------
         alpha_loss = zero()
         if entropy_tuning:
-            ent_err = torch.mean(logp) + target_entropy
+            ent_err = global_mean(logp) + target_entropy
             a_loss = -(ts.log_alpha[0] * ent_err)
             alpha_loss = a_loss.detach()
-            _step(ts.opt["alpha"], ts.log_alpha, a_loss)
+            step(ts.opt["alpha"], ts.log_alpha, a_loss, batch_loss=False)
 
         # --- 6. soft target updates ---------------------------------------
         if scfg.target_update_interval <= 1 or \
@@ -385,8 +493,14 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None) -> Agent:
                                    else torch.zeros((), dtype=torch.int64,
                                                     device=device)),
         }
+        if dp_group is not None:
+            # the batch-mean metrics are each rank's share: one sum
+            summed = dp_group.all_reduce(
+                torch.stack([metrics[k] for k in METRIC_MEANS]))
+            metrics.update(zip(METRIC_MEANS, summed.unbind()))
         return ts, metrics
 
     return Agent(cfg=cfg, select_action=select_action, update=update,
                  update_presampled=update_presampled,
-                 update_core=update_core, node_fit=node_fit)
+                 update_core=update_core,
+                 update_from_batch=update_from_batch, node_fit=node_fit)

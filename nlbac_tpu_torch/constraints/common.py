@@ -42,10 +42,18 @@ def init_lagrangian(num_primary: int, num_backup: int,
     )
 
 
-def filtered_means(terms: torch.Tensor, batch_size: int) -> torch.Tensor:
+def filtered_means(terms: torch.Tensor, batch_size: int,
+                   reduce=None) -> torch.Tensor:
     """ReLU-filter then batch-mean each column, dividing by the configured
-    ``batch_size``: (B, K) -> (K,)."""
-    return torch.sum(torch.clamp(terms, min=0.0), dim=0) / batch_size
+    ``batch_size``: (B, K) -> (K,). A data-parallel rank holds some of the
+    rows and passes ``reduce``, the sum over its group with the gradient
+    passed through unchanged (``Comm.sum_fwd``): the loss is nonlinear in
+    the means, so the means themselves are made whole inside the forward
+    pass, and the group's sum of the gradients is then the exact one."""
+    sums = torch.sum(torch.clamp(terms, min=0.0), dim=0)
+    if reduce is not None:
+        sums = reduce(sums)
+    return sums / batch_size
 
 
 def ascend_multipliers(cfg: ConstraintConfig, lam, c, rho,
@@ -64,13 +72,13 @@ def grow_rho(cfg: ConstraintConfig, rho):
 
 def primary_loss(cfg: ConstraintConfig, terms: torch.Tensor, lam, rho,
                  do_lambda_update: bool, batch_size: int,
-                 do_rho_growth: bool = True
+                 do_rho_growth: bool = True, reduce=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Primary controller's constraint loss (CBFs + CLF-last).
 
     Returns (loss, lam', rho'): ascent with rho_in, then the rho bump,
-    then the loss with (lam', rho')."""
-    m = filtered_means(terms, batch_size)  # raw: ascent only
+    then the loss with (lam', rho'). ``reduce``: see ``filtered_means``."""
+    m = filtered_means(terms, batch_size, reduce)  # raw: ascent only
     c = m - cfg.cost_limit  # shifted: ratio + loss
     if cfg.use_ratio and terms.shape[1] < 2:
         raise ValueError(
@@ -98,11 +106,11 @@ def primary_loss(cfg: ConstraintConfig, terms: torch.Tensor, lam, rho,
 
 def backup_loss(cfg: ConstraintConfig, terms: torch.Tensor, backup_lam,
                 rho, do_lambda_update: bool, batch_size: int,
-                do_rho_growth: bool = True
+                do_rho_growth: bool = True, reduce=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backup controller's CBF-only constraint loss; returns
-    (loss, backup_lam', rho')."""
-    m = filtered_means(terms, batch_size)
+    (loss, backup_lam', rho'). ``reduce``: see ``filtered_means``."""
+    m = filtered_means(terms, batch_size, reduce)
     c = m - cfg.cost_limit
     lam_new = ascend_multipliers(cfg, backup_lam, m, rho, do_lambda_update)
     rho_new = grow_rho(cfg, rho) if do_rho_growth else rho

@@ -9,6 +9,12 @@ structure leaf for leaf. Neither imports JAX: the template's own
 NamedTuple types rebuild the optimizer states. ``to_numpy`` turns one
 parameter tree into the reference's numpy leaves (the weights-only
 files).
+
+For a gang (``nlbac_tpu_torch.parallel``), ``from_reference(...,
+grid=)`` gives a tensor-parallel rank its shards of the reference's state
+(a data-parallel rank holds all of it), and ``to_reference`` of a rank's
+shards puts the whole state together first (a collective of the tp
+group), so a gang's state comes back as one reference tree.
 """
 
 from __future__ import annotations
@@ -76,8 +82,11 @@ def _fill(template, leaves):
         np.asarray(template).dtype)
 
 
-def from_reference(ref, cfg: NLBACConfig, device="cuda") -> TrainState:
-    """The reference's numpy ``TrainState`` -> the port's, on ``device``."""
+def from_reference(ref, cfg: NLBACConfig, device="cuda",
+                   grid=None) -> TrainState:
+    """The reference's numpy ``TrainState`` -> the port's, on ``device``;
+    with a ``grid`` (``parallel.ProcessGrid``) of tp > 1, this rank's
+    shards of it."""
     device = resolve_device(device)
     fields = {name: _to_tree(getattr(ref, name), device, requires_grad=True)
               for name in TRAINED}
@@ -101,13 +110,23 @@ def from_reference(ref, cfg: NLBACConfig, device="cuda") -> TrainState:
             }
     lag = LagrangianState(*(_tensor(getattr(ref.lag, f), device)
                             for f in LagrangianState._fields))
-    return TrainState(**fields, opt=opts, lag=lag,
-                      updates=int(np.asarray(ref.updates)))
+    ts = TrainState(**fields, opt=opts, lag=lag,
+                    updates=int(np.asarray(ref.updates)))
+    if grid is not None and grid.tp > 1:
+        from nlbac_tpu_torch.parallel.tp import shard_state_tp
+        ts = shard_state_tp(ts, grid)
+    return ts
 
 
 def to_reference(ts: TrainState, template):
     """The port's ``TrainState`` -> a numpy pytree with ``template``'s
-    structure (a numpy copy of a reference ``TrainState``)."""
+    structure (a numpy copy of a reference ``TrainState``). A
+    tensor-parallel rank's shards are put together first: every rank of
+    its tp group must call this."""
+    if any(getattr(p, "tp_shard", None) is not None
+           for p in tree_leaves(ts.policy)):
+        from nlbac_tpu_torch.parallel.tp import gather_state_tp
+        ts = gather_state_tp(ts)
     out = {name: _like(getattr(template, name), getattr(ts, name))
            for name in TRAINED + TARGETS}
     opt = {}

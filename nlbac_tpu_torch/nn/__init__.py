@@ -10,6 +10,7 @@ from nlbac_tpu_torch.nn.critics import (  # noqa: F401
     value_init,
 )
 from nlbac_tpu_torch.nn.mlp import (  # noqa: F401
+    TPShard,
     mlp_apply,
     mlp_init,
     mlp_sizes,

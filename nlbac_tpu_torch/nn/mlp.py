@@ -2,14 +2,34 @@
 ``nlbac_tpu/nn/mlp.py``).
 
 Params are ``{"w": [(in, out) tensors], "b": [(out,) tensors]}``, the JAX
-package's layout, so a layer is ``x @ w + b``."""
+package's layout, so a layer is ``x @ w + b``.
+
+Under tensor parallelism (``parallel/tp.py``) a rank holds a shard of a
+layer's weight, marked by a ``tp_shard`` attribute (a ``TPShard``):
+split along the output (a column layer) or the input (a row layer).
+``mlp_apply`` reads the mark and writes Megatron's collectives: the f
+operator before a column layer (the identity forward, the sum of the
+input's gradient backward), the g operator after a row layer (the sum
+of the partial products forward, the identity backward; the row layer's
+bias, held whole, is added after it) and, where a net ends on a column
+layer, the gather of its output columns. Unmarked layers are whole."""
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
+
+
+class TPShard(NamedTuple):
+    """How a tensor-parallel rank holds a layer tensor: the dimension of
+    the whole tensor it is cut along (a weight's 1 for a column layer, 0
+    for a row layer; a column layer's bias 0) and the tp group's
+    collectives (``parallel.mesh.Comm``)."""
+
+    dim: int
+    comm: Any
 
 
 def xavier_uniform(gen: torch.Generator, shape, gain: float = 1.0,
@@ -36,21 +56,35 @@ def mlp_apply(params, x: torch.Tensor, *,
               activation: Callable = torch.relu,
               final_activation: Optional[Callable] = None,
               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """ReLU between layers, linear (or ``final_activation``) output."""
+    """ReLU between layers, linear (or ``final_activation``) output. Layers
+    marked ``tp_shard`` run tensor-parallel (see the module's note)."""
     ws, bs = params["w"], params["b"]
     orig_dtype = x.dtype
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     n = len(ws)
+    split = None  # the column layer whose output columns x holds
     for i in range(n):
         w, b = ws[i], bs[i]
+        shard = getattr(w, "tp_shard", None)
         if compute_dtype is not None:
             w, b = w.to(compute_dtype), b.to(compute_dtype)
-        x = x @ w + b
+        if shard is None:
+            if split is not None:
+                x, split = split.comm.gather(x), None
+            x = x @ w + b
+        elif shard.dim == 1:
+            x = shard.comm.sum_bwd(x) @ w + b
+            split = shard
+        else:
+            x = shard.comm.sum_fwd(x @ w) + b
+            split = None
         if i < n - 1:
             x = activation(x)
         elif final_activation is not None:
             x = final_activation(x)
+    if split is not None:
+        x = split.comm.gather(x)
     if compute_dtype is not None:
         x = x.to(orig_dtype)
     return x

@@ -7,7 +7,11 @@
 The integration state is ``concat(x, u[, t])`` and the field returns zeros
 in the control (and time) slots (zero-order-hold control). For the
 control-affine field under one Euler step, ``predict_next_state`` goes
-through the fused kernel ``ops.node_kernel.node_euler_step``; under
+through the fused kernel ``ops.node_kernel.node_euler_step``, except
+when the nets are cut across a tensor-parallel group (``--tp``): the
+kernel computes all nine layers from whole weight matrices in one
+launch, so a tp rank's field runs through the plain layers of
+``mlp_apply`` with their collectives between them; under
 ``solver='dopri5'`` it runs the adaptive solver on the plain field (the
 ``scan`` form differentiated by autograd, the ``while`` form through the
 adjoint) and, given a ``shorts`` list, appends to it on the device
@@ -109,7 +113,7 @@ def predict_next_state(cfg: NodeConfig, params, x, u, dt, t=None,
     ``shorts`` is a list, append to it a 0-d bool device tensor: whether
     the integration ended short of dt (``max_steps`` ran out)."""
     if cfg.form == "control_affine" and cfg.solver == "euler" and \
-            cfg.solver_steps == 1:
+            cfg.solver_steps == 1 and not tp_sharded(params):
         return node_euler_step(params, x.contiguous(), u.contiguous(), dt,
                                compute_dtype=cfg.compute_dtype)
     if field is None:
@@ -132,11 +136,19 @@ def predict_next_state(cfg: NodeConfig, params, x, u, dt, t=None,
     return s1[..., :cfg.state_dim]
 
 
+def tp_sharded(params) -> bool:
+    """Whether any layer of the NODE's nets is a tensor-parallel shard."""
+    return any(getattr(w, "tp_shard", None) is not None
+               for net in params.values() for w in net["w"])
+
+
 def node_loss(cfg: NodeConfig, params, x, u, x_next, dt, t=None,
-              field=None, shorts=None):
-    """Mean-squared one-step prediction error."""
+              field=None, shorts=None, mean=torch.mean):
+    """Mean-squared one-step prediction error (``mean`` takes the squared
+    errors to the loss: a data-parallel rank passes its share of the
+    global mean)."""
     pred = predict_next_state(cfg, params, x, u, dt, t, field, shorts)
-    return torch.mean(torch.square(pred - x_next))
+    return mean(torch.square(pred - x_next))
 
 
 def apply_grads(optimizer: torch.optim.Optimizer, params, grads) -> None:

@@ -52,8 +52,8 @@ def gaussian_policy_init(gen, obs_dim: int, action_dim: int, hidden: int,
 def gaussian_policy_forward(params, obs):
     """Returns (mean, log_std) with log_std clamped."""
     h = mlp_apply(params["trunk"], obs, final_activation=torch.relu)
-    mean = h @ params["mean"]["w"][0] + params["mean"]["b"][0]
-    log_std = h @ params["log_std"]["w"][0] + params["log_std"]["b"][0]
+    mean = mlp_apply(params["mean"], h)
+    log_std = mlp_apply(params["log_std"], h)
     log_std = torch.clamp(log_std, LOG_SIG_MIN, LOG_SIG_MAX)
     return mean, log_std
 

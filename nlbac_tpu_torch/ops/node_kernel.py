@@ -15,6 +15,12 @@ for CUDA tensors and raises on anything it does not take; the plain
 version runs only for tensors on the CPU. A parameter set is checked and
 packed for the C call once (``launch_args``); x and u are checked on
 every call.
+
+Several host threads may launch it at once (``--n_seeds``: one thread
+and one CUDA stream per seed): the library is loaded under a lock, the
+launch count is bumped under one, each thread keeps its own cache of
+parameter sets (so N seeds never evict each other's), and a launch goes
+to the calling thread's current stream.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from collections import Counter
 from pathlib import Path
 from typing import Optional
 
@@ -41,15 +49,33 @@ TILE_CONFIGS = ((16, 4), (64, 4))
 # tiles (from the sweep of chip_smoke.py phase 4).
 SMALL_TILE_MAX_ROWS = 2048
 
-# Kernel launches made through ``node_euler_step`` since the last reset.
+# Kernel launches made through ``node_euler_step`` since the last reset,
+# and the same launches by the launching thread's name and by row count.
 launch_counts = {"node_euler": 0}
+launches_by_thread: Counter = Counter()
+launches_by_rows: Counter = Counter()
+_count_lock = threading.Lock()
 
 _lib = None
+_load_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+        launches_by_thread.clear()
+        launches_by_rows.clear()
+
+
+def count_launch(rows: int, name: str = "node_euler") -> None:
+    """Add one launch of kernel ``name`` over ``rows`` rows, made by the
+    calling thread (safe from any thread)."""
+    thread = threading.current_thread().name
+    with _count_lock:
+        launch_counts[name] += 1
+        launches_by_thread[thread] += 1
+        launches_by_rows[rows] += 1
 
 
 def _nvcc() -> str:
@@ -110,7 +136,9 @@ def _bind(lib):
 def _load():
     global _lib
     if _lib is None:
-        _lib = _bind(ctypes.CDLL(str(build())))
+        with _load_lock:
+            if _lib is None:
+                _lib = _bind(ctypes.CDLL(str(build())))
     return _lib
 
 
@@ -187,6 +215,7 @@ class LaunchArgs:
         self._plan = None
 
     def plan(self):
+        # one LaunchArgs lives in one thread's cache (launch_args)
         if self._plan is None:
             lib = _load()
             plan = ctypes.create_string_buffer(
@@ -200,11 +229,19 @@ class LaunchArgs:
         return self._plan
 
 
-# LaunchArgs by the parameters' (data_ptr, shape, stride, dtype, device):
-# Adam updates the parameters in place and leaves every part of the key as
-# it was, so the training loop builds and validates them once.
-_launch_args: dict = {}
+# LaunchArgs by the parameters' (data_ptr, shape, stride, dtype, device),
+# one cache per thread (a seed's thread keeps its own): Adam updates the
+# parameters in place and leaves every part of the key as it was, so the
+# training loop builds and validates them once.
+_cache = threading.local()
 _LAUNCH_ARGS_KEPT = 16
+
+
+def _launch_args_cache() -> dict:
+    cache = getattr(_cache, "args", None)
+    if cache is None:
+        cache = _cache.args = {}
+    return cache
 
 
 def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
@@ -218,7 +255,8 @@ def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
     key = (n_s, n_u, len(fw), len(gw)) + tuple(
         (t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
         for t in fw + fb + gw + gb)
-    args = _launch_args.get(key)
+    cache = _launch_args_cache()
+    args = cache.get(key)
     if args is None:
         _validate_params(params, n_s, n_u, x.device)
 
@@ -232,9 +270,9 @@ def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
         args = LaunchArgs(n_s, n_u, x.device, (
             len(fw), ptrs(fw), ptrs(fb), dims(fw),
             len(gw), ptrs(gw), ptrs(gb), dims(gw)))
-        if len(_launch_args) >= _LAUNCH_ARGS_KEPT:
-            _launch_args.clear()
-        _launch_args[key] = args
+        if len(cache) >= _LAUNCH_ARGS_KEPT:
+            cache.clear()
+        cache[key] = args
     _check_tensors((x, u), args.device)
     return args
 
@@ -262,7 +300,7 @@ def _launch(args: LaunchArgs, x: torch.Tensor, u: torch.Tensor, dt: float,
     if err != 0:
         raise RuntimeError(f"node_euler kernel launch failed: cudaError_t "
                            f"{err}")
-    launch_counts["node_euler"] += 1
+    count_launch(rows)
     return out
 
 

@@ -111,11 +111,16 @@ def push_row(replay: Replay, row: torch.Tensor) -> Replay:
 
 
 def sample(replay: Replay, gen: Optional[torch.Generator],
-           batch_size: int) -> dict:
+           batch_size: int, rows: Optional[slice] = None) -> dict:
     """Uniform sample of ``batch_size`` records, with replacement, from the
-    whole valid range [0, size)."""
+    whole valid range [0, size). ``rows`` keeps only those rows of the
+    sample (a data-parallel rank's share): all ``batch_size`` indices are
+    drawn all the same, so the generator's stream is the same on every
+    rank and in a run of one."""
     idx = torch.randint(0, max(replay.size, 1), (batch_size,), generator=gen,
                         device=replay.data.device)
+    if rows is not None:
+        idx = idx[rows]
     return unpack_rows(replay.layout, replay.data[idx])
 
 

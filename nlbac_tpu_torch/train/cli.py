@@ -15,8 +15,26 @@ gym API, the native RL ring, the updates on the device);
 the process runs. ``--mode eval`` rolls out the weights in ``--output``
 (a run directory) for 5 episodes (``utils/evaluate.py``).
 
-Flags whose feature is not ported yet are still parsed, and raise an
-error naming the ROADMAP.md item that ports them.
+The parallel modes (``nlbac_tpu_torch/parallel``):
+
+- ``--n_seeds N`` trains seeds ``seed .. seed+N-1`` in one process, round
+  robin over its cards, each seed on a host thread and CUDA stream of
+  its own, into ``<run dir>/s<seed>/``, with an aggregate row per
+  episode;
+- ``--dp N`` / ``--tp N`` train one seed data-parallel (each rank takes
+  its rows of every batch) and/or tensor-parallel (every network cut
+  Megatron-style over the tp ranks) over ``dp x tp`` ranks, one process
+  and one card each: on one host the CLI spawns them itself; with
+  ``--coordinator host:port --num_processes P --process_id r`` each
+  process is rank r of a gang of P = dp x tp ranks. Only rank 0 writes
+  the run directory. Under ``--tp`` the NODE's nets are cut too, so its
+  Euler step runs through the plain tp-aware layers and the fused NODE
+  kernel is not launched;
+- ``--n_seeds`` with ``--dp``/``--tp`` trains seed i on group ``i %
+  groups`` of ``dp x tp`` ranks.
+
+The checks of the JAX CLI run, in its order and with its messages,
+before any run directory or process group exists.
 """
 
 from __future__ import annotations
@@ -25,16 +43,29 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 from collections import deque
 
+import numpy as np
 import torch
+import torch.distributed
 
 from nlbac_tpu_torch import resolve_device, runtime_native
 from nlbac_tpu_torch.agent import create_train_state
-from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.config import NLBACConfig, get_config
 from nlbac_tpu_torch.constraints import uses_barrier
 from nlbac_tpu_torch.envs import as_host_env, get_env
+from nlbac_tpu_torch.parallel import (
+    device_for_rank,
+    gather_state_tp,
+    init_distributed,
+    is_rank0,
+    make_async_seed_runner,
+    make_grids,
+    make_mesh,
+    make_parallel_runner,
+    run_gang,
+)
 from nlbac_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     checkpoint_arrays,
@@ -44,6 +75,7 @@ from nlbac_tpu_torch.train.checkpoint import (
 from nlbac_tpu_torch.train.driver import (
     build_step_kwargs,
     create_replays,
+    episode_to_host,
     make_episode_runner,
 )
 from nlbac_tpu_torch.train.host_loop import train_host_env
@@ -159,11 +191,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", default="train", choices=["train", "eval"],
                    help="eval: roll out the weights in --output (a run "
                         "directory) for 5 episodes")
-    # parsed for the JAX CLI's command lines; not ported yet (ROADMAP.md)
-    p.add_argument("--n_seeds", type=int, default=1)
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--coordinator", default=None)
+    p.add_argument("--n_seeds", type=int, default=1,
+                   help="train seeds seed..seed+N-1 side by side (one host "
+                        "thread and CUDA stream each, round robin over "
+                        "the cards) into <run dir>/s<seed>/")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel over N ranks (one card each): each "
+                        "rank takes its rows of every batch, the ranks "
+                        "sum the gradients")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel over N ranks: every network cut "
+                        "Megatron-style (the hidden size must divide by "
+                        "N). The NODE's nets are cut too, so the fused "
+                        "NODE kernel is not launched under --tp; at these "
+                        "widths it is a throughput loss")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's rendezvous (multi-host "
+                        "gangs: one process per rank, --dp x --tp == "
+                        "--num_processes)")
     p.add_argument("--num_processes", type=int, default=1)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--spawn_curriculum_episodes", type=int, default=None)
@@ -266,24 +311,79 @@ def config_from_args(args) -> NLBACConfig:
     return cfg
 
 
-def check_ported(args, cfg: NLBACConfig) -> None:
-    """Raise ``SystemExit`` for a flag whose feature the port does not
-    have yet, naming the ROADMAP.md item that ports it."""
-    unported = (
-        (args.n_seeds != 1, "--n_seeds", 18),
-        (args.dp != 1 or args.tp != 1, "--dp/--tp", 18),
-        (args.num_processes != 1 or args.coordinator is not None
-         or args.process_id is not None,
-         "the multi-host flags (--coordinator, --num_processes, "
-         "--process_id)", 18),
-    )
-    for hit, what, item in unported:
-        if hit:
-            raise SystemExit(f"{what} is not ported to nlbac_tpu_torch yet "
-                             f"(ROADMAP.md, Queue 1 item {item})")
+def check_gang_args(args) -> None:
+    """The JAX CLI's argument-only checks of the parallel flags, raised as
+    ``SystemExit`` before any process group forms (a bad flag set fails
+    before the gang waits for its peers)."""
+    if args.num_processes > 1:
+        if not args.coordinator or args.process_id is None:
+            raise SystemExit("--num_processes > 1 requires --coordinator "
+                             "host:port and --process_id")
+        if args.n_seeds > 1:
+            raise SystemExit(
+                "--n_seeds x --num_processes is not supported: the async "
+                "seed runner lays seeds over this process's local "
+                "devices; launch one seed per process instead")
+    if args.dp < 1 or args.tp < 1:
+        raise SystemExit("--dp/--tp must be >= 1")
+    if (args.tp > 1 and args.hidden_size
+            and args.hidden_size % args.tp != 0):
+        raise SystemExit(
+            f"--tp {args.tp} requires --hidden_size ({args.hidden_size}) "
+            f"to be divisible by the tp width (nothing would shard)")
 
 
-def _validate_save_best(cfg: NLBACConfig, output_dir) -> None:
+def check_gang_config(args, cfg: NLBACConfig) -> None:
+    """The JAX CLI's checks of the parallel flags against the config, in
+    its order and with its messages, then the port's own (one rank per
+    process; no dopri5 in a gang), all before any run directory."""
+    ranks = args.dp * args.tp
+    if args.num_processes > 1:
+        if ranks != args.num_processes:
+            raise SystemExit(
+                f"--dp {args.dp} x --tp {args.tp} must equal "
+                f"--num_processes {args.num_processes}: each process of "
+                "nlbac_tpu_torch is one rank with one device")
+    elif ranks > 1 and not args.cpu:
+        seen = torch.cuda.device_count()
+        if seen < ranks:
+            raise SystemExit(f"--dp {args.dp} x --tp {args.tp} needs "
+                             f"{ranks} devices; this process sees {seen} "
+                             f"(cuda)")
+    if args.tp > 1 and cfg.sac.hidden_dim % args.tp != 0:
+        raise SystemExit(
+            f"--tp {args.tp} requires the hidden dim "
+            f"({cfg.sac.hidden_dim}) to be divisible by the tp width "
+            f"(nothing would shard — N devices of redundant work)")
+    if args.dp > 1 and (cfg.sac.batch_size % args.dp != 0
+                        or cfg.node.max_batch % args.dp != 0):
+        raise SystemExit(
+            f"--dp {args.dp} requires batch_size "
+            f"({cfg.sac.batch_size}) and the NODE max_batch "
+            f"({cfg.node.max_batch}) to be divisible by the dp width")
+    if ranks > 1 and cfg.node.solver == "dopri5":
+        raise SystemExit(
+            "--dp/--tp run the fixed-step NODE solvers only: dopri5's "
+            "adaptive step reads an error norm over the whole batch and "
+            "the parameters (not ported; ROADMAP.md)")
+    if args.n_seeds > 1:
+        for flag in ("resume", "checkpoint", "profile_dir"):
+            if getattr(args, flag, None):
+                raise SystemExit(
+                    f"--{flag} is a single-seed feature; it is not "
+                    f"supported with --n_seeds > 1")
+        if args.wandb:
+            raise SystemExit("--wandb is a single-seed feature; it is "
+                             "not supported with --n_seeds > 1")
+        if args.tensorboard:
+            raise SystemExit("--tensorboard is a single-seed feature; "
+                             "it is not supported with --n_seeds > 1 "
+                             "(per-seed progress.txt is the multi-seed "
+                             "channel)")
+
+
+def _validate_save_best(cfg: NLBACConfig, output_dir,
+                        needs_dir: bool = True) -> None:
     metric = cfg.run.save_best_metric
     if metric is None:
         return
@@ -292,7 +392,7 @@ def _validate_save_best(cfg: NLBACConfig, output_dir) -> None:
                          "or 'goal_rate'")
     if cfg.run.save_best_window < 1:
         raise ValueError("save_best_window must be >= 1")
-    if output_dir is None:
+    if output_dir is None and needs_dir:
         raise ValueError("save_best_metric requires an output dir (weights "
                          "go to <output>/best/)")
     if cfg.run.save_best_after >= cfg.run.max_episodes:
@@ -339,23 +439,6 @@ def check_eval(args) -> None:
                          "they have no effect with --mode eval")
 
 
-def _episode_to_host(m) -> dict:
-    """The episode's metrics as Python numbers, in one device read."""
-    scalars = ("reward", "num_violations", "safety_cost", "reached",
-               "goal_met", "backup_steps", "short_integrations")
-    flat = torch.cat(
-        [torch.stack([getattr(m, k).to(torch.float32) for k in scalars]),
-         m.viol_breakdown, m.cost_breakdown,
-         torch.stack([m.train[k].to(torch.float32) for k in METRIC_NAMES])]
-    ).tolist()
-    host = dict(zip(scalars, flat))
-    host["viol_breakdown"] = flat[len(scalars):len(scalars) + 4]
-    host["cost_breakdown"] = flat[len(scalars) + 4:len(scalars) + 8]
-    host["train"] = dict(zip(METRIC_NAMES, flat[len(scalars) + 8:]))
-    host["steps"] = m.steps
-    return host
-
-
 def start_profile(device):
     """A started ``torch.profiler`` of the host's ops, and the card's
     kernels when ``device`` is a GPU."""
@@ -389,17 +472,48 @@ PVTOL_BREAKDOWN = (
     ("Violations concerning ymax", "ymax"))
 
 
+def log_row(logger: EpochLogger, i_episode: int, m: dict, train_columns,
+            updates: int) -> None:
+    """One episode's progress.txt row (the JAX CLI's columns) from its
+    host metrics ``m`` (``train.driver.episode_to_host``)."""
+    logger.store(Episode=i_episode, episode_steps=m["steps"],
+                 reward_train=m["reward"], cost_train=m["num_violations"],
+                 safety_cost_train=m["safety_cost"], goal_met=m["goal_met"],
+                 reached=m["reached"])
+    for k in train_columns:
+        logger.store(**{k: m["train"][k]})
+    for k in ("Episode", "episode_steps", "reward_train", "cost_train",
+              "safety_cost_train", "goal_met", "reached") + train_columns:
+        logger.log_tabular(k)
+    logger.log_tabular("updates", updates)
+    logger.log_tabular("backup_steps", int(m["backup_steps"]))
+    logger.dump_tabular()
+
+
 def train(cfg: NLBACConfig, output_dir: str | None = None,
           quiet: bool = False, checkpoint_path: str | None = None,
           resume_path: str | None = None, device="cuda",
-          profile_dir: str | None = None):
+          profile_dir: str | None = None, dp: int = 1, tp: int = 1,
+          grid=None):
     """The training loop: episodes of ``run_episode`` with the JAX CLI's
     logging, weight files, checkpoint cadence and best-window selection.
     With ``profile_dir``, the second episode this process runs (a steady
     one, also under ``resume_path``) is traced into it. Returns ``(ts,
-    rl_replay, node_replay)``."""
+    rl_replay, node_replay)``.
+
+    ``dp``/``tp`` > 1 run the same loop as one rank of a ``(dp, tp)``
+    grid (``grid``, by default ``make_mesh((dp, tp))`` over an initialized
+    process group): every rank restores the same checkpoint, takes rank
+    0's state, and runs the data-/tensor-parallel episode; the files are
+    the caller's to give to rank 0 only (``output_dir`` None elsewhere).
+    Under tp the ranks put the whole state together before each save,
+    so the files are those of a run of one. Returns this rank's state
+    (its shards under tp)."""
     device = resolve_device(device)
-    _validate_save_best(cfg, output_dir)
+    if grid is None and dp * tp > 1:
+        grid = make_mesh((dp, tp))
+    root = grid is None or grid.is_root
+    _validate_save_best(cfg, output_dir, needs_dir=root)
     logger = EpochLogger(output_dir, quiet=quiet)
     logger.save_config(cfg)
     sink = MetricsSink(logger, use_wandb=cfg.run.log_wandb
@@ -427,7 +541,17 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
             print(colorize(f"resumed from {resume_path} at episode "
                            f"{start_episode} ({total_steps} steps)",
                            "yellow"))
-        run_episode = make_episode_runner(cfg, device)
+        if grid is not None:
+            place, run_episode = make_parallel_runner(cfg, grid, device)
+            ts, rl_replay, node_replay, gen, total_steps = place(
+                (ts, rl_replay, node_replay, gen, total_steps))
+        else:
+            run_episode = make_episode_runner(cfg, device)
+
+    def whole():
+        """The state as a run of one holds it (a collective under tp)."""
+        return gather_state_tp(ts) if grid is not None and grid.tp > 1 \
+            else ts
 
     save_every = max(1, cfg.run.max_episodes // cfg.run.save_every_fraction)
     best_metric = cfg.run.save_best_metric
@@ -438,17 +562,18 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
         best_window = deque(maxlen=max(1, min(
             cfg.run.save_best_window, cfg.run.max_episodes - best_first)))
         best_mean = None
-        best_dir = os.path.join(output_dir, "best")
+        best_dir = (os.path.join(output_dir, "best")
+                    if output_dir is not None else None)
 
     try:
         for i_episode in range(start_episode, cfg.run.max_episodes):
             phase = "episode_first" if i_episode == 0 else "episode"
             prof = (start_profile(device) if profile_dir is not None
-                    and i_episode == start_episode + 1 else None)
+                    and root and i_episode == start_episode + 1 else None)
             with timer.time(phase):
                 ts, rl_replay, node_replay, m, total_steps = run_episode(
                     ts, rl_replay, node_replay, gen, i_episode, total_steps)
-                m = _episode_to_host(m)
+                m = episode_to_host(m)
             if prof is not None:
                 stop_profile(prof, device, profile_dir, i_episode)
             warn_short(i_episode, m["short_integrations"])
@@ -461,27 +586,30 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
                     cur = sum(best_window) / len(best_window)
                     if best_mean is None or cur > best_mean:
                         best_mean = cur
-                        save_model_weights(best_dir, ts,
-                                           include_barrier=is_nbc)
-                        with open(os.path.join(best_dir, "best.json"),
-                                  "w") as f:
-                            json.dump({"episode": i_episode,
-                                       "metric": best_metric,
-                                       "window": len(best_window),
-                                       "after": cfg.run.save_best_after,
-                                       "value": cur}, f)
+                        snap = whole()
+                        if best_dir is not None:
+                            save_model_weights(best_dir, snap,
+                                               include_barrier=is_nbc)
+                            with open(os.path.join(best_dir, "best.json"),
+                                      "w") as f:
+                                json.dump({"episode": i_episode,
+                                           "metric": best_metric,
+                                           "window": len(best_window),
+                                           "after": cfg.run.save_best_after,
+                                           "value": cur}, f)
 
             if (i_episode % save_every == 0
                     or i_episode == cfg.run.max_episodes - 1):
+                snap = whole()
                 if output_dir is not None:
-                    save_model_weights(output_dir, ts,
+                    save_model_weights(output_dir, snap,
                                        include_barrier=is_nbc)
                     if checkpoint_path is None:
                         checkpoint_path = os.path.join(output_dir,
                                                        "checkpoint.npz")
                     with timer.time("checkpoint"):
                         ckpt_writer.save(checkpoint_path, checkpoint_arrays(
-                            ts, rl_replay, node_replay, gen, total_steps,
+                            snap, rl_replay, node_replay, gen, total_steps,
                             i_episode))
 
             wb = {"Episode Reward": m["reward"],
@@ -499,25 +627,13 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
                     wb[f"Episode Safety Cost Concerning {what[1]}"] = cb[i]
             sink.log(wb)
 
-            logger.store(Episode=i_episode, episode_steps=m["steps"],
-                         reward_train=m["reward"],
-                         cost_train=m["num_violations"],
-                         safety_cost_train=m["safety_cost"],
-                         goal_met=m["goal_met"], reached=m["reached"])
-            for k in train_columns:
-                logger.store(**{k: m["train"][k]})
-            for k in ("Episode", "episode_steps", "reward_train",
-                      "cost_train", "safety_cost_train", "goal_met",
-                      "reached") + train_columns:
-                logger.log_tabular(k)
-            logger.log_tabular("updates", ts.updates)
-            logger.log_tabular("backup_steps", int(m["backup_steps"]))
-            logger.dump_tabular()
+            log_row(logger, i_episode, m, train_columns, ts.updates)
     finally:
         sink.close()
         ckpt_writer.wait()
-    for phase, total in timer.summary().items():
-        print(colorize(f"{phase}: {total}", "cyan"))
+    if root:
+        for phase, total in timer.summary().items():
+            print(colorize(f"{phase}: {total}", "cyan"))
     return ts, rl_replay, node_replay
 
 
@@ -562,14 +678,243 @@ def train_host_loop(args, cfg: NLBACConfig, device) -> None:
                        include_barrier=uses_barrier(cfg.constraint.kind))
 
 
-def main(argv=None):
+def train_multi_seed(cfg: NLBACConfig, n_seeds: int,
+                     output_root: str | None, quiet: bool = False,
+                     dp: int = 1, tp: int = 1, device="cuda", grids=None,
+                     workers: str = "processes"):
+    """Seed-parallel training (``--n_seeds``): seeds ``cfg.run.seed + i``
+    advance side by side through ``parallel.make_async_seed_runner`` (in
+    worker processes by default, see ``parallel/seeds.py``), seed i
+    exactly as a single-seed ``train()`` of that seed would, each into
+    ``<output_root>/s<seed>/`` (``progress.txt``, ``config.json``, the
+    weight files at the cadence, ``best/`` under ``--save_best``). A row
+    per episode gives the mean, population std (ddof=0), min and max
+    reward over the seeds. With ``dp``/``tp``, this rank's ``grids``
+    (``parallel.make_grids``) lay the seeds over groups of ranks; each
+    group's first rank writes its seeds' files and global rank 0 prints
+    the aggregate row. Returns ``(states, launches)``: the runner's states
+    and each seed's K1 launches over the run, as the kernel's wrapper
+    counted them where the seed ran (0 for other groups' seeds)."""
+    device = resolve_device(device)
+    _validate_save_best(cfg, output_root)
+    grouped = dp * tp > 1
+    if grouped:
+        group = next(g for g, grid in enumerate(grids) if grid is not None)
+        grid = grids[group]
+        mine = [i % len(grids) == group for i in range(n_seeds)]
+        writes = grid.is_root and output_root is not None
+        devices = [device]
+    else:
+        grid, mine, writes = None, [True] * n_seeds, output_root is not None
+        devices = ([device] if device.type == "cpu" else
+                   [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())])
+    seeds = [cfg.run.seed + i for i in range(n_seeds)]
+    loggers = []
+    for s, own in zip(seeds, mine):
+        d = (os.path.join(output_root, f"s{s}")
+             if own and writes else None)
+        loggers.append(EpochLogger(d, quiet=True))
+        loggers[-1].save_config(dataclasses.replace(
+            cfg, run=dataclasses.replace(cfg.run, seed=s)))
+
+    timer = StepTimer()
+    with timer.time("init"):
+        init_fn, step_fn = make_async_seed_runner(
+            cfg, devices=devices, n_seeds=n_seeds, dp=dp, tp=tp,
+            grids=grids, workers=workers)
+        try:
+            states = init_fn(cfg.run.seed)
+        except BaseException:
+            step_fn.close()
+            raise
+    launches = [0] * n_seeds
+    try:
+        _multi_seed_loop(cfg, output_root if writes else None,
+                         quiet or (grouped and not is_rank0()),
+                         seeds, loggers, step_fn, states,
+                         uses_barrier(cfg.constraint.kind), timer, grid,
+                         device, launches)
+    finally:
+        step_fn.close()
+        for lg in loggers:
+            lg.close()
+    if not grouped or is_rank0():
+        for phase, total in timer.summary().items():
+            print(colorize(f"{phase}: {total}", "cyan"))
+    return states, launches
+
+
+def _seed_rewards(results, grid, device):
+    """Every seed's episode reward. Under dp/tp a group's seeds come from
+    its first rank, summed over the world into a zero-filled vector (a
+    collective of every rank)."""
+    if grid is None:
+        return [r["reward"] for r in results]
+    vec = torch.zeros(len(results), dtype=torch.float64, device=device)
+    if grid.is_root:
+        for i, r in enumerate(results):
+            if r is not None:
+                vec[i] = r["reward"]
+    torch.distributed.all_reduce(vec)
+    return vec.tolist()
+
+
+def _multi_seed_loop(cfg, output_root, quiet, seeds, loggers, step_fn,
+                     states, is_nbc, timer, grid, device, launches):
+    """Episodes of every seed, pipelined as the JAX CLI's loop: episode i
+    is queued without waiting, then episode i-1's metrics are processed
+    while it runs; an episode whose weights are saved (the cadence, or
+    any under --save_best) waits first, so a save sees the state right
+    after that episode."""
+    grouped = grid is not None
+    save_every = max(1, cfg.run.max_episodes // cfg.run.save_every_fraction)
+    best_metric = cfg.run.save_best_metric
+    if best_metric is not None:
+        maxlen = max(1, min(cfg.run.save_best_window,
+                            cfg.run.max_episodes - cfg.run.save_best_after))
+        best_windows = [deque(maxlen=maxlen) for _ in seeds]
+        best_means = [None] * len(seeds)
+    train_cols = TRAIN_COLUMNS + (("barrier_td_loss",) if is_nbc else ())
+
+    def save(j, *parts):
+        """Seed j's weights into <output_root>/s<seed>/<parts> (a
+        collective of its group under tp)."""
+        path = (os.path.join(output_root, f"s{seeds[j]}", *parts)
+                if output_root is not None else None)
+        if path is not None or grouped:
+            step_fn.save_weights(states, j, path, is_nbc)
+        return path
+
+    def process(i_episode, futures):
+        results = [f.result() if f is not None else None for f in futures]
+        for j, m in enumerate(results):
+            if m is not None:
+                launches[j] += m["kernel_launches"]
+        for lg, m in zip(loggers, results):
+            if m is not None and lg.output_dir is not None:
+                log_row(lg, i_episode, m, train_cols, m["updates"])
+        rewards = _seed_rewards(results, grid, device)
+        if not quiet:
+            r = np.asarray(rewards)
+            mean, std = float(r.mean()), float(r.std())
+            lo, hi = float(r.min()), float(r.max())
+            print(colorize(
+                f"ep {i_episode:4d}  reward over {len(seeds)} seeds: "
+                f"{mean:9.2f} ± {std:7.2f}  [{lo:9.2f}, {hi:9.2f}]",
+                "white"))
+        if best_metric is not None and i_episode >= cfg.run.save_best_after:
+            for j, m in enumerate(results):
+                if m is None:
+                    continue
+                best_windows[j].append(m["reward"] if best_metric == "reward"
+                                       else m["goal_met"])
+                if len(best_windows[j]) != best_windows[j].maxlen:
+                    continue
+                cur = sum(best_windows[j]) / len(best_windows[j])
+                if best_means[j] is None or cur > best_means[j]:
+                    best_means[j] = cur
+                    bdir = save(j, "best")
+                    if bdir is not None and (grid is None or grid.is_root):
+                        with open(os.path.join(bdir, "best.json"),
+                                  "w") as f:
+                            json.dump({"episode": i_episode,
+                                       "metric": best_metric,
+                                       "window": len(best_windows[j]),
+                                       "after": cfg.run.save_best_after,
+                                       "value": cur, "seed": seeds[j]}, f)
+        if (i_episode % save_every == 0
+                or i_episode == cfg.run.max_episodes - 1):
+            for j, m in enumerate(results):
+                if m is not None:
+                    save(j)
+
+    pipelined = best_metric is None
+    pending = None  # (episode, its futures)
+    for i_episode in range(cfg.run.max_episodes):
+        phase = "episode_first" if i_episode == 0 else "episode"
+        is_sync = (not pipelined or i_episode % save_every == 0
+                   or i_episode == cfg.run.max_episodes - 1)
+        with timer.time(phase):
+            states, futures = step_fn(states, i_episode, block=is_sync)
+            if pending is not None:
+                process(*pending)
+                pending = None
+            if is_sync:
+                process(i_episode, futures)
+            else:
+                pending = (i_episode, futures)
+    if pending is not None:
+        process(*pending)
+
+
+def _device_for(args, local_rank: int = 0):
+    """Before any run dir: the device this process trains on (raises
+    without a GPU unless --cpu)."""
+    if args.cpu:
+        return resolve_device("cpu")
+    resolve_device("cuda")
+    return device_for_rank(False, local_rank)
+
+
+def _banner(args, cfg, out, device, rank=None):
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    extra = ""
+    if args.n_seeds > 1:
+        n_dev = 1 if args.cpu else torch.cuda.device_count()
+        extra += (f" seeds={cfg.run.seed}..{cfg.run.seed + args.n_seeds - 1}"
+                  f" over {n_dev} device(s)")
+    if args.dp > 1:
+        extra += f" dp={args.dp}"
+    if args.tp > 1:
+        extra += f" tp={args.tp}"
+    if rank is not None:
+        extra += f" rank={rank}/{args.num_processes}"
+    print(colorize(f"NLBAC-TORCH preset={args.preset} env={cfg.env.name} "
+                   f"device={name}{extra} -> {out}", "green", bold=True))
+
+
+def _run_rank(args, cfg, device, out, grids) -> None:
+    """One rank's training under --dp/--tp (with --n_seeds: its group's
+    seeds); ``out`` is the run directory (the rank 0 of the gang, or of
+    each seed group, writes into it)."""
+    if args.n_seeds > 1:
+        train_multi_seed(cfg, args.n_seeds, out, quiet=args.quiet,
+                         dp=args.dp, tp=args.tp, device=device, grids=grids)
+        return
+    rank0 = grids[0].is_root
+    lk = (setup_logger_kwargs(cfg.run.exp_name, cfg.run.seed, data_dir=out)
+          if rank0 else {"output_dir": None})
+    train(cfg, output_dir=lk["output_dir"], quiet=args.quiet or not rank0,
+          checkpoint_path=args.checkpoint if rank0 else None,
+          resume_path=args.resume, device=device,
+          profile_dir=args.profile_dir, dp=args.dp, tp=args.tp,
+          grid=grids[0])
+
+
+def _gang_rank(rank: int, world: int, coordinator: str, argv, out,
+               n_groups: int) -> None:
+    """A rank that ``nlbac-train-torch --dp/--tp`` spawned on this host."""
     args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    device = device_for_rank(args.cpu, rank)
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    init_distributed(coordinator, world, rank, device=device)
+    grids = make_grids(n_groups, args.dp, args.tp)
+    _run_rank(args, cfg, device, out, grids)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    check_gang_args(args)
     if args.host_loop:
         check_host_loop(args)
     if args.mode == "eval":
         check_eval(args)
     cfg = config_from_args(args)
-    check_ported(args, cfg)
     if args.host_loop:
         if cfg.env.spawn_curriculum_episodes > 0 or \
                 cfg.env.spawn_curriculum_mode != "anneal":
@@ -584,8 +929,10 @@ def main(argv=None):
                 "(runtime/host_buffer.cpp, built with g++ into "
                 "nlbac_tpu_torch/_build/) and it could not be built; check "
                 "for a g++ toolchain")
+    if args.mode == "train" and not args.host_loop:
+        check_gang_config(args, cfg)
     # before any run dir is made: raises without a GPU unless --cpu
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    device = _device_for(args, args.process_id or 0)
     if args.mode == "eval":
         # the weights in --output, which names a run directory here
         from nlbac_tpu_torch.utils.evaluate import (
@@ -598,12 +945,36 @@ def main(argv=None):
     if args.host_loop:
         train_host_loop(args, cfg, device)
         return
+    ranks = args.dp * args.tp
+    if args.num_processes > 1:
+        # this process is one rank of a multi-host gang
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id, device=device)
+        grid = make_mesh((args.dp, args.tp))
+        out = (get_output_folder(args.output, cfg.env.name)
+               if grid.is_root else None)
+        _banner(args, cfg, out, device, rank=args.process_id)
+        try:
+            _run_rank(args, cfg, device, out, [grid])
+        finally:
+            torch.distributed.destroy_process_group()
+        return
     out = get_output_folder(args.output, cfg.env.name)
+    _banner(args, cfg, out, device)
+    if ranks > 1:
+        # spawn this host's ranks: one per card (or CPU process), and
+        # with --n_seeds as many groups of dp x tp as the cards hold
+        n_groups = 1
+        if args.n_seeds > 1 and not args.cpu:
+            n_groups = max(1, min(args.n_seeds,
+                                  torch.cuda.device_count() // ranks))
+        run_gang(_gang_rank, ranks * n_groups, (argv, out, n_groups))
+        return
+    if args.n_seeds > 1:
+        train_multi_seed(cfg, args.n_seeds, out, quiet=args.quiet,
+                         device=device)
+        return
     lk = setup_logger_kwargs(cfg.run.exp_name, cfg.run.seed, data_dir=out)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    print(colorize(f"NLBAC-TORCH preset={args.preset} env={cfg.env.name} "
-                   f"device={name} -> {out}", "green", bold=True))
     train(cfg, output_dir=lk["output_dir"], quiet=args.quiet,
           checkpoint_path=args.checkpoint, resume_path=args.resume,
           device=device, profile_dir=args.profile_dir)

@@ -228,3 +228,20 @@ def create_replays(cfg: NLBACConfig, device="cuda", env_override=None):
     node = replay_lib.create(cfg.replay.node_capacity, spec.obs_dim,
                              spec.action_dim, spec.lyap_dim, device)
     return rl, node
+
+
+def episode_to_host(m: EpisodeMetrics) -> dict:
+    """The episode's metrics as Python numbers, in one device read."""
+    scalars = ("reward", "num_violations", "safety_cost", "reached",
+               "goal_met", "backup_steps", "short_integrations")
+    flat = torch.cat(
+        [torch.stack([getattr(m, k).to(torch.float32) for k in scalars]),
+         m.viol_breakdown, m.cost_breakdown,
+         torch.stack([m.train[k].to(torch.float32) for k in METRIC_NAMES])]
+    ).tolist()
+    host = dict(zip(scalars, flat))
+    host["viol_breakdown"] = flat[len(scalars):len(scalars) + 4]
+    host["cost_breakdown"] = flat[len(scalars) + 4:len(scalars) + 8]
+    host["train"] = dict(zip(METRIC_NAMES, flat[len(scalars) + 8:]))
+    host["steps"] = m.steps
+    return host

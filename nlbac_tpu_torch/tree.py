@@ -29,8 +29,16 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 def detach(tree):
-    """The same parameters without gradient tracking (a stop-gradient)."""
-    return tree_map(lambda p: p.detach(), tree)
+    """The same parameters without gradient tracking (a stop-gradient),
+    each keeping its tensor-parallel mark (``nn.mlp.TPShard``)."""
+    def stop(p):
+        q = p.detach()
+        shard = getattr(p, "tp_shard", None)
+        if shard is not None:
+            q.tp_shard = shard
+        return q
+
+    return tree_map(stop, tree)
 
 
 def tree_unflatten(tree, leaves):

@@ -7,8 +7,8 @@ reference-layout weight files (which the JAX package's
 1e-5; ``barrier.pkl`` too for the learned-barrier family, with the barrier
 exactly as in the checkpoint) and ``checkpoint.npz``; ``--resume``
 continues bit for bit (the quadrotor's with the spawn curriculum's draws);
-flags whose feature is not ported fail loudly, before any run directory is
-made.
+the parallel flags refuse what the JAX CLI refuses, before any run
+directory is made.
 """
 
 import glob
@@ -227,17 +227,27 @@ def test_restore_checks_the_checkpoint_against_the_config(port_runs):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--n_seeds", "2"], ["--dp", "2"], ["--tp", "2"],
-    ["--num_processes", "2", "--coordinator", "localhost:1234",
-     "--process_id", "0"],
-    # each multi-host flag alone trips the item-18 rule too
-    ["--coordinator", "localhost:1234"], ["--process_id", "0"],
+    ["--num_processes", "2"],
+    ["--n_seeds", "2", "--num_processes", "2", "--coordinator",
+     "localhost:1234", "--process_id", "0"],
+    ["--dp", "0"],
+    ["--tp", "3"],
+    ["--dp", "3", "--batch_size", "128"],
+    ["--n_seeds", "2", "--resume", "ckpt.npz"],
+    ["--n_seeds", "2", "--tensorboard"],
 ])
 def test_unported_flags_fail_before_any_run_dir(extra, tmp_path):
-    out = tmp_path / "out"
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        cli.main(tiny_args("unicycle", out, *extra))
-    assert not out.exists()
+    """The parallel flags (ported since; the name is kept) refuse what the
+    JAX CLI refuses, with its message, and before the port makes any run
+    directory or process group (the JAX CLI makes its run directory before
+    the last two refusals, so it writes elsewhere)."""
+    errors = []
+    for mod, out in ((jcli, tmp_path / "jax"), (cli, tmp_path / "out")):
+        with pytest.raises(SystemExit) as e:
+            mod.main(tiny_args("unicycle", out, *extra))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    assert not (tmp_path / "out").exists()
 
 
 def test_cli_needs_a_gpu_unless_told_cpu(tmp_path, monkeypatch):

@@ -34,10 +34,12 @@ def _require_gpu():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-# the 16-row tile's edges, the main path's 128 and 32768, a ragged 1000,
-# and the switch from 16-row to 64-row tiles with a row either side
-ROWS = (1, 16, 17, 127, 128, 129, 1000, nk.SMALL_TILE_MAX_ROWS - 1,
-        nk.SMALL_TILE_MAX_ROWS, nk.SMALL_TILE_MAX_ROWS + 1, 32768)
+# the 16-row tile's edges, the main path's 128 and 32768 (and a dp rank's
+# share of them at dp=2 and 4), a ragged 1000, and the switch from 16-row
+# to 64-row tiles with a row either side
+ROWS = (1, 16, 17, 32, 64, 127, 128, 129, 1000, nk.SMALL_TILE_MAX_ROWS - 1,
+        nk.SMALL_TILE_MAX_ROWS, nk.SMALL_TILE_MAX_ROWS + 1, 8192, 16384,
+        32768)
 
 
 def _params(n_s, n_u, gen):
@@ -478,3 +480,16 @@ def test_export_on_the_card_matches_det_action(tmp_path):
                                                            device="cuda"))[2]
             for act in (card, moved):
                 torch.testing.assert_close(act(obs), det, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_nccl_is_refused_for_ranks_that_share_a_card():
+    """Two ranks on card 0 with NCCL: each refuses before any collective
+    (gloo is the backend for ranks that share a card)."""
+    _require_gpu()
+    from nlbac_tpu_torch.parallel import run_gang
+    from torch.multiprocessing import ProcessRaisedException
+
+    import torch_gang_workers
+    with pytest.raises(ProcessRaisedException, match="share cards"):
+        run_gang(torch_gang_workers.nccl_on_one_card, 2, timeout=120)

@@ -4,7 +4,8 @@ On the CPU: the plain version against the JAX package's
 ``predict_next_state`` (control-affine field, one Euler step) and its
 ``jax.grad`` in params, x and u, at the unicycle (3, 2) and pvtol (6, 2)
 dimensions; the autograd.Function path's gradients against plain autograd;
-the wrapper's input checks and its cache of launch arguments. float32 on
+the wrapper's input checks, its cache of launch arguments and its
+bookkeeping under several threads. float32 on
 both sides: rtol 1e-5 / atol 1e-6 covers the frameworks' different
 summation order.
 
@@ -14,6 +15,10 @@ The kernel's arithmetic, three TF32 tensor-core passes per product
 card); one pass is shown to miss it. The CUDA kernel itself is tested in
 test_torch_port_gpu.py.
 """
+
+import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -161,6 +166,71 @@ def test_launch_args_are_cached_per_parameter_set():
     tp["f"]["w"][0] = torch.zeros(3, HID + 1)
     with pytest.raises(ValueError, match="do not chain"):
         nk.launch_args(tp, xt, ut)
+
+
+def test_bookkeeping_holds_under_threads(monkeypatch):
+    """``--n_seeds`` drives the wrapper from one thread per seed: the
+    library loads once however many threads ask at once, no launch count
+    is lost, and each thread's cache keeps its own parameter sets (20
+    threads, more than the LAUNCH_ARGS_KEPT one cache keeps, each find
+    their own first LaunchArgs again after all have validated)."""
+    loads = []
+
+    def slow_build(verbose=False):
+        loads.append(1)
+        time.sleep(0.05)
+        return "libnode_euler.so"
+
+    monkeypatch.setattr(nk, "build", slow_build)
+    monkeypatch.setattr(nk.ctypes, "CDLL", lambda path: object())
+    monkeypatch.setattr(nk, "_bind", lambda lib: lib)
+    monkeypatch.setattr(nk, "_lib", None)
+
+    def in_threads(n, fn):
+        """``fn(i, barrier)`` on n threads released together, with the
+        interpreter switching threads as often as it can."""
+        barrier = threading.Barrier(n)
+        out = [None] * n
+
+        def run(i):
+            barrier.wait()
+            out[i] = fn(i, barrier)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(t.is_alive() for t in threads)
+        return out
+
+    libs = in_threads(8, lambda i, b: nk._load())
+    assert len(loads) == 1 and all(lib is libs[0] for lib in libs)
+
+    nk.reset_launch_counts()
+    in_threads(8, lambda i, b: [nk.count_launch(128 + i % 2)
+                                for _ in range(2000)])
+    assert nk.launch_counts["node_euler"] == 16000
+    assert sorted(nk.launches_by_thread.values()) == [2000] * 8
+    assert nk.launches_by_rows == {128: 8000, 129: 8000}
+    nk.reset_launch_counts()
+    assert not nk.launches_by_thread and not nk.launches_by_rows
+
+    n = nk._LAUNCH_ARGS_KEPT + 4
+
+    def validate_twice(i, barrier):
+        _, params, x, u = setup(3, 2, seed=i)
+        tp, xt, ut = to_torch(params), torch.tensor(x), torch.tensor(u)
+        first = nk.launch_args(tp, xt, ut)
+        barrier.wait()
+        return nk.launch_args(tp, xt, ut) is first
+
+    assert all(in_threads(n, validate_twice))
 
 
 def _tf32(a):
