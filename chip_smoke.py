@@ -75,16 +75,19 @@ Phases, one line each (any failure raises and exits nonzero):
    registered at runtime, trained on the card (K1 on their path; the
    barrier critic's TD loss must move off zero);
 16. the parallel modes: ``--n_seeds SEEDS`` through the CLI's
-   ``train_multi_seed`` (worker processes) at the main path's depth (each
-   seed's env steps, updates and K1 launches, the aggregate env-steps/s
-   beside phase 5's one-seed run, seed 0's first episode against
-   phase 5's); then a dp=2 and a tp=2 gang of two ranks
-   sharing the card over gloo (``make_dp_episode_runner`` /
-   ``make_tp_episode_runner``), each one full-width unicycle episode of
-   GANG_STEPS steps against one rank from the same state and seed: the
-   reward and the whole state within ``tests/test_parallel.py``'s
-   tolerances, the ranks' states bit-equal, K1's launches per dp rank
-   those of one rank at half the rows, none under tp;
+   ``train_multi_seed`` (worker processes) at the main path's depth, the
+   policy acting from the second episode on (each seed's env steps,
+   updates and K1 launches, the aggregate env-steps/s beside phase 5's
+   one-seed run, seed 0's first episode against phase 5's); then a dp=2
+   and a tp=2 gang of two ranks sharing the card over gloo
+   (``make_dp_episode_runner`` / ``make_tp_episode_runner``), each one
+   full-width unicycle episode of GANG_STEPS steps, the policy acting
+   from the first update on, against one rank from the same state and
+   seed: the reward and the whole state
+   within ``tests/test_parallel.py``'s tolerances, the Adam moments and
+   the last update's losses near one rank's, the ranks' states
+   bit-equal, K1's launches per dp rank those of one rank at half the
+   rows, none under tp;
 17. a JSON line of the kernel's numbers (and the tanh phase's), the
    script's total time, then the result line.
 
@@ -150,10 +153,10 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 # cuBLAS and the CPU's BLAS sum in different orders and the difference
 # passes through Adam's normalisation and the constraint's /dt.
 UPDATE_RTOL, UPDATE_ATOL = 1e-3, 1e-4
-# Depth of the CLI runs (the presets' widths are kept): unicycle 2
-# episodes of 300 steps (preset: 200 of 1200), resumed for a third; cars
+# Depth of the CLI runs (the presets' widths are kept): unicycle 3
+# episodes of 300 steps (preset: 200 of 1200), resumed for a fourth; cars
 # 2 of 300 (preset: 200 of 300); PVTOL 1 of 600 (preset: 400 of 2000).
-EPISODES, EPISODE_STEPS = 2, 300
+EPISODES, EPISODE_STEPS = 3, 300
 PRESET_RUNS = {"cars": (2, 300), "pvtol": (1, 600)}
 # nbc_unicycle 1 episode of 400 steps (preset: 200 of 1200), nbc_pvtol 1
 # of 500 (preset: 210 of 2000); the quadrotor in chunks of QUAD_CHUNK
@@ -214,16 +217,31 @@ SEED = 0
 SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
 HOST_CALLS = 1000
 UPDATE_TIMING = (3, 20)
-# --n_seeds of the seeds phase (at the main path's depth)
+# --n_seeds of the seeds phase, at the main path's depth with
+# --start_steps one episode: the first episode's actions are random, as
+# in the main path's (so seed 0's first episode equals it), the later
+# ones the policy's.
 SEEDS = 4
-# The gangs on one card: one unicycle episode of GANG_STEPS steps (its
-# updates start at step 129: 2 per step, a NODE fit every 10th), each
+# The gangs on one card: one unicycle episode of GANG_STEPS steps whose
+# updates start at step 129, when the replay holds more than a batch (2
+# per step, a NODE fit every 10th), and the policy acts from that step
+# on, so every action comes from a trained policy (the steps before take
+# random warm-up actions: an untrained policy acting there lets float32
+# noise in the actions grow for 129 steps first; PERF.md, PR 7), each
 # gang given GANG_TIMEOUT seconds. Against one rank: tests/test_parallel.py's
-# tolerances, the reward rtol/atol and the whole state's.
+# tolerances, the reward rtol/atol and the whole state's; each Adam
+# moment leaf's relative gap (its 2-norm over one rank's) within the
+# state's rtol (a dp gradient off by a constant factor passes Adam's
+# normalised step, not its moments), and the last update's losses within
+# GANG_METRIC_RTOL.
 GANG_STEPS = 140
 GANG_TIMEOUT = 300
 GANG_REWARD_RTOL, GANG_REWARD_ATOL = 2e-4, 1e-4
 GANG_STATE_RTOL, GANG_STATE_ATOL = 2e-3, 5e-4
+GANG_METRIC_RTOL = 1e-4
+# (node_loss is 0 on the last update, which is not a fit; the NODE's
+# moments hold the fit)
+GANG_METRICS = ("qf1_loss", "qf2_loss", "lf_loss", "policy_loss")
 # The row counts K1 takes on a dp rank's share at dp=2 and 4 (the main
 # path's 128-row rollouts and 32768-row fit, PVTOL's 256-row chain)
 DP_ROWS = (64, 32, 16384, 8192)
@@ -1343,15 +1361,18 @@ def custom_env_runs(card):
 def seeds_run(dev, card, one_seed):
     """``--n_seeds SEEDS`` at the main path's depth through the CLI's
     ``train_multi_seed`` (its worker processes; each worker's K1 counts
-    start at 0 with it and come back with every episode): each seed's env
-    steps, updates and K1 launches, the aggregate env-steps/s beside the
-    main path's one-seed run of this call, and seed 0's first episode
-    against that run's."""
+    start at 0 with it and come back with every episode), with
+    ``--start_steps`` one episode so that the policy acts from the second
+    episode on: each seed's env steps, updates and K1 launches, the
+    aggregate env-steps/s beside the main path's one-seed run of this call
+    (whose actions are all random warm-up ones), and seed 0's first
+    episode against that run's."""
     out = OUT / "unicycle_seeds"
     shutil.rmtree(out, ignore_errors=True)
     argv = ["--preset", "unicycle", "--quiet", "--seed", str(SEED),
             "--n_seeds", str(SEEDS), "--max_episodes", str(EPISODES),
-            "--max_episode_steps", str(EPISODE_STEPS)]
+            "--max_episode_steps", str(EPISODE_STEPS), "--start_steps",
+            str(EPISODE_STEPS)]
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     node_kernel.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1382,7 +1403,8 @@ def seeds_run(dev, card, one_seed):
                            f"standalone run: relative gaps {gaps}")
     rate, rate1 = steps_all / seconds, one_seed["steps"] / one_seed["seconds"]
     phase(f"seeds: --n_seeds {SEEDS} ({EPISODES} x {EPISODE_STEPS} steps "
-          f"each, worker processes): {steps_all} env steps in "
+          f"each, worker processes, the policy acting from step "
+          f"{EPISODE_STEPS}): {steps_all} env steps in "
           f"{seconds:.2f} s for the whole train_multi_seed() call (the "
           f"workers' start included), {rate:.2f} env-steps/s in all, "
           f"against {rate1:.2f} for the one-seed run of phase 5 "
@@ -1401,31 +1423,34 @@ def gang_cfg():
 
 
 def state_arrays(ts):
-    """A whole state's parameters, targets, Adam moments, Lagrangian state
-    and update count, on the host, in a fixed order."""
-    out = [t.detach().cpu().numpy() for name in (
+    """A whole state on the host, in a fixed order: ``params`` (the
+    parameters, targets and Lagrangian state) and ``moments`` (every Adam
+    moment, per optimizer group), with the update count."""
+    params = [t.detach().cpu().numpy() for name in (
         "policy", "backup_policy", "critic", "critic_target", "lyap",
         "lyap_target", "barrier", "barrier_target", "node", "log_alpha",
         "backup_log_alpha") for t in tree_leaves(getattr(ts, name))]
-    for opt in ts.opt.values():
-        for p in opt.param_groups[0]["params"]:
-            if p in opt.state:
-                out += [opt.state[p][k].cpu().numpy()
-                        for k in ("exp_avg", "exp_avg_sq")]
-    out += [t.cpu().numpy() for t in ts.lag]
-    return out, ts.updates
+    params += [t.cpu().numpy() for t in ts.lag]
+    moments = [opt.state[p][k].cpu().numpy() for opt in ts.opt.values()
+               for p in opt.param_groups[0]["params"] if p in opt.state
+               for k in ("exp_avg", "exp_avg_sq")]
+    return {"params": params, "moments": moments}, ts.updates
 
 
 def one_episode(cfg, place, run, dev):
     """One episode from seed SEED's state and generator (given to every
-    rank by ``place``), K1's launches counted and the time taken around
-    it alone; the same episode runs once before, untimed, so that the
-    process's first-call set-up (cuBLAS, K1's library) is not timed."""
+    rank by ``place``), the policy acting from the first update on (the
+    replay then holds more than a batch), K1's launches counted and the
+    time taken around it alone; the same episode runs once before,
+    untimed, so that the process's first-call set-up (cuBLAS, K1's
+    library) is not timed."""
     for _ in range(2):  # an untimed first pass, then the timed one
         gen = torch.Generator(dev).manual_seed(SEED)
         ts = create_train_state(cfg, gen, dev)
         rl, node = create_replays(cfg, dev)
-        ts, rl, node, gen, total = place((ts, rl, node, gen, 0))
+        first_update = cfg.sac.batch_size + 1
+        ts, rl, node, gen, total = place(
+            (ts, rl, node, gen, cfg.sac.start_steps - first_update))
         torch.cuda.synchronize()
         node_kernel.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1434,7 +1459,7 @@ def one_episode(cfg, place, run, dev):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     return ts, {"reward": host["reward"], "steps": host["steps"],
-                "seconds": seconds,
+                "train": host["train"], "seconds": seconds,
                 "launches": node_kernel.launch_counts["node_euler"],
                 "rows": dict(node_kernel.launches_by_rows)}
 
@@ -1457,10 +1482,18 @@ def gang_rank(rank, world, coordinator, dp, tp, device):
     (OUT / f"gang_r{rank}.pkl").write_bytes(pickle.dumps(result))
 
 
+def relative_gap(a, b) -> float:
+    """||a - b|| / ||b|| (0 when both are 0, inf when only b is)."""
+    den = float(np.linalg.norm(b))
+    num = float(np.linalg.norm(np.asarray(a, np.float64) - b))
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+
 def gang_runs(dev, card):
     """A dp=2 and a tp=2 gang of two ranks on this one card (gloo, as
-    ranks that share a card must), each one full-width unicycle episode
-    against one rank from the same state and seed."""
+    ranks that share a card must), each one full-width unicycle episode,
+    the policy acting from the first update on, against one rank from the
+    same state and seed."""
     cfg = gang_cfg()
     ts1, one = one_episode(cfg, lambda tree: tree,
                            make_episode_runner(cfg, dev), dev)
@@ -1468,11 +1501,13 @@ def gang_runs(dev, card):
     if one["launches"] <= 0 or updates <= 0:
         raise RuntimeError(f"gangs: one rank ran {updates} updates, "
                            f"{one['launches']} K1 launches")
-    phase(f"gangs: one rank: {one['steps']} steps, {updates} updates, "
-          f"{one['launches']} K1 launches by rows {one['rows']}, "
+    phase(f"gangs: one rank: {one['steps']} steps (the policy's from the "
+          f"first update's), {updates} updates, {one['launches']} K1 "
+          f"launches by rows {one['rows']}, "
           f"{one['seconds']:.2f} s, reward {one['reward']:.6g} on {card}")
     launches = {}
     rank_dev = "cuda:0" if dev.type == "cuda" else str(dev)
+    failed = []
     for name, (dp, tp) in (("dp", (2, 1)), ("tp", (1, 2))):
         for r in range(2):
             (OUT / f"gang_r{r}.pkl").unlink(missing_ok=True)
@@ -1483,13 +1518,23 @@ def gang_runs(dev, card):
         ranks = [pickle.loads((OUT / f"gang_r{r}.pkl").read_bytes())
                  for r in range(2)]
         got, got_updates = ranks[0]["state"]
-        same = all(np.array_equal(a, b) for a, b in
-                   zip(got, ranks[1]["state"][0])) and \
-            got_updates == ranks[1]["state"][1]
-        gap = max(float(np.max(np.abs(a - b))) for a, b in zip(got, want))
+        other, other_updates = ranks[1]["state"]
+        same = got_updates == other_updates and all(
+            np.array_equal(a, b) for key in got
+            for a, b in zip(got[key], other[key]))
+        pairs = [(a, b) for key in got for a, b in zip(got[key], want[key])]
+        gap = max(float(np.max(np.abs(a - b))) for a, b in pairs)
         state_ok = got_updates == updates and all(
             np.allclose(a, b, rtol=GANG_STATE_RTOL, atol=GANG_STATE_ATOL)
-            for a, b in zip(got, want))
+            for a, b in pairs)
+        moment_gap = max(relative_gap(a, b)
+                         for a, b in zip(got["moments"], want["moments"]))
+        moments_ok = moment_gap <= GANG_STATE_RTOL
+        metric_gaps = {k: relative_gap(ranks[0]["train"][k],
+                                       one["train"][k])
+                       for k in GANG_METRICS}
+        metrics_ok = max(metric_gaps.values()) <= GANG_METRIC_RTOL
+        losses = ", ".join(f"{k} {v:.3e}" for k, v in metric_gaps.items())
         reward_gap = abs(ranks[0]["reward"] - one["reward"])
         reward_ok = reward_gap <= GANG_REWARD_ATOL + \
             GANG_REWARD_RTOL * abs(one["reward"])
@@ -1503,13 +1548,21 @@ def gang_runs(dev, card):
               f"(one rank {one['seconds']:.2f}), {wall:.2f} s with the "
               f"spawn; reward {ranks[0]['reward']:.6g} (gap "
               f"{reward_gap:.3e}); whole state's largest gap {gap:.3e} "
-              f"(rtol {GANG_STATE_RTOL} atol {GANG_STATE_ATOL}); ranks "
-              f"bit-equal {same}; K1 launches by rows per rank "
-              f"{[r['rows'] for r in ranks]} on {card}")
-        if not (same and state_ok and reward_ok and k1_ok):
-            raise RuntimeError(f"gangs: {name}=2 vs one rank: state ok "
-                               f"{state_ok}, reward ok {reward_ok}, ranks "
-                               f"equal {same}, K1 ok {k1_ok}")
+              f"(rtol {GANG_STATE_RTOL} atol {GANG_STATE_ATOL}); Adam "
+              f"moments' largest relative gap {moment_gap:.3e} (limit "
+              f"{GANG_STATE_RTOL}); last update's losses' relative gaps "
+              f"{losses} (limit {GANG_METRIC_RTOL}); ranks bit-equal "
+              f"{same}; K1 "
+              f"launches by rows per rank {[r['rows'] for r in ranks]} "
+              f"on {card}")
+        if not (same and state_ok and moments_ok and metrics_ok
+                and reward_ok and k1_ok):
+            failed.append(f"{name}=2 vs one rank: state ok {state_ok}, "
+                          f"moments ok {moments_ok}, losses ok "
+                          f"{metrics_ok}, reward ok {reward_ok}, ranks "
+                          f"equal {same}, K1 ok {k1_ok}")
+    if failed:
+        raise RuntimeError(f"gangs: {'; '.join(failed)}")
     return launches
 
 

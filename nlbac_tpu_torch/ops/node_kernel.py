@@ -16,11 +16,11 @@ version runs only for tensors on the CPU. A parameter set is checked and
 packed for the C call once (``launch_args``); x and u are checked on
 every call.
 
-Several host threads may launch it at once (``--n_seeds``: one thread
-and one CUDA stream per seed): the library is loaded under a lock, the
-launch count is bumped under one, each thread keeps its own cache of
-parameter sets (so N seeds never evict each other's), and a launch goes
-to the calling thread's current stream.
+The library is loaded, and a launch counted, under a lock, so host
+threads may share the wrapper; a launch goes to the calling thread's
+current stream. A process that holds several seeds (an ``--n_seeds``
+worker, a rank of a seed group) keeps each seed's parameter set in the
+cache, up to ``_LAUNCH_ARGS_KEPT`` of them.
 """
 
 from __future__ import annotations
@@ -50,9 +50,8 @@ TILE_CONFIGS = ((16, 4), (64, 4))
 SMALL_TILE_MAX_ROWS = 2048
 
 # Kernel launches made through ``node_euler_step`` since the last reset,
-# and the same launches by the launching thread's name and by row count.
+# and the same launches by row count.
 launch_counts = {"node_euler": 0}
-launches_by_thread: Counter = Counter()
 launches_by_rows: Counter = Counter()
 _count_lock = threading.Lock()
 
@@ -64,17 +63,14 @@ def reset_launch_counts() -> None:
     with _count_lock:
         for name in launch_counts:
             launch_counts[name] = 0
-        launches_by_thread.clear()
         launches_by_rows.clear()
 
 
 def count_launch(rows: int, name: str = "node_euler") -> None:
-    """Add one launch of kernel ``name`` over ``rows`` rows, made by the
-    calling thread (safe from any thread)."""
-    thread = threading.current_thread().name
+    """Add one launch of kernel ``name`` over ``rows`` rows (safe from any
+    thread)."""
     with _count_lock:
         launch_counts[name] += 1
-        launches_by_thread[thread] += 1
         launches_by_rows[rows] += 1
 
 
@@ -215,7 +211,6 @@ class LaunchArgs:
         self._plan = None
 
     def plan(self):
-        # one LaunchArgs lives in one thread's cache (launch_args)
         if self._plan is None:
             lib = _load()
             plan = ctypes.create_string_buffer(
@@ -229,19 +224,11 @@ class LaunchArgs:
         return self._plan
 
 
-# LaunchArgs by the parameters' (data_ptr, shape, stride, dtype, device),
-# one cache per thread (a seed's thread keeps its own): Adam updates the
-# parameters in place and leaves every part of the key as it was, so the
-# training loop builds and validates them once.
-_cache = threading.local()
+# LaunchArgs by the parameters' (data_ptr, shape, stride, dtype, device):
+# Adam updates the parameters in place and leaves every part of the key as
+# it was, so the training loop builds and validates them once.
+_launch_args: dict = {}
 _LAUNCH_ARGS_KEPT = 16
-
-
-def _launch_args_cache() -> dict:
-    cache = getattr(_cache, "args", None)
-    if cache is None:
-        cache = _cache.args = {}
-    return cache
 
 
 def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
@@ -255,8 +242,7 @@ def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
     key = (n_s, n_u, len(fw), len(gw)) + tuple(
         (t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
         for t in fw + fb + gw + gb)
-    cache = _launch_args_cache()
-    args = cache.get(key)
+    args = _launch_args.get(key)
     if args is None:
         _validate_params(params, n_s, n_u, x.device)
 
@@ -270,9 +256,9 @@ def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
         args = LaunchArgs(n_s, n_u, x.device, (
             len(fw), ptrs(fw), ptrs(fb), dims(fw),
             len(gw), ptrs(gw), ptrs(gb), dims(gw)))
-        if len(cache) >= _LAUNCH_ARGS_KEPT:
-            cache.clear()
-        cache[key] = args
+        if len(_launch_args) >= _LAUNCH_ARGS_KEPT:
+            _launch_args.clear()
+        _launch_args[key] = args
     _check_tensors((x, u), args.device)
     return args
 

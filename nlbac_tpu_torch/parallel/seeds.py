@@ -5,17 +5,11 @@ N independent seeds, seed i on device ``i % n_devices``, each drawing
 from a generator seeded ``base_seed + i`` exactly as a single-seed
 ``train()`` does, so that it reproduces its standalone run. The episode
 loop reads the device once a step and its Python holds the host, so the
-seeds overlap only on separate threads of control; two forms are given:
-
-- ``workers="processes"`` (the CLI's): worker processes (spawned), at
-  most one per CPU core, each holding the seeds ``i % n_workers == w``
-  and running them one after another; the states stay in the workers;
-- ``workers="threads"``: one host thread and one CUDA stream per seed in
-  this process, the states in this process (the JAX contract's list).
-  The GIL holds the threads to one Python stream: on one H100 (1 x 300
-  unicycle steps a seed, start-up included) 4 seeds this way ran at
-  1.328 times one seed's rate and 8 at 1.094, as processes at 2.114 and
-  2.810 (PERF.md; ``scripts/seed_parallel_probe.py``).
+seeds run in worker processes (spawned), at most one per CPU core, each
+holding the seeds ``i % n_workers == w`` and running them one after
+another; the states stay in the workers. (One host thread and CUDA
+stream per seed in one process would share one interpreter lock, which
+the Python of every step holds.)
 
 With ``dp``/``tp`` each seed trains on a group of ranks (``grids``), the
 group's seeds one after another.
@@ -24,10 +18,9 @@ group's seeds one after another.
 from __future__ import annotations
 
 import os
-import threading
 import traceback
 from collections import deque
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import Future
 from typing import List, Optional, Sequence
 
 import torch
@@ -61,18 +54,16 @@ def _new_seed(cfg: NLBACConfig, seed: int, device) -> list:
 
 def _run_episode(run, st: list, i_episode: int) -> dict:
     """One episode of a seed's state ``st`` (in place); its metrics as host
-    numbers, with the update count and the K1 launches the calling thread
-    made in it (``kernel_launches``, as the kernel's wrapper counted
-    them)."""
-    thread = threading.current_thread().name
-    before = node_kernel.launches_by_thread[thread]
+    numbers, with the update count and the K1 launches made in it
+    (``kernel_launches``, as the kernel's wrapper counted them; a worker
+    or a rank runs one episode at a time)."""
+    before = node_kernel.launch_counts["node_euler"]
     ts, rl, node, gen, total = st
     ts, rl, node, m, total = run(ts, rl, node, gen, i_episode, total)
     st[0], st[1], st[2], st[4] = ts, rl, node, total
     host = episode_to_host(m)
     host["updates"] = ts.updates
-    host["kernel_launches"] = (node_kernel.launches_by_thread[thread]
-                               - before)
+    host["kernel_launches"] = node_kernel.launch_counts["node_euler"] - before
     return host
 
 
@@ -117,56 +108,6 @@ class SeedStepper:
 
     def close(self) -> None:
         pass
-
-
-# ---------------------------------------------------------------------------
-# One thread and one CUDA stream per seed
-# ---------------------------------------------------------------------------
-
-class _Thread:
-    """A seed's host thread and, on a card, its CUDA stream: the seed's
-    state is made and run there."""
-
-    def __init__(self, device: torch.device, name: str):
-        self.device = device
-        self.pool = ThreadPoolExecutor(1, thread_name_prefix=name)
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
-        self.run = None
-
-    def submit(self, fn, *args) -> Future:
-        def call():
-            if self.stream is None:
-                return fn(*args)
-            with torch.cuda.device(self.device), \
-                    torch.cuda.stream(self.stream):
-                return fn(*args)
-        return self.pool.submit(call)
-
-
-class _ThreadStepper(SeedStepper):
-    def __init__(self, cfg, threads):
-        self._cfg, self._threads = cfg, threads
-
-    def init(self, base_seed: int):
-        def make(i):
-            t = self._threads[i]
-            t.run = make_episode_runner(self._cfg, t.device)
-            return _new_seed(self._cfg, base_seed + i, t.device)
-
-        return [t.submit(make, i).result()
-                for i, t in enumerate(self._threads)]
-
-    def _episodes(self, states, i_episode):
-        return [t.submit(_run_episode, t.run, st, i_episode)
-                for t, st in zip(self._threads, states)]
-
-    def save_weights(self, states, i, path, include_barrier):
-        save_model_weights(path, states[i][0], include_barrier)
-
-    def close(self) -> None:
-        for t in self._threads:
-            t.pool.shutdown(wait=True)
 
 
 # ---------------------------------------------------------------------------
@@ -360,23 +301,22 @@ def _default_devices():
 
 def make_async_seed_runner(cfg: NLBACConfig, devices=None,
                            n_seeds: Optional[int] = None, dp: int = 1,
-                           tp: int = 1, grids: Optional[Sequence] = None,
-                           workers: str = "threads"):
+                           tp: int = 1, grids: Optional[Sequence] = None):
     """Seed-parallel training: ``(init_fn, step_fn)``.
 
     ``init_fn(base_seed)`` makes every seed's state, seed i from
     ``torch.Generator(device).manual_seed(base_seed + i)`` used as in a
-    single-seed ``train()``, and returns the states: under ``threads``
-    (and dp/tp groups) the list of ``[ts, rl_replay, node_replay, gen,
-    total_steps]`` (None for another group's seed), under ``processes``
-    the seed indices (the states stay in the workers; ``step_fn.fetch(i)``
-    copies one out). ``step_fn(states, i_episode, block=True)`` runs one
-    episode of every seed and returns ``(states, futures)``: future i
-    gives seed i's metrics as host numbers (``train.driver.
-    episode_to_host``, plus ``updates`` and ``kernel_launches``). With
-    ``block=False`` it returns as soon as the episodes are under way, so
-    the caller can process the last episode's metrics meanwhile; a seed's
-    next request waits for its current one.
+    single-seed ``train()``, and returns the states: the seed indices
+    (the states stay in the worker processes; ``step_fn.fetch(i)`` copies
+    one out), or under dp/tp groups this rank's list of ``[ts,
+    rl_replay, node_replay, gen, total_steps]`` (None for another group's
+    seed). ``step_fn(states, i_episode, block=True)`` runs one episode of
+    every seed and returns ``(states, futures)``: future i gives seed i's
+    metrics as host numbers (``train.driver.episode_to_host``, plus
+    ``updates`` and ``kernel_launches``). With ``block=False`` it returns
+    as soon as the episodes are under way, so the caller can process the
+    last episode's metrics meanwhile; a seed's next request waits for its
+    current one.
 
     ``devices`` (default: every card; the CPU when named) take the seeds
     round robin. With ``dp``/``tp`` > 1, ``grids`` is ``make_grids``' list
@@ -394,18 +334,8 @@ def make_async_seed_runner(cfg: NLBACConfig, devices=None,
         return stepper.init, stepper
     devices = [torch.device(d) for d in (devices or _default_devices())]
     n_seeds = len(devices) if n_seeds is None else n_seeds
-    if workers == "threads":
-        # each seed's thread is named seed<i> (the kernel's launch counts
-        # by thread read it)
-        stepper = _ThreadStepper(cfg, [
-            _Thread(devices[i % len(devices)], f"seed{i}")
-            for i in range(n_seeds)])
-    elif workers == "processes":
-        # at most a process per core, a multiple of the device count so
-        # that seed i stays on device i % n_devices
-        per = max(1, _cores() // len(devices)) * len(devices)
-        stepper = _ProcessStepper(cfg, devices, n_seeds,
-                                  min(n_seeds, per))
-    else:
-        raise ValueError(f"workers={workers!r} (threads | processes)")
+    # at most a process per core, a multiple of the device count so that
+    # seed i stays on device i % n_devices
+    per = max(1, _cores() // len(devices)) * len(devices)
+    stepper = _ProcessStepper(cfg, devices, n_seeds, min(n_seeds, per))
     return stepper.init, stepper

@@ -17,9 +17,9 @@ the process runs. ``--mode eval`` rolls out the weights in ``--output``
 
 The parallel modes (``nlbac_tpu_torch/parallel``):
 
-- ``--n_seeds N`` trains seeds ``seed .. seed+N-1`` in one process, round
-  robin over its cards, each seed on a host thread and CUDA stream of
-  its own, into ``<run dir>/s<seed>/``, with an aggregate row per
+- ``--n_seeds N`` trains seeds ``seed .. seed+N-1`` side by side in
+  worker processes (at most one per CPU core), round robin over the
+  cards, into ``<run dir>/s<seed>/``, with an aggregate row per
   episode;
 - ``--dp N`` / ``--tp N`` train one seed data-parallel (each rank takes
   its rows of every batch) and/or tensor-parallel (every network cut
@@ -192,9 +192,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="eval: roll out the weights in --output (a run "
                         "directory) for 5 episodes")
     p.add_argument("--n_seeds", type=int, default=1,
-                   help="train seeds seed..seed+N-1 side by side (one host "
-                        "thread and CUDA stream each, round robin over "
-                        "the cards) into <run dir>/s<seed>/")
+                   help="train seeds seed..seed+N-1 side by side (in "
+                        "worker processes, round robin over the cards) "
+                        "into <run dir>/s<seed>/")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel over N ranks (one card each): each "
                         "rank takes its rows of every batch, the ranks "
@@ -680,11 +680,10 @@ def train_host_loop(args, cfg: NLBACConfig, device) -> None:
 
 def train_multi_seed(cfg: NLBACConfig, n_seeds: int,
                      output_root: str | None, quiet: bool = False,
-                     dp: int = 1, tp: int = 1, device="cuda", grids=None,
-                     workers: str = "processes"):
+                     dp: int = 1, tp: int = 1, device="cuda", grids=None):
     """Seed-parallel training (``--n_seeds``): seeds ``cfg.run.seed + i``
     advance side by side through ``parallel.make_async_seed_runner`` (in
-    worker processes by default, see ``parallel/seeds.py``), seed i
+    worker processes, see ``parallel/seeds.py``), seed i
     exactly as a single-seed ``train()`` of that seed would, each into
     ``<output_root>/s<seed>/`` (``progress.txt``, ``config.json``, the
     weight files at the cadence, ``best/`` under ``--save_best``). A row
@@ -722,7 +721,7 @@ def train_multi_seed(cfg: NLBACConfig, n_seeds: int,
     with timer.time("init"):
         init_fn, step_fn = make_async_seed_runner(
             cfg, devices=devices, n_seeds=n_seeds, dp=dp, tp=tp,
-            grids=grids, workers=workers)
+            grids=grids)
         try:
             states = init_fn(cfg.run.seed)
         except BaseException:

@@ -183,7 +183,7 @@ def phase_report(card: str) -> None:
             print(f"phases rows={rows} tiles {tiles} {name} block, SM "
                   f"cycles: " + "; ".join(parts) + f" on {card}")
     nk._lib = None
-    nk._launch_args_cache().clear()
+    nk._launch_args.clear()
 
 
 def host_report(card: str) -> None:

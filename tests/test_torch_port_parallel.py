@@ -13,7 +13,8 @@ gloo gangs of 2 ranks spawned with a time limit each (``run_gang``):
   bit-equal to each other, tp's weight files those of a run of one;
 - the tp layouts against the JAX package's ``_tp_param_specs`` and
   ``shard_state_tp``, and a wide state's shards under half its bytes;
-- the async seed runner: each seed bit-equal to its standalone run;
+- the async seed runner: each seed bit-equal to its standalone run,
+  with a worker process per seed and with workers that hold two;
 - a 2-process ``--coordinator/--num_processes/--process_id`` CLI gang
   (rank 0 alone writes files) against the CLI's own spawned ``--dp 2``
   gang, and ``--n_seeds 2 --dp 2`` against ``--n_seeds 2``.
@@ -46,6 +47,7 @@ from nlbac_tpu_torch import parallel
 from nlbac_tpu_torch.agent import create_train_state, make_agent
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.interop import from_reference
+from nlbac_tpu_torch.parallel import seeds as seeds_lib
 from nlbac_tpu_torch.parallel.tp import _tp_param_specs
 from nlbac_tpu_torch.train import cli
 from nlbac_tpu_torch.train.driver import create_replays, make_episode_runner
@@ -288,26 +290,29 @@ def test_tp_shards_hold_under_half_the_bytes():
     assert parallel.shard_bytes(shard) < 0.5 * parallel.shard_bytes(ts)
 
 
-@pytest.mark.parametrize("workers", ["threads", "processes"])
-def test_async_seed_runner_reproduces_standalone_runs(workers):
-    """``--n_seeds``' runner on the CPU, ``block=False``, in both forms:
-    each seed's rewards and final state are bit-equal to its standalone
-    run (seed ``base + i``, the generator used as ``train()`` uses it)."""
+@pytest.mark.parametrize("cores", [
+    pytest.param(None, id="processes"),
+    pytest.param(2, id="shared_workers")])
+def test_async_seed_runner_reproduces_standalone_runs(cores, monkeypatch):
+    """``--n_seeds``' runner on the CPU, ``block=False``: each seed's
+    rewards, K1 launch counts and final state are bit-equal to its
+    standalone run (seed ``base + i``, the generator used as ``train()``
+    uses it), with a worker process per seed and with fewer cores than
+    seeds (two workers, the first holding seeds 0 and 2)."""
+    if cores is not None:
+        monkeypatch.setattr(seeds_lib, "_cores", lambda: cores)
     cfg = tiny_cfg()
     n_seeds, base = 3, 7
     init_fn, step_fn = parallel.make_async_seed_runner(
-        cfg, devices=["cpu"], n_seeds=n_seeds, workers=workers)
+        cfg, devices=["cpu"], n_seeds=n_seeds)
     try:
         states = init_fn(base)
+        assert len(step_fn._procs) == min(n_seeds, cores or n_seeds)
         results = []
         for ep in range(2):
             states, futures = step_fn(states, ep, block=False)
             results.append([f.result() for f in futures])
-        if workers == "processes":
-            got = [step_fn.fetch(i) for i in range(n_seeds)]
-        else:
-            got = [(parallel.state_arrays(st[0]), st[1].data.numpy(),
-                    st[2].data.numpy(), st[4]) for st in states]
+        got = [step_fn.fetch(i) for i in range(n_seeds)]
     finally:
         step_fn.close()
     for i in range(n_seeds):
@@ -322,6 +327,8 @@ def test_async_seed_runner_reproduces_standalone_runs(workers):
             ts, rl, node, m, total = run(ts, rl, node, gen, ep, total)
             assert float(m.reward) == results[ep][i]["reward"]
             assert ts.updates == results[ep][i]["updates"]
+            # the CPU's wrapper counts no launch, in a worker as here
+            assert results[ep][i]["kernel_launches"] == 0
         arrays, rl_rows, node_rows, got_total = got[i]
         assert_states_equal(arrays, parallel.state_arrays(ts))
         assert np.array_equal(rl_rows, rl.data.numpy())
