@@ -88,12 +88,32 @@ Phases, one line each (any failure raises and exits nonzero):
    the last update's losses near one rank's, the ranks' states
    bit-equal, K1's launches per dp rank those of one rank at half the
    rows, none under tp;
-17. a JSON line of the kernel's numbers (and the tanh phase's), the
-   script's total time, then the result line.
+17. ``--node_solver dopri5`` in gangs: a dp=2 and a tp=2 gang of two
+   ranks on the card over gloo, each one full-width unicycle episode per
+   form (``while``, ``scan``) of DOPRI5_GANG_STEPS steps whose first
+   update fits the NODE on the full 32768 rows, against one rank: the
+   reward, the state and the Adam moments, the ranks' bit-equality and
+   trial steps, ms per update (each timed alone) against one rank's;
+18. the experimental levers (``nlbac_tpu_torch.experimental``) at full
+   unicycle width: on the card, the stacked twin-Q update against the
+   plain one, the fused gather's batches against the default path's
+   given the same index draws, the decoupled agent's TD losses against
+   the default's; then the default update block interleaved with the
+   stacked, decoupled and fused-gather blocks from the main path's state,
+   LEVER_BLOCKS each: ms per block (median) and the ratio to the default,
+   K1's launches on each path;
+19. one full-width unicycle update with the NODE in bf16 on the card (the
+   plain bf16 field, no K1) against the CPU;
+20. start-up: a fresh process (``chip_smoke.py --startup``, on a copy of
+   the package) from its spawn to its first update's end through
+   ``cached_episode_runner``, with ``_build/`` empty and then warm, split
+   into import, set-up, K1's library and the first episode;
+21. a JSON line of the kernel's numbers (and the tanh, lever and
+   start-up phases'), the script's total time, then the result line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
-QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN, GANG_STEPS below);
-the widths are the presets'.
+QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN, GANG_STEPS,
+DOPRI5_GANG_STEPS, STARTUP_STEPS below); the widths are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -106,6 +126,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import pickle
 import re
 import shutil
@@ -119,19 +140,26 @@ import torch
 
 import numpy as np
 
-from nlbac_tpu_torch import runtime_native
+from nlbac_tpu_torch import experimental, runtime_native
 from nlbac_tpu_torch.agent import create_train_state, make_agent
 from nlbac_tpu_torch.agent.state import make_optimizers
 from nlbac_tpu_torch.config import get_config
 from nlbac_tpu_torch.envs import get_env
-from nlbac_tpu_torch.nn import make_field, node_init, pack_input
-from nlbac_tpu_torch.ode import odeint_adjoint, solve_adaptive
+from nlbac_tpu_torch.nn import (
+    make_field,
+    node_init,
+    pack_input,
+    twin_q_unstack,
+)
+from nlbac_tpu_torch.ode import odeint_adjoint, solve_adaptive, solvers
 from nlbac_tpu_torch import parallel
 from nlbac_tpu_torch.ops import node_kernel
 from nlbac_tpu_torch.replay import create as create_replay
+from nlbac_tpu_torch.replay import buffer as replay_buffer
 from nlbac_tpu_torch.replay import sample, unpack_rows
 from nlbac_tpu_torch.train import cli, create_replays, make_episode_runner
-from nlbac_tpu_torch.train.driver import episode_to_host
+from nlbac_tpu_torch.train.aot import cached_episode_runner
+from nlbac_tpu_torch.train.driver import UpdateCarry, episode_to_host
 from nlbac_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     restore_host_checkpoint,
@@ -245,6 +273,38 @@ GANG_METRICS = ("qf1_loss", "qf2_loss", "lf_loss", "policy_loss")
 # The row counts K1 takes on a dp rank's share at dp=2 and 4 (the main
 # path's 128-row rollouts and 32768-row fit, PVTOL's 256-row chain)
 DP_ROWS = (64, 32, 16384, 8192)
+# The dopri5 gangs (dp=2 and tp=2 on one card over gloo): per form, one
+# unicycle episode of DOPRI5_GANG_STEPS steps from seed SEED's state, the
+# policy acting from the first update block (step 130), whose first
+# update fits the NODE on the full 32768 rows (16384 per dp rank): 4
+# updates in all, each timed alone. Against one rank: the reward and the
+# state at the gangs' tolerances above, but the NODE's parameters and Adam
+# moments, which hold the fit's gradient through the adaptive solve:
+# within DOPRI5_GANG_NODE_FRAC of each leaf's largest entry (the float32
+# noise of the adaptive steps that tests/test_torch_port_ode.py's
+# NODE_GRAD_FRAC allows at its small widths), or within NOISE_FACTOR times
+# the float32 noise floor measured in the same run, the NODE's gap between
+# one rank's episode and one whose NODE weights start one ulp up,
+# whichever is larger. The scan form differentiates through its step
+# sizes, whose gradient is float32 noise (ROADMAP.md G3): a tp gang sums
+# each layer in another order, and at full width its NODE moments part
+# from one rank's by more than a leaf's largest entry, as the one-ulp run
+# does. NOISE_FACTOR leaves room for the spread of a largest gap over the
+# NODE's leaves between two such draws.
+DOPRI5_GANG_STEPS = 131
+DOPRI5_IMPLS = ("while", "scan")
+DOPRI5_GANG_NODE_FRAC = {"while": 2e-2, "scan": 1.5e-1}
+NOISE_FACTOR = 4
+# The levers' A/B: update blocks (updates_per_step = 2 updates) per path,
+# interleaved in turns, the paths' order rotating each turn.
+LEVER_BLOCKS = 30
+LEVERS = ("default", "stacked", "decoupled", "fused")
+# A bf16 NODE's update on the card vs the CPU (tests/test_torch_port_gpu.py
+# states why): rtol and atol.
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-6
+# The start-up runs' unicycle episode: its first update block (step 130)
+# is its last step.
+STARTUP_STEPS = 130
 
 
 def phase(msg: str) -> None:
@@ -752,10 +812,12 @@ def check_preset(preset, argv, run, dev, card):
     update_on_card_vs_cpu(cfg, rl, node, dev)
 
 
-def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None):
+def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None,
+                          rtol=UPDATE_RTOL, atol=UPDATE_ATOL):
     """One full-width update from a fresh state on the card (kernel) and
     on the CPU (plain version), with the same batches and draws; the NODE
-    fit on ``node_rows`` rows (default: the config's 32768)."""
+    fit on ``node_rows`` rows (default: the config's 32768); every metric
+    within ``rtol`` / ``atol``. Returns the card's K1 launches."""
     gen_cpu = torch.Generator().manual_seed(SEED + 1)
     ts_cpu = create_train_state(cfg, gen_cpu, "cpu")
     ts_dev = to_device(ts_cpu, cfg, dev)
@@ -779,23 +841,30 @@ def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None):
         _, m = agent.update_core(ts, b, lambda: nb, None, 0, noise=to)
         return {k: v.item() for k, v in m.items()}
 
-    m_dev, m_cpu = run(ts_dev, dev), run(ts_cpu, "cpu")
+    node_kernel.reset_launch_counts()
+    m_dev = run(ts_dev, dev)
+    launches = node_kernel.launch_counts["node_euler"]
+    m_cpu = run(ts_cpu, "cpu")
     worst = 0.0
     for k in m_cpu:
         err = abs(m_dev[k] - m_cpu[k])
-        worst = max(worst, err / (UPDATE_ATOL + UPDATE_RTOL * abs(m_cpu[k])))
-        if err > UPDATE_ATOL + UPDATE_RTOL * abs(m_cpu[k]):
+        worst = max(worst, err / (atol + rtol * abs(m_cpu[k])))
+        if err > atol + rtol * abs(m_cpu[k]):
             raise RuntimeError(f"{cfg.env.name} update metric {k}: card "
                                f"{m_dev[k]} vs CPU {m_cpu[k]}")
     solver = (f" ({cfg.node.solver} {cfg.node.adaptive_impl}, NODE fit "
               f"on {node_rows} rows)" if cfg.node.solver == "dopri5" else "")
+    if cfg.node.compute_dtype is not None:
+        solver += (f" (NODE in {cfg.node.compute_dtype}, {launches} K1 "
+                   "launches)")
     phase(f"{cfg.run.exp_name} full-width update{solver}, card vs CPU: "
           f"{len(m_cpu)} metrics within rtol "
-          f"{UPDATE_RTOL} atol {UPDATE_ATOL} (worst at {worst:.3f} of the "
+          f"{rtol} atol {atol} (worst at {worst:.3f} of the "
           f"tolerance; node_loss {m_dev['node_loss']:.6g} vs "
           f"{m_cpu['node_loss']:.6g}; barrier_td_loss "
           f"{m_dev['barrier_td_loss']:.6g} vs "
           f"{m_cpu['barrier_td_loss']:.6g}) ok")
+    return launches
 
 
 def nbc_calls(dev, gen, card):
@@ -1565,11 +1634,475 @@ def gang_runs(dev, card):
         raise RuntimeError(f"gangs: {'; '.join(failed)}")
     return launches
 
+# ---------------------------------------------------------------------------
+# dopri5 in gangs, the experimental levers, the bf16 NODE, the start-up path
+# ---------------------------------------------------------------------------
+
+class TrialCounter:
+    """Counts this process's adaptive trial steps that advance (the scan
+    form's frozen trials step by 0) on the device, with no host read: it
+    wraps the solver's trial for the life of the process."""
+
+    def __init__(self, dev):
+        self.n = torch.zeros((), dtype=torch.int64, device=dev)
+        inner = solvers._trial
+
+        def counted(field, params, t, y, dt, *rest):
+            self.n += dt != 0
+            return inner(field, params, t, y, dt, *rest)
+
+        solvers._trial = counted
+
+
+def timed_update_block(cfg, times):
+    """An ``_update_step`` hook running the default block of
+    ``updates_per_step`` updates, each timed alone between two
+    synchronizes (host ms appended to ``times``)."""
+    def step(agent, c, gen, i_episode):
+        ts, m, shorts = c.ts, c.train, 0
+        for _ in range(cfg.sac.updates_per_step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = agent.update(ts, c.rl_replay, c.node_replay, gen,
+                                 i_episode)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            shorts = shorts + m["short_integrations"]
+        return ts, {**m, "short_integrations": shorts}
+
+    return step
+
+
+def dopri5_gang_cfg(impl):
+    cfg = get_config("unicycle")
+    return dataclasses.replace(
+        cfg, env=dataclasses.replace(cfg.env,
+                                     max_episode_steps=DOPRI5_GANG_STEPS),
+        node=dataclasses.replace(cfg.node, solver="dopri5",
+                                 adaptive_impl=impl),
+        run=dataclasses.replace(cfg.run, max_episodes=1, seed=SEED))
+
+
+def dopri5_gang_episode(cfg, grid, dev, trials, ulp=False):
+    """One episode of ``cfg`` on ``grid`` (None: one rank), from seed
+    SEED's state (with ``ulp``, its NODE weights moved one ulp up), the
+    policy acting from the first update block; each update timed. Returns
+    the state and the episode's numbers."""
+    dp_group = grid.dp_comm if grid is not None and grid.dp > 1 else None
+    agent = make_agent(cfg, dev, dp_group=dp_group)
+    times = []
+    run = make_episode_runner(cfg, dev, agent=agent,
+                              _update_step=timed_update_block(cfg, times))
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ts = create_train_state(cfg, gen, dev)
+    if ulp:
+        with torch.no_grad():
+            for p in tree_leaves(ts.node):
+                p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+    rl, node = create_replays(cfg, dev)
+    tree = (ts, rl, node, gen, cfg.sac.start_steps - cfg.sac.batch_size - 1)
+    if grid is not None:
+        tree = parallel.broadcast(tree, grid.comm, dev)
+        if grid.tp > 1:
+            tree = (parallel.shard_state_tp(tree[0], grid),) + tree[1:]
+    ts, rl, node, gen, total = tree
+    torch.cuda.synchronize()
+    trials.n.zero_()
+    node_kernel.reset_launch_counts()
+    ts, rl, node, m, total = run(ts, rl, node, gen, 0, total)
+    host = episode_to_host(m)
+    return ts, {"reward": host["reward"], "steps": host["steps"],
+                "shorts": host["short_integrations"], "ms": times,
+                "trials": int(trials.n),
+                "launches": node_kernel.launch_counts["node_euler"]}
+
+
+def dopri5_gang_rank(rank, world, coordinator, dp, tp, device):
+    """One rank of a dopri5 gang sharing ``device`` over gloo: an episode
+    per form, then its (under tp, gathered) whole state and numbers to
+    OUT/dopri5_gang_r<rank>.pkl."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    parallel.init_distributed(coordinator, world, rank, backend="gloo",
+                              device=dev)
+    grid = parallel.make_mesh((dp, tp))
+    trials = TrialCounter(dev)
+    out = {}
+    for impl in DOPRI5_IMPLS:
+        ts, res = dopri5_gang_episode(dopri5_gang_cfg(impl), grid, dev,
+                                      trials)
+        res["state"] = parallel.state_arrays(
+            parallel.gather_state_tp(ts) if tp > 1 else ts)
+        out[impl] = res
+    (OUT / f"dopri5_gang_r{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def _flat(state, key):
+    return [a for x in state[key]
+            for a in (x if isinstance(x, tuple) else (x,))]
+
+
+def dopri5_state_gaps(got, want):
+    """(ok outside the NODE, the largest gap outside the NODE, the NODE's
+    largest gap over its leaf's largest entry and where it is, the
+    largest relative gap of an Adam moment outside the NODE) of a state
+    against one rank's."""
+    ok = got["updates"] == want["updates"]
+    gap = node_frac = moment_gap = 0.0
+    where = None
+    for key in want:
+        if key == "updates":
+            continue
+        for i, (a, b) in enumerate(zip(_flat(got, key), _flat(want, key))):
+            if key in ("node", "adam/node"):
+                scale = float(np.max(np.abs(b))) if b.size else 0.0
+                diff = float(np.max(np.abs(a - b))) if b.size else 0.0
+                frac = diff / scale if scale else diff
+                if frac > node_frac:
+                    node_frac, where = frac, f"{key}[{i}]"
+                continue
+            if b.size:
+                gap = max(gap, float(np.max(np.abs(a - b))))
+            ok = ok and np.allclose(a, b, rtol=GANG_STATE_RTOL,
+                                    atol=GANG_STATE_ATOL)
+            if key.startswith("adam/"):
+                moment_gap = max(moment_gap, relative_gap(a, b))
+    ok = ok and moment_gap <= GANG_STATE_RTOL
+    return ok, gap, node_frac, where, moment_gap
+
+
+def dopri5_gang_runs(dev, card):
+    """``--node_solver dopri5`` in a dp=2 and a tp=2 gang of two ranks on
+    this one card (gloo), each form's episode against one rank's from the
+    same state and seed: reward, state and Adam-moment gaps, the ranks'
+    bit-equality and trial counts, and ms per update."""
+    trials = TrialCounter(dev)
+    one, floor = {}, {}
+    for impl in DOPRI5_IMPLS:
+        ts, res = dopri5_gang_episode(dopri5_gang_cfg(impl), None, dev,
+                                      trials)
+        res["state"] = parallel.state_arrays(ts)
+        one[impl] = res
+        ts_ulp, _ = dopri5_gang_episode(dopri5_gang_cfg(impl), None, dev,
+                                        trials, ulp=True)
+        _, _, floor[impl], where, _ = dopri5_state_gaps(
+            parallel.state_arrays(ts_ulp), res["state"])
+        phase(f"dopri5 gangs: one rank, {impl}: the NODE's weights one ulp "
+              f"up move its state by {floor[impl]:.3e} of a leaf's largest "
+              f"entry (at {where}): the float32 noise floor on {card}")
+        phase(f"dopri5 gangs: one rank, {impl}: {res['steps']} steps, "
+              f"updates {res['state']['updates']}, the fit update "
+              f"({dopri5_gang_cfg(impl).node.max_batch} rows) "
+              f"{res['ms'][0]:.2f} ms, the other "
+              f"{len(res['ms']) - 1} {np.mean(res['ms'][1:]):.2f} ms each, "
+              f"{res['trials']} trial steps, {res['shorts']:.0f} short "
+              f"integrations, {res['launches']} K1 launches, reward "
+              f"{res['reward']:.6g} on {card}")
+    launches, failed = {}, []
+    rank_dev = "cuda:0" if dev.type == "cuda" else str(dev)
+    for name, (dp, tp) in (("dp", (2, 1)), ("tp", (1, 2))):
+        for r in range(2):
+            (OUT / f"dopri5_gang_r{r}.pkl").unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        parallel.run_gang(dopri5_gang_rank, 2, (dp, tp, rank_dev),
+                          timeout=GANG_TIMEOUT)
+        wall = time.perf_counter() - t0
+        ranks = [pickle.loads((OUT / f"dopri5_gang_r{r}.pkl").read_bytes())
+                 for r in range(2)]
+        for impl in DOPRI5_IMPLS:
+            r0, r1 = ranks[0][impl], ranks[1][impl]
+            want = one[impl]
+            same = (r0["reward"] == r1["reward"]
+                    and r0["trials"] == r1["trials"]
+                    and r0["state"]["updates"] == r1["state"]["updates"]
+                    and all(np.array_equal(a, b) for key in r0["state"]
+                            if key != "updates"
+                            for a, b in zip(_flat(r0["state"], key),
+                                            _flat(r1["state"], key))))
+            ok, gap, node_frac, where, moment_gap = dopri5_state_gaps(
+                r0["state"], want["state"])
+            node_limit = max(DOPRI5_GANG_NODE_FRAC[impl],
+                             NOISE_FACTOR * floor[impl])
+            ok = ok and node_frac <= node_limit
+            reward_gap = abs(r0["reward"] - want["reward"])
+            reward_ok = reward_gap <= GANG_REWARD_ATOL + \
+                GANG_REWARD_RTOL * abs(want["reward"])
+            k1_ok = all(r[impl]["launches"] == 0 for r in ranks)
+            for r, res in enumerate(ranks):
+                launches[f"unicycle_dopri5_{impl}_{name}2_rank{r}"] = \
+                    res[impl]["launches"]
+            fit_ms = [r[impl]["ms"][0] for r in ranks]
+            rest_ms = [float(np.mean(r[impl]["ms"][1:])) for r in ranks]
+            rest_one = float(np.mean(want["ms"][1:]))
+            phase(f"dopri5 gangs: {name}=2 {impl} on one card (gloo): "
+                  f"ms per update: the fit {[round(v, 2) for v in fit_ms]} "
+                  f"(one rank {want['ms'][0]:.2f}), the other "
+                  f"{[round(v, 2) for v in rest_ms]} (one rank "
+                  f"{rest_one:.2f}, {rest_ms[0] / rest_one:.2f} times); "
+                  f"trial steps {r0['trials']} / {r1['trials']} "
+                  f"(one rank {want['trials']}); reward gap "
+                  f"{reward_gap:.3e}; state's largest gap outside the "
+                  f"NODE {gap:.3e} (rtol {GANG_STATE_RTOL} atol "
+                  f"{GANG_STATE_ATOL}), the NODE's {node_frac:.3e} of a "
+                  f"leaf's largest entry at {where} (limit "
+                  f"{node_limit:.3e}), Adam moments' largest "
+                  f"relative gap {moment_gap:.3e} (limit "
+                  f"{GANG_STATE_RTOL}); ranks bit-equal {same}; K1 "
+                  f"launches {[r[impl]['launches'] for r in ranks]}; "
+                  f"{wall:.2f} s for the gang with its spawn on {card}")
+            if not (same and ok and reward_ok and k1_ok):
+                failed.append(f"{name}=2 {impl}: state ok {ok}, reward ok "
+                              f"{reward_ok}, ranks equal {same}, K1 ok "
+                              f"{k1_ok}")
+    if failed:
+        raise RuntimeError(f"dopri5 gangs: {'; '.join(failed)}")
+    return launches
+
+
+class IndexQueue:
+    """Each replay's indices taken in order from one fixed list, however
+    they are grouped into draws (a stand-in for ``sample_indices`` that
+    gives the default path and the fused gather the same index draws)."""
+
+    def __init__(self, dev):
+        self.idx = torch.randint(0, 1 << 30, (1 << 16,), device=dev,
+                                 generator=torch.Generator(dev).manual_seed(
+                                     SEED + 7))
+        self.at = {}
+
+    def __call__(self, replay, gen, n):
+        at = self.at.get(id(replay), 0)
+        self.at[id(replay)] = at + n
+        return self.idx[at:at + n] % max(replay.size, 1)
+
+
+def lever_checks(cfg, rl, node, dev, card):
+    """On the card: the stacked state's update against the plain one's,
+    the fused gather's batches against the default path's given the same
+    index draws, and the decoupled agent's TD losses against the default
+    agent's (one update block each, from identical fresh states)."""
+    B = cfg.sac.batch_size
+
+    def fresh():
+        return create_train_state(cfg, torch.Generator(dev).manual_seed(
+            SEED + 6), dev)
+
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    batch = sample(rl, gen, B)
+    node_batch = sample(node, gen, cfg.node.max_batch)
+    noise = {k: torch.randn(B, cfg.action_dim, device=dev, generator=gen)
+             for k in ("next", "pi", "backup")}
+
+    def one_update(ts, agent):
+        return agent.update_core(ts, batch, lambda: node_batch, None, 0,
+                                 noise=noise)
+
+    agent = make_agent(cfg, dev)
+    ts_p, m_p = one_update(fresh(), agent)
+    ts_s, m_s = one_update(experimental.stack_twin_q_state(cfg, fresh()),
+                           agent)
+    worst = 0.0
+    for k, v in m_p.items():
+        a, b = float(m_s[k]), float(v)
+        worst = max(worst, abs(a - b) / (UPDATE_ATOL + UPDATE_RTOL * abs(b)))
+    for a, b in zip(tree_leaves(twin_q_unstack(ts_s.critic)),
+                    tree_leaves(ts_p.critic)):
+        err = (a - b).abs() / (UPDATE_ATOL + UPDATE_RTOL * b.abs())
+        worst = max(worst, float(err.detach().max()))
+    if worst > 1:
+        raise RuntimeError(f"levers: the stacked update is off the plain "
+                           f"one by {worst:.3f} of the tolerance")
+    _, m_d = one_update(fresh(), experimental.make_decoupled_agent(cfg, dev))
+    td = ("qf1_loss", "qf2_loss", "lf_loss", "node_loss")
+    td_equal = all(float(m_d[k]) == float(m_p[k]) for k in td)
+
+    seen = {}
+    unpack, draw = replay_buffer.unpack_rows, replay_buffer.sample_indices
+    try:
+        for fused in (False, True):
+            rows = seen.setdefault(fused, [])
+
+            def recorded(layout, r):
+                rows.append(r.clone())
+                return unpack(layout, r)
+
+            replay_buffer.unpack_rows = recorded
+            replay_buffer.sample_indices = IndexQueue(dev)
+            g = torch.Generator(dev).manual_seed(SEED + 9)
+            carry = UpdateCarry(fresh(), rl, node, {})
+            if fused:
+                experimental.fused_gather_update_step(cfg)(agent, carry, g, 0)
+            else:
+                ts = carry.ts
+                for _ in range(cfg.sac.updates_per_step):
+                    ts, _ = agent.update(ts, rl, node, g, 0)
+    finally:
+        replay_buffer.unpack_rows, replay_buffer.sample_indices = unpack, draw
+    fused_equal = len(seen[True]) == len(seen[False]) > 0 and all(
+        torch.equal(a, b) for a, b in zip(seen[True], seen[False]))
+    phase(f"levers on the card: the stacked update vs the plain one, "
+          f"metrics and critic within rtol {UPDATE_RTOL} atol {UPDATE_ATOL} "
+          f"(worst at {worst:.3f} of it); the fused gather's "
+          f"{len(seen[True])} batches equal to the default path's given "
+          f"the same index draws: {fused_equal}; the decoupled agent's TD "
+          f"and fit losses equal to the default's: {td_equal} on {card}")
+    if not (fused_equal and td_equal):
+        raise RuntimeError(f"levers: fused batches equal {fused_equal}, "
+                           f"decoupled TD losses equal {td_equal}")
+
+
+def levers_ab(dev, card, run):
+    """The default update block against the stacked, decoupled and
+    fused-gather ones, interleaved in one call: each path from the main
+    path's final state (restored from its checkpoint, on its own copy),
+    LEVER_BLOCKS blocks each in turns, each block timed alone between two
+    synchronizes, with K1's launches counted (the count set to 0 just
+    before each block and read just after)."""
+    argv = ["--max_episodes", str(EPISODES), "--max_episode_steps",
+            str(EPISODE_STEPS)]
+    paths = {}
+    for name in LEVERS:
+        cfg, ts, rl, node, _, episode = restored("unicycle", argv, run, dev)
+        if name == "stacked":
+            ts = experimental.stack_twin_q_state(cfg, ts)
+        agent = (experimental.make_decoupled_agent(cfg, dev)
+                 if name == "decoupled" else make_agent(cfg, dev))
+        paths[name] = {"ts": ts, "rl": rl, "node": node, "agent": agent,
+                       "gen": torch.Generator(dev).manual_seed(SEED + 5),
+                       "ms": [], "launches": 0}
+    lever_checks(cfg, paths["default"]["rl"], paths["default"]["node"], dev,
+                 card)
+    fused = experimental.fused_gather_update_step(cfg)
+    i_episode = episode + 1
+
+    def block(name, p):
+        if name == "fused":
+            p["ts"], _ = fused(p["agent"], UpdateCarry(
+                p["ts"], p["rl"], p["node"], {}), p["gen"], i_episode)
+        else:
+            for _ in range(cfg.sac.updates_per_step):
+                p["ts"], _ = p["agent"].update(p["ts"], p["rl"], p["node"],
+                                               p["gen"], i_episode)
+
+    for name, p in paths.items():  # one untimed block each
+        block(name, p)
+    for i in range(LEVER_BLOCKS):
+        for name in LEVERS[i % 4:] + LEVERS[:i % 4]:
+            p = paths[name]
+            torch.cuda.synchronize()
+            node_kernel.reset_launch_counts()
+            t0 = time.perf_counter()
+            block(name, p)
+            torch.cuda.synchronize()
+            p["ms"].append((time.perf_counter() - t0) * 1e3)
+            p["launches"] += node_kernel.launch_counts["node_euler"]
+    base = statistics.median(paths["default"]["ms"])
+    out = {}
+    for name, p in paths.items():
+        med = statistics.median(p["ms"])
+        q1, _, q3 = statistics.quantiles(p["ms"], n=4)
+        out[name] = {"ms": med, "ratio": med / base, "q1": q1, "q3": q3,
+                     "launches": p["launches"]}
+        phase(f"levers: {name}: {med:.3f} ms per update block (median of "
+              f"{LEVER_BLOCKS} blocks of {cfg.sac.updates_per_step} "
+              f"updates, quartiles {q1:.3f} / {q3:.3f}), {med / base:.4f} "
+              f"times the default; {p['launches']} K1 launches on {card}")
+        if p["launches"] <= 0:
+            raise RuntimeError(f"levers: {name} launched no K1")
+    return out
+
+
+def bf16_update(rl, node, dev, card):
+    """One full-width unicycle update with the NODE in bf16 on the card
+    (the plain bf16 field; K1 computes float32 only) against the CPU."""
+    cfg = get_config("unicycle")
+    cfg = dataclasses.replace(cfg, node=dataclasses.replace(
+        cfg.node, compute_dtype="bfloat16"))
+    launches = update_on_card_vs_cpu(cfg, rl, node, dev, rtol=BF16_RTOL,
+                                     atol=BF16_ATOL)
+    if launches:
+        raise RuntimeError(f"bf16 update: {launches} K1 launches")
+    return launches
+
+
+def startup_child(t_spawn: float) -> None:
+    """``--startup T``: a fresh process's way to its first update's end,
+    T being the parent's clock at the spawn. Prints one JSON line: the
+    seconds to the end of the imports, of the set-up (the CUDA context,
+    the state and replays), of ``cached_episode_runner`` (K1's library
+    built or loaded) and of the first episode, whose last step is the
+    first update block."""
+    t_imported = time.time()
+    dev = torch.device("cuda")
+    cfg = get_config("unicycle")
+    cfg = dataclasses.replace(cfg, env=dataclasses.replace(
+        cfg.env, max_episode_steps=STARTUP_STEPS))
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ts = create_train_state(cfg, gen, dev)
+    rl, node = create_replays(cfg, dev)
+    torch.cuda.synchronize()
+    t_setup = time.time()
+    built = any(node_kernel._BUILD_DIR.glob("libnode_euler-*.so"))
+    run = cached_episode_runner(cfg, (ts, rl, node, gen, 0, 0))
+    t_loaded = time.time()
+    node_kernel.reset_launch_counts()
+    ts, rl, node, m, _ = run(ts, rl, node, gen, 0, 0)
+    host = episode_to_host(m)
+    t_end = time.time()
+    print(json.dumps({
+        "import_s": t_imported - t_spawn, "setup_s": t_setup - t_imported,
+        "library_s": t_loaded - t_setup, "episode_s": t_end - t_loaded,
+        "total_s": t_end - t_spawn, "library_was_built": built,
+        "updates": m.updates_done, "steps": host["steps"],
+        "launches": node_kernel.launch_counts["node_euler"]}), flush=True)
+
+
+def startup_runs(card):
+    """Process start to the first update's end, in a fresh process, on a
+    copy of the package under OUT/startup: first with its ``_build/``
+    empty (and no byte-compiled modules), then again with both warm."""
+    root = OUT / "startup"
+    shutil.rmtree(root, ignore_errors=True)
+    pkg = Path(node_kernel.__file__).resolve().parent.parent
+    shutil.copytree(pkg, root / pkg.name, ignore=shutil.ignore_patterns(
+        "_build", "__pycache__"))
+    shutil.copy2(Path(__file__).resolve(), root / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = {}
+    for label in ("cold", "warm"):
+        t_spawn = time.time()
+        res = subprocess.run(
+            [sys.executable, "chip_smoke.py", "--startup", repr(t_spawn)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"start-up ({label}) failed:\n"
+                               f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        if r["library_was_built"] != (label == "warm") or r["updates"] <= 0 \
+                or r["launches"] <= 0:
+            raise RuntimeError(f"start-up ({label}): {r}")
+        out[label] = r
+        phase(f"start-up ({label}: _build/ "
+              f"{'holding K1' if label == 'warm' else 'empty'}): "
+              f"{r['total_s']:.2f} s from the spawn to the first update's "
+              f"end: import {r['import_s']:.2f} s, set-up "
+              f"{r['setup_s']:.2f} s, K1's library "
+              f"{'loaded' if label == 'warm' else 'built and loaded'} "
+              f"{r['library_s']:.2f} s, first episode ({r['steps']} steps, "
+              f"{r['updates']} updates, {r['launches']} K1 launches) "
+              f"{r['episode_s']:.2f} s on {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--startup"]:
+        startup_child(float(sys.argv[2]))
+        return 0
     dev = torch.device("cuda")
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1622,6 +2155,14 @@ def main() -> int:
     by_path.update(custom_env_runs(card))
     by_path.update(seeds_run(dev, card, one_seed))
     by_path.update(gang_runs(dev, card))
+    by_path.update(dopri5_gang_runs(dev, card))
+    levers = levers_ab(dev, card, one_seed["run"])
+    by_path.update({f"unicycle_lever_{k}": v["launches"]
+                    for k, v in levers.items()})
+    by_path["unicycle_bf16_update"] = bf16_update(rl, node, dev, card)
+    startup = startup_runs(card)
+    by_path.update({f"startup_{k}": v["launches"]
+                    for k, v in startup.items()})
 
     big = times[32768]
     print(json.dumps({"kernels": [{
@@ -1638,7 +2179,8 @@ def main() -> int:
         "host_us_per_call": times[128]["host_us_per_call"],
         "at_128_rows": times[128], "pvtol_chain": chain,
         "nbc_calls_max_abs_err": nbc_err,
-        "launches_by_path": by_path}], "tanh": tanh}), flush=True)
+        "launches_by_path": by_path}], "tanh": tanh, "levers": levers,
+        "startup": startup}), flush=True)
     phase(f"total: {time.perf_counter() - start:.2f} s from the build to "
           f"the end on {card}")
     print(json.dumps({"ok": True, "device": {

@@ -82,13 +82,15 @@ class PointMassBarrierConstraints:
     @staticmethod
     def terms(ccfg, ncfg, node_params, field, lyap_params, obs, action,
               lyap_t, dt, barrier_params=None, resample=None,
-              include_clf: bool = True, shorts=None, **_):
+              include_clf: bool = True, shorts=None, dp_group=None,
+              **_):
         from nlbac_tpu_torch.nn import (barrier_apply, lyapunov_apply,
                                         predict_next_state)
 
         # the obs IS the NODE state here, so predict in obs space
         pred = predict_next_state(ncfg, node_params, obs, action, dt,
-                                  field=field, shorts=shorts)  # live
+                                  field=field, shorts=shorts,
+                                  dp_group=dp_group)  # live
         with torch.no_grad():
             b_t = barrier_apply(barrier_params, obs, action)
         # u_{t+1}: the current policy resampled at the prediction; only

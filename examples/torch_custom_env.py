@@ -134,12 +134,14 @@ class PointMassConstraints:
 
     @staticmethod
     def terms(ccfg, ncfg, node_params, field, lyap_params, obs, action,
-              lyap_t, dt, include_clf: bool = True, shorts=None, **_):
+              lyap_t, dt, include_clf: bool = True, shorts=None,
+              dp_group=None, **_):
         from nlbac_tpu_torch.nn import lyapunov_apply, predict_next_state
 
         hazard = constants(obs.device)["hazard"]
         pred = predict_next_state(ncfg, node_params, obs, action, dt,
-                                  field=field, shorts=shorts)  # (B, 2)
+                                  field=field, shorts=shorts,
+                                  dp_group=dp_group)  # (B, 2)
         r = ccfg.collision_buffer * HAZARD_RADIUS
 
         def h(q):

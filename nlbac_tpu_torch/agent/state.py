@@ -67,12 +67,19 @@ def learning_rates(cfg: NLBACConfig) -> dict:
     }
 
 
+def make_optimizer(cfg: NLBACConfig, group: str, params
+                   ) -> torch.optim.Adam:
+    """A fresh ``torch.optim.Adam`` of optimizer group ``group`` over
+    ``params``' leaves (a group whose leaves are replaced, as the stacked
+    twin-Q layout replaces the critic's, takes a new one)."""
+    return torch.optim.Adam(tree_leaves(params),
+                            lr=learning_rates(cfg)[group])
+
+
 def make_optimizers(cfg: NLBACConfig, ts_fields: dict) -> dict:
     """One ``torch.optim.Adam`` per group over the group's parameter
     leaves; ``ts_fields`` maps each TrainState field name to its params."""
-    lrs = learning_rates(cfg)
-    return {name: torch.optim.Adam(tree_leaves(ts_fields[field]),
-                                   lr=lrs[name])
+    return {name: make_optimizer(cfg, name, ts_fields[field])
             for name, field in OPT_GROUPS.items()}
 
 

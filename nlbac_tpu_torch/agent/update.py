@@ -74,7 +74,7 @@ from nlbac_tpu_torch.nn import (
     soft_update,
     twin_q_apply,
 )
-from nlbac_tpu_torch.tree import detach, tree_leaves
+from nlbac_tpu_torch.tree import detach, snapshot, tree_leaves
 
 METRIC_NAMES = ("qf1_loss", "qf2_loss", "lf_loss", "policy_loss",
                 "constraint_loss", "alpha_loss", "alpha", "node_loss",
@@ -101,12 +101,17 @@ class Agent(NamedTuple):
 
 
 def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
-               dp_group=None) -> Agent:
+               dp_group=None, _decoupled_updates: bool = False) -> Agent:
     """``env_override`` stands in for the registry's env (a host-env
     adapter, ``envs.host_adapter``): it exposes ``SPEC`` and, where its obs
     is not the NODE state, ``obs_to_state``. ``dp_group`` (a
     ``parallel.mesh.Comm``) runs each update on this rank's rows of the
-    batch, as the module's note sets out."""
+    batch, as the module's note sets out.
+
+    ``_decoupled_updates`` is an experimental variant reachable only
+    through ``nlbac_tpu_torch.experimental.make_decoupled_agent``: the
+    policy losses read the critic, Lyapunov net, barrier and NODE as they
+    were before the update stepped them."""
     env = env_override if env_override is not None else \
         get_env(cfg.env.name)
     builder = get_builder(cfg.constraint.kind)
@@ -235,7 +240,8 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         x_next = obs_to_node_state(batch["next_obs"])
         t = batch["t"][:, None] if ncfg.time_input else None
         loss = node_loss(ncfg, node_params, x, batch["action"], x_next, dt,
-                         t=t, field=field, shorts=shorts, mean=mean)
+                         t=t, field=field, shorts=shorts, mean=mean,
+                         dp_group=dp_group)
         step(node_opt, node_params, loss)
         return loss.detach()
 
@@ -312,6 +318,10 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         constraint = batch["constraint"][:, None]
         mask = batch["mask"][:, None]
         n_upd = ts.updates
+        if _decoupled_updates:
+            # copies: the steps below update the parameters in place
+            pre = {name: snapshot(getattr(ts, name))
+                   for name in ("critic", "lyap", "barrier", "node")}
 
         # --- 1. NODE fit (gated) ----------------------------------------
         do_node = n_upd % ncfg.update_interval == 0
@@ -363,9 +373,14 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
 
         # The policy losses see the stepped critic, Lyapunov net, barrier
         # and NODE without differentiating them (gradients go to the policy
-        # only).
-        pg_critic, pg_lyap, pg_node = (detach(ts.critic), detach(ts.lyap),
-                                       detach(ts.node))
+        # only); the decoupled variant sees them as they were before.
+        if _decoupled_updates:
+            pg_critic, pg_lyap, pg_barrier, pg_node = (
+                pre["critic"], pre["lyap"], pre["barrier"], pre["node"])
+        else:
+            pg_critic, pg_lyap, pg_barrier, pg_node = (
+                detach(ts.critic), detach(ts.lyap), detach(ts.barrier),
+                detach(ts.node))
 
         # --- 3. primary policy ------------------------------------------
         do_lam = n_upd % ccfg.lambda_update_interval == 0
@@ -379,8 +394,8 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
                            t=batch["t"][:, None],
                            next_t=batch["next_t"][:, None],
                            env_name=cfg.env.name,
-                           barrier_params=detach(ts.barrier),
-                           shorts=shorts)
+                           barrier_params=pg_barrier,
+                           shorts=shorts, dp_group=dp_group)
 
         def make_resampler(policy, draws):
             """The chain's k-th resampled control, from the policy being

@@ -49,12 +49,13 @@ def register_builder(kind: str, module) -> None:
         NUM_BACKUP: int    # K of the backup (CBF-only) branch
 
     ``extras`` hold ``gen``, ``t``/``next_t``, ``env_name``,
-    ``barrier_params``, ``resample`` and ``shorts`` (pass ``shorts`` on to
-    ``predict_next_state``). Optional: ``USES_BARRIER = True`` marks an
-    NBC-family builder: ``terms`` then reads the live ``barrier_params``
-    and the ``resample(obs, k)`` closure over the current policy, and the
-    agent TD-trains the barrier critic on the env's ``barrier_signal``
-    (examples/torch_custom_barrier_env.py).
+    ``barrier_params``, ``resample``, ``shorts`` and ``dp_group`` (pass
+    ``shorts`` and ``dp_group`` on to ``predict_next_state``: a
+    data-parallel rank's adaptive solves need the group). Optional:
+    ``USES_BARRIER = True`` marks an NBC-family builder: ``terms`` then
+    reads the live ``barrier_params`` and the ``resample(obs, k)`` closure
+    over the current policy, and the agent TD-trains the barrier critic on
+    the env's ``barrier_signal`` (examples/torch_custom_barrier_env.py).
 
     Same collision rule as ``register_env``: re-registering the same
     object is a no-op, shadowing a different one raises."""

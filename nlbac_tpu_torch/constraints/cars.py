@@ -37,7 +37,8 @@ def _gaps(x):
 
 def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
           lyap_params, obs, action, lyap_t, dt, t=None, next_t=None,
-          resample=None, include_clf: bool = True, shorts=None, **_):
+          resample=None, include_clf: bool = True, shorts=None,
+          dp_group=None, **_):
     """``resample(obs_batch, k) -> action_batch`` draws the chain's k-th
     control from the controller being optimized (k = 0 here)."""
     if ccfg.horizon != 2:
@@ -46,12 +47,14 @@ def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
             f"composition); got {ccfg.horizon}")
     x0 = env.obs_to_state(obs)  # (B, 10)
     x1 = predict_next_state(ncfg, node_params, x0, action, dt, t=t,
-                            field=field, shorts=shorts)
+                            field=field, shorts=shorts,
+                            dp_group=dp_group)
     # only u_t carries gradient: the detach on u1 prunes every path
     # through the resample, obs1 included
     u1 = resample(env.state_to_obs(x1), 0).detach()
     x2 = predict_next_state(ncfg, node_params, x1, u1, dt, t=next_t,
-                            field=field, shorts=shorts)
+                            field=field, shorts=shorts,
+                            dp_group=dp_group)
 
     h23_0, h34_0 = _gaps(x0)
     h23_1, h34_1 = _gaps(x1)

@@ -29,23 +29,26 @@ from nlbac_tpu_torch.nn import predict_next_state
 
 
 def _predict(ncfg, node_params, field, obs, action, dt, env_name, lookahead,
-             shorts):
+             shorts, dp_group):
     """The live predicted obs and the CLF's input at t+1."""
     if env_name == "unicycle":
         pred = predict_next_state(ncfg, node_params,
                                   unicycle_env.obs_to_state(obs), action, dt,
-                                  field=field, shorts=shorts)  # (B, 3)
+                                  field=field, shorts=shorts,
+                                  dp_group=dp_group)  # (B, 3)
         return (unicycle_env.state_to_obs(pred),
                 _lookahead(pred[:, :2], pred[:, 2], lookahead))
     if env_name == "quadrotor":
         pred = predict_next_state(ncfg, node_params,
                                   quad_env.obs_to_state(obs), action, dt,
-                                  field=field, shorts=shorts)  # (B, 6)
+                                  field=field, shorts=shorts,
+                                  dp_group=dp_group)  # (B, 6)
         return quad_env.state_to_obs(pred), pred[:, [0, 2]]
     if env_name == "pvtol":
         state7 = pvtol_env.obs_to_state(obs)
         dyn1 = predict_next_state(ncfg, node_params, state7[:, :6], action,
-                                  dt, field=field, shorts=shorts)
+                                  dt, field=field, shorts=shorts,
+                                  dp_group=dp_group)
         op1 = pvtol_env.propagate_operator(state7[:, 6], dyn1[:, 0])
         obs1 = pvtol_env.state_to_obs(torch.cat([dyn1, op1[:, None]], dim=1))
         return obs1, obs1
@@ -53,7 +56,8 @@ def _predict(ncfg, node_params, field, obs, action, dt, env_name, lookahead,
         # a host env whose obs IS the NODE state: predict in obs space,
         # and the CLF reads the predicted obs
         pred = predict_next_state(ncfg, node_params, obs, action, dt,
-                                  field=field, shorts=shorts)
+                                  field=field, shorts=shorts,
+                                  dp_group=dp_group)
         return pred, pred
     raise ValueError(f"learned_barrier: unsupported env {env_name!r}")
 
@@ -61,9 +65,10 @@ def _predict(ncfg, node_params, field, obs, action, dt, env_name, lookahead,
 def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
           lyap_params, obs, action, lyap_t, dt, env_name: str = None,
           barrier_params=None, resample=None, include_clf: bool = True,
-          shorts=None, **_):
+          shorts=None, dp_group=None, **_):
     obs1, clf_in_next = _predict(ncfg, node_params, field, obs, action, dt,
-                                 env_name, ccfg.lookahead, shorts)
+                                 env_name, ccfg.lookahead, shorts,
+                                 dp_group)
     with torch.no_grad():
         b_t = barrier_apply(barrier_params, obs, action)
     u1 = resample(obs1, 0).detach()

@@ -32,7 +32,7 @@ from nlbac_tpu_torch.nn import lyapunov_apply, predict_next_state
 
 
 def _chain(ncfg, node_params, field, state7, action, dt, resample,
-           horizon: int, shorts=None):
+           horizon: int, shorts=None, dp_group=None):
     """Roll the NODE ``horizon`` steps, propagating the operator and
     resampling the controller (detached) at the predicted observations;
     ``resample(obs, k)`` draws the chain's k-th resampled control.
@@ -44,7 +44,7 @@ def _chain(ncfg, node_params, field, state7, action, dt, resample,
     u = action
     for k in range(horizon):
         dyn = predict_next_state(ncfg, node_params, dyn, u, dt, field=field,
-                                 shorts=shorts)
+                                 shorts=shorts, dp_group=dp_group)
         op = env.propagate_operator(op, dyn[:, 0])
         s = torch.cat([dyn, op[:, None]], dim=1)
         states.append(s)
@@ -67,13 +67,14 @@ def _hocbf3(hs, gamma_b):
 
 def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
           lyap_params, obs, action, lyap_t, dt, resample=None,
-          include_clf: bool = True, shorts=None, **_):
+          include_clf: bool = True, shorts=None, dp_group=None, **_):
     if ccfg.horizon != 3:
         raise ValueError(
             f"pvtol HOCBF builder requires horizon=3 (rel-degree-3 "
             f"composition); got {ccfg.horizon}")
     states = _chain(ncfg, node_params, field, env.obs_to_state(obs), action,
-                    dt, resample, horizon=ccfg.horizon, shorts=shorts)
+                    dt, resample, horizon=ccfg.horizon, shorts=shorts,
+                    dp_group=dp_group)
 
     collision_radius = ccfg.collision_buffer * env.HAZARD_RADIUS
     op_margin = ccfg.operator_margin * env.OPERATOR_DIST

@@ -33,14 +33,15 @@ def _h(ps, collision_radius):
 
 def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
           lyap_params, obs, action, lyap_t, gen, dt,
-          include_clf: bool = True, shorts=None, **_):
+          include_clf: bool = True, shorts=None, dp_group=None, **_):
     state = env.obs_to_state(obs)  # (B, 3)
     l_p = ccfg.lookahead
     collision_radius = ccfg.collision_buffer * env.HAZARD_RADIUS
 
     ps = _lookahead(state[:, :2], state[:, 2], l_p)
     pred = predict_next_state(ncfg, node_params, state, action, dt,
-                              field=field, shorts=shorts)  # (B, 3)
+                              field=field, shorts=shorts,
+                              dp_group=dp_group)  # (B, 3)
     ps_next = _lookahead(pred[:, :2], pred[:, 2], l_p)
 
     hs = _h(ps, collision_radius)

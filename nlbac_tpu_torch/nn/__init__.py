@@ -6,6 +6,8 @@ from nlbac_tpu_torch.nn.critics import (  # noqa: F401
     soft_update,
     twin_q_apply,
     twin_q_init,
+    twin_q_stack,
+    twin_q_unstack,
     value_apply,
     value_init,
 )
@@ -24,6 +26,7 @@ from nlbac_tpu_torch.nn.node import (  # noqa: F401
     node_train_step,
     pack_input,
     predict_next_state,
+    uses_euler_kernel,
 )
 from nlbac_tpu_torch.nn.policy import (  # noqa: F401
     ActionSpec,

@@ -1,5 +1,12 @@
 """Critics: twin Q-network, Lyapunov network, barrier network, value
-network and Polyak averaging (port of ``nlbac_tpu/nn/critics.py``)."""
+network and Polyak averaging (port of ``nlbac_tpu/nn/critics.py``).
+
+The twin Q-network has two layouts. The plain one, ``{"q1": mlp, "q2":
+mlp}``, is the reference's. The stacked one (``twin_q_stack``; the
+experimental lever ``experimental.stack_twin_q_state``) holds both nets
+as one leaf per layer with a leading k=2 axis, ``{"w": [(2, in, out)],
+"b": [(2, out)]}``, and ``twin_q_apply`` runs it as one batched product
+per layer."""
 
 from __future__ import annotations
 
@@ -17,8 +24,38 @@ def twin_q_init(gen, obs_dim: int, action_dim: int, hidden: int,
 
 
 def twin_q_apply(params, obs, action):
+    """(q1, q2) of either layout (the module's note)."""
     xu = torch.cat([obs, action], dim=-1)
-    return mlp_apply(params["q1"], xu), mlp_apply(params["q2"], xu)
+    if "q1" in params:
+        return mlp_apply(params["q1"], xu), mlp_apply(params["q2"], xu)
+    ws, bs = params["w"], params["b"]
+    # the first layer shares the (B, in) input across the k=2 axis
+    # without materialising a broadcast copy of it
+    x = torch.einsum("bi,kio->kbo", xu, ws[0]) + bs[0][:, None, :]
+    for w, b in zip(ws[1:], bs[1:]):
+        x = torch.baddbmm(b[:, None, :], torch.relu(x), w)
+    return x[0], x[1]
+
+
+def twin_q_unstack(params):
+    """Stacked -> plain ``{'q1','q2'}`` layout (views of the stacked
+    leaves; the plain layout is returned as it is)."""
+    if "q1" in params:
+        return params
+    return {"q1": {"w": [w[0] for w in params["w"]],
+                   "b": [b[0] for b in params["b"]]},
+            "q2": {"w": [w[1] for w in params["w"]],
+                   "b": [b[1] for b in params["b"]]}}
+
+
+def twin_q_stack(params):
+    """Plain ``{'q1','q2'}`` -> stacked layout (new tensors; the stacked
+    layout is returned as it is)."""
+    if "q1" not in params:
+        return params
+    q1, q2 = params["q1"], params["q2"]
+    return {"w": [torch.stack([w1, w2]) for w1, w2 in zip(q1["w"], q2["w"])],
+            "b": [torch.stack([b1, b2]) for b1, b2 in zip(q1["b"], q2["b"])]}
 
 
 def value_init(gen, obs_dim: int, hidden: int, device=None):

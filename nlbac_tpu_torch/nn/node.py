@@ -6,16 +6,20 @@
 
 The integration state is ``concat(x, u[, t])`` and the field returns zeros
 in the control (and time) slots (zero-order-hold control). For the
-control-affine field under one Euler step, ``predict_next_state`` goes
-through the fused kernel ``ops.node_kernel.node_euler_step``, except
-when the nets are cut across a tensor-parallel group (``--tp``): the
-kernel computes all nine layers from whole weight matrices in one
-launch, so a tp rank's field runs through the plain layers of
-``mlp_apply`` with their collectives between them; under
-``solver='dopri5'`` it runs the adaptive solver on the plain field (the
-``scan`` form differentiated by autograd, the ``while`` form through the
-adjoint) and, given a ``shorts`` list, appends to it on the device
-whether each integration ended short of its span.
+control-affine field under one float32 Euler step (``uses_euler_kernel``),
+``predict_next_state`` goes through the fused kernel
+``ops.node_kernel.node_euler_step``, except when the nets are cut across a
+tensor-parallel group (``--tp``): the kernel computes all nine layers from
+whole weight matrices in one launch, so a tp rank's field runs through
+the plain layers of ``mlp_apply`` with their collectives between them. A
+``compute_dtype='bfloat16'`` field takes one Euler step of the plain field
+in bf16, as the JAX package's runs through XLA (the kernel computes
+float32 only). Under ``solver='dopri5'`` it runs the adaptive solver on
+the plain field (the ``scan`` form differentiated by autograd, the
+``while`` form through the adjoint), with the error norm over the whole
+batch of a data-parallel group (``dp_group``) and, given a ``shorts``
+list, appends to it on the device whether each integration ended short
+of its span.
 """
 
 from __future__ import annotations
@@ -106,16 +110,24 @@ def pack_input(cfg: NodeConfig, x, u, t=None):
     return torch.cat(parts, dim=-1)
 
 
+def uses_euler_kernel(cfg: NodeConfig) -> bool:
+    """Whether ``predict_next_state`` takes the fused Euler kernel (K1)
+    for this config: the control-affine field, one Euler step, float32
+    compute (a tensor-parallel rank's cut nets excepted)."""
+    return (cfg.form == "control_affine" and cfg.solver == "euler"
+            and cfg.solver_steps == 1 and cfg.compute_dtype is None)
+
+
 def predict_next_state(cfg: NodeConfig, params, x, u, dt, t=None,
-                       field=None, shorts=None):
+                       field=None, shorts=None, dp_group=None):
     """Integrate the packed state over [0, dt] and return the predicted next
     physical state (the first ``state_dim`` slots). Under dopri5, when
     ``shorts`` is a list, append to it a 0-d bool device tensor: whether
-    the integration ended short of dt (``max_steps`` ran out)."""
-    if cfg.form == "control_affine" and cfg.solver == "euler" and \
-            cfg.solver_steps == 1 and not tp_sharded(params):
-        return node_euler_step(params, x.contiguous(), u.contiguous(), dt,
-                               compute_dtype=cfg.compute_dtype)
+    the integration ended short of dt (``max_steps`` ran out); with a
+    ``dp_group`` (a ``parallel.mesh.Comm``), x and u are this rank's rows
+    of the group's batch and the error norms span the whole batch."""
+    if uses_euler_kernel(cfg) and not tp_sharded(params):
+        return node_euler_step(params, x.contiguous(), u.contiguous(), dt)
     if field is None:
         field = make_field(cfg)
     s0 = pack_input(cfg, x, u, t)
@@ -123,11 +135,14 @@ def predict_next_state(cfg: NodeConfig, params, x, u, dt, t=None,
         if cfg.adaptive_impl == "scan":
             s1, t_reached = solvers.solve_adaptive(
                 field, params, s0, 0.0, dt, impl="scan",
-                max_steps=cfg.adaptive_scan_steps, return_final_t=True)
+                max_steps=cfg.adaptive_scan_steps, return_final_t=True,
+                reduce=(None if dp_group is None
+                        else solvers.rows_reduce(dp_group)))
         else:
             s1, t_reached = odeint_adjoint(field, params, s0, 0.0, dt,
                                            method="dopri5",
-                                           return_final_t=True)
+                                           return_final_t=True,
+                                           dp_group=dp_group)
         if shorts is not None:
             shorts.append(t_reached < dt)
     else:
@@ -143,11 +158,12 @@ def tp_sharded(params) -> bool:
 
 
 def node_loss(cfg: NodeConfig, params, x, u, x_next, dt, t=None,
-              field=None, shorts=None, mean=torch.mean):
+              field=None, shorts=None, mean=torch.mean, dp_group=None):
     """Mean-squared one-step prediction error (``mean`` takes the squared
     errors to the loss: a data-parallel rank passes its share of the
-    global mean)."""
-    pred = predict_next_state(cfg, params, x, u, dt, t, field, shorts)
+    global mean, and its ``dp_group``)."""
+    pred = predict_next_state(cfg, params, x, u, dt, t, field, shorts,
+                              dp_group)
     return mean(torch.square(pred - x_next))
 
 

@@ -22,7 +22,12 @@ from typing import Callable, Optional
 
 import torch
 
-from nlbac_tpu_torch.tree import tree_leaves, tree_map, tree_unflatten
+from nlbac_tpu_torch.tree import (
+    detach_leaf,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 Field = Callable  # field(params, t, y) -> dy/dt
 
@@ -144,20 +149,46 @@ def _dopri5_step(field: Field, params, t, y, dt):
     return y5, y4
 
 
-def _err_norm(y5, y4, y, rtol, atol):
-    """RMS over every leaf element of the scaled error, floored so that
-    its square root stays differentiable at 0."""
+def local_sq(triples, rtol, atol):
+    """(sum of squares, element count) of the scaled error over the
+    leaves' ``(y5, y4, y)`` triples held here."""
     total = 0
-    for a5, a4, a in zip(tree_leaves(y5), tree_leaves(y4), tree_leaves(y)):
+    for a5, a4, a in triples:
         scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(a5))
         total = total + torch.sum(torch.square((a5 - a4) / scale))
-    n = sum(a.numel() for a in tree_leaves(y))
+    return total, sum(a.numel() for _, _, a in triples)
+
+
+def _err_norm(y5, y4, y, rtol, atol, reduce=None):
+    """RMS over every leaf element of the scaled error, floored so that
+    its square root stays differentiable at 0. ``reduce(triples, rtol,
+    atol) -> (sum of squares, count)`` takes the leaves' ``(y5, y4, y)``
+    triples in place of ``local_sq`` when the state is spread over a gang
+    (``rows_reduce``, and the adjoint's): the sums are then the gang's,
+    and the norm the one a single device computes over the whole state."""
+    triples = list(zip(tree_leaves(y5), tree_leaves(y4), tree_leaves(y)))
+    total, n = (local_sq if reduce is None else reduce)(triples, rtol, atol)
     return torch.sqrt(torch.clamp(total / n, min=1e-24))
 
 
-def _trial(field, params, t, y, dt, rtol, atol):
+def rows_reduce(comm):
+    """The ``reduce`` of a state whose rows are split over ``comm`` (a
+    data-parallel group, ``parallel.mesh.Comm``): the local sum of squares
+    and count summed over the group in one all-reduce, whose gradient is
+    summed too (every rank's loss reads the norm through the step sizes).
+    Every rank then holds the same norm, so the accept decisions, the
+    trial counts and the collectives match across the group."""
+    def reduce(triples, rtol, atol):
+        total, n = local_sq(triples, rtol, atol)
+        both = comm.psum(torch.stack([total, total.new_tensor(float(n))]))
+        return both[0], both[1]
+
+    return reduce
+
+
+def _trial(field, params, t, y, dt, rtol, atol, reduce=None):
     y5, y4 = _dopri5_step(field, params, t, y, dt)
-    return y5, _err_norm(y5, y4, y, rtol, atol)
+    return y5, _err_norm(y5, y4, y, rtol, atol, reduce)
 
 
 class _GuardedTrial(torch.autograd.Function):
@@ -174,7 +205,7 @@ class _GuardedTrial(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, run, *inputs):
-        inner = [x.detach().requires_grad_(x.requires_grad) for x in inputs]
+        inner = [detach_leaf(x, x.requires_grad) for x in inputs]
         with torch.enable_grad():
             y5, err = run(*inner)
         outs = tree_leaves(y5) + [err]
@@ -200,7 +231,7 @@ class _GuardedTrial(torch.autograd.Function):
         return (None, *result)
 
 
-def _guarded_trial(field, params, t, y, dt, rtol, atol):
+def _guarded_trial(field, params, t, y, dt, rtol, atol, reduce=None):
     """``_trial``, through ``_GuardedTrial`` when a gradient is taken."""
     y_leaves = tree_leaves(y)
     all_p = tree_leaves(params)
@@ -209,7 +240,7 @@ def _guarded_trial(field, params, t, y, dt, rtol, atol):
     inputs = [t, dt, *y_leaves, *(all_p[i] for i in slots)]
     if not (torch.is_grad_enabled()
             and any(x.requires_grad for x in inputs)):
-        return _trial(field, params, t, y, dt, rtol, atol)
+        return _trial(field, params, t, y, dt, rtol, atol, reduce)
     n_y = len(y_leaves)
 
     def run(t_, dt_, *rest):
@@ -217,7 +248,7 @@ def _guarded_trial(field, params, t, y, dt, rtol, atol):
         for i, p in zip(slots, rest[n_y:]):
             p_leaves[i] = p
         return _trial(field, tree_unflatten(params, p_leaves), t_,
-                      tree_unflatten(y, rest[:n_y]), dt_, rtol, atol)
+                      tree_unflatten(y, rest[:n_y]), dt_, rtol, atol, reduce)
 
     outs = _GuardedTrial.apply(run, *inputs)
     return tree_unflatten(y, outs[:n_y]), outs[n_y]
@@ -227,7 +258,8 @@ def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
                    atol: float = 1e-7, max_steps: int = 512,
                    safety: float = 0.9, min_factor: float = 0.2,
                    max_factor: float = 10.0, return_final_t: bool = False,
-                   impl: str = "while", trace: Optional[list] = None):
+                   impl: str = "while", trace: Optional[list] = None,
+                   reduce: Optional[Callable] = None):
     """Adaptive dopri5 with a PI step-size controller, as the JAX package
     computes it: first trial step 0.1 * |t1 - t0|, each step cut to the
     span left, the factor ``0.9 * err^(-0.7/5) * err_prev^(0.4/5)``
@@ -252,7 +284,14 @@ def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
 
     ``return_final_t=True`` returns ``(y, t_reached)``; a ``t_reached``
     short of ``t1`` means ``max_steps`` ran out. ``trace``, a list, gets
-    one ``(err, accepted, active)`` triple of 0-d tensors per trial."""
+    one ``(err, accepted, active)`` triple of 0-d tensors per trial.
+
+    ``reduce`` spreads the error norm over a gang (``_err_norm``): with
+    the rows of ``y0`` split over a data-parallel group, ``rows_reduce``
+    of that group gives every rank the whole batch's norm, as JAX's
+    single-device math does. A state that every rank holds whole (a
+    tensor-parallel rank's rows) takes none: its norm is the same on
+    every rank already."""
     if impl not in ("while", "scan"):
         raise ValueError(f"unknown adaptive impl {impl!r}")
     dev = _device(y0)
@@ -267,7 +306,8 @@ def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
 
     def body(t, y, dt, err_prev):
         dt = torch.minimum(dt, span - t)
-        y5, err = _guarded_trial(sigma_field, params, t, y, dt, rtol, atol)
+        y5, err = _guarded_trial(sigma_field, params, t, y, dt, rtol, atol,
+                                 reduce)
         accept = err <= 1.0
         err_c = torch.clamp(err, min=1e-10)
         # a NaN error (a trial that overflowed, or one after it) leaves

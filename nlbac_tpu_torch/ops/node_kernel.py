@@ -129,7 +129,9 @@ def _bind(lib):
     return lib
 
 
-def _load():
+def load():
+    """The kernel's library, built at first use (``build``) and loaded
+    once per process; raises when it cannot be built or loaded."""
     global _lib
     if _lib is None:
         with _load_lock:
@@ -212,7 +214,7 @@ class LaunchArgs:
 
     def plan(self):
         if self._plan is None:
-            lib = _load()
+            lib = load()
             plan = ctypes.create_string_buffer(
                 lib.nlbac_node_euler_plan_bytes())
             err = lib.nlbac_node_euler_plan(plan, self.n_s, self.n_u,
@@ -274,7 +276,7 @@ def _launch(args: LaunchArgs, x: torch.Tensor, u: torch.Tensor, dt: float,
     """Run the CUDA kernel on inputs that ``launch_args`` checked, with the
     tiles of ``config`` (an index into TILE_CONFIGS; by default
     ``tile_config``)."""
-    lib, plan = _load(), args.plan()
+    lib, plan = load(), args.plan()
     out = torch.empty_like(x)
     rows = x.shape[0]
     if config is None:

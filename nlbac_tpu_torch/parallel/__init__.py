@@ -1,7 +1,8 @@
 """Seed-, data- and tensor-parallel training (port of
 ``nlbac_tpu/parallel``): one process per rank, the collectives written
 out (``mesh``), Megatron layouts (``tp``), the dp/tp runners
-(``runners``), the seed runner (``seeds``) and the local gang launcher
+(``runners``; every NODE solver, dopri5 included, whose error norms span
+the gang), the seed runner (``seeds``) and the local gang launcher
 (``launch``). The lockstep ``vmap`` seed runner
 (``make_seed_parallel_runner``) is not ported (ROADMAP.md)."""
 

@@ -11,13 +11,15 @@ the collectives are written out:
 - ``init_distributed`` joins a gang at ``tcp://<coordinator>``: NCCL when
   every rank owns its own GPU, gloo on the CPU or when the caller asks
   for it (ranks that share one card); NCCL on a shared card is refused;
-- ``Comm`` holds one group's collectives and the three autograd operators
+- ``Comm`` holds one group's collectives and the four autograd operators
   the update needs: ``sum_fwd`` (the sum over the group forward, the
   identity backward: Megatron's g, and the data-parallel constraint
   means), ``sum_bwd`` (the identity forward, the sum backward: Megatron's
-  f) and ``gather`` (the columns of every rank side by side, written as a
-  sum of zero-filled full buffers so that gloo, which takes only
-  ``broadcast`` and ``all_reduce`` on CUDA tensors, runs it too).
+  f), ``psum`` (the sum both ways: the adaptive solver's error norm over
+  a data-parallel batch) and ``gather`` (the columns of every rank side
+  by side, written as a sum of zero-filled full buffers so that gloo,
+  which takes only ``broadcast`` and ``all_reduce`` on CUDA tensors, runs
+  it too).
 """
 
 from __future__ import annotations
@@ -77,6 +79,12 @@ class Comm:
         """``x`` itself; its gradient is summed over the group."""
         return _SumBackward.apply(x, self) if self.size > 1 else x
 
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The group's sum of ``x``, and of its gradient (a sum whose
+        result every rank's loss reads: the adaptive solver's error norm
+        over a data-parallel batch)."""
+        return _SumBoth.apply(x, self) if self.size > 1 else x
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The last dimension of every rank's ``x``, side by side in rank
         order; the gradient keeps this rank's columns (what follows is
@@ -99,6 +107,17 @@ class _SumBackward(torch.autograd.Function):
     def forward(ctx, x, comm):
         ctx.comm = comm
         return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.all_reduce(grad.clone()), None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm.all_reduce(x.clone())
 
     @staticmethod
     def backward(ctx, grad):

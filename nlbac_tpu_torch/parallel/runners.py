@@ -8,6 +8,9 @@
   this rank's shards of it) and ``run_fn`` has the plain episode
   runner's signature. Every rank steps the same env with the same
   actions; the update splits the batch over dp and the networks over tp.
+  Under ``--node_solver dopri5`` the adaptive solves' error norms span the
+  gang (``ode.solvers.rows_reduce``, ``ode.adjoint``), so every rank takes
+  the steps one device takes over the whole batch.
 - ``make_dp_update``: ``(place, dp_update)``, the data-parallel
   ``update_from_batch``.
 """
@@ -42,23 +45,13 @@ def _validate_batches_divisible(cfg: NLBACConfig, dp: int) -> None:
 
 def _validate_tp(cfg: NLBACConfig, tp: int) -> None:
     """A tp width that divides no hidden dim would leave every layer whole
-    (N ranks of redundant work); the NODE's adaptive solver is not split
-    (``train.cli`` refuses it with --dp/--tp)."""
+    (N ranks of redundant work)."""
     if cfg.sac.hidden_dim % tp != 0:
         raise ValueError(
             f"--tp {tp} requires cfg.sac.hidden_dim "
             f"({cfg.sac.hidden_dim}) to be divisible by the tp width — "
             f"otherwise no layer shards and the run is fully-replicated "
             f"redundant work")
-
-
-def _validate_solver(cfg: NLBACConfig) -> None:
-    if cfg.node.solver == "dopri5":
-        raise ValueError(
-            "--dp/--tp run the fixed-step NODE solvers only: dopri5's "
-            "adaptive step reads an error norm over the whole batch and "
-            "the parameters, which a gang would have to sum over its "
-            "ranks (not ported; ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +151,6 @@ def make_dp_episode_runner(cfg: NLBACConfig, n_devices: int,
     on every rank. ``cfg.sac.batch_size`` and ``cfg.node.max_batch`` must
     divide by ``n_devices``. Returns ``(place, run_fn)``."""
     _validate_batches_divisible(cfg, n_devices)
-    _validate_solver(cfg)
     grid = grid if grid is not None else make_mesh((n_devices, 1))
     if grid.dp != n_devices or grid.tp != 1:
         raise ValueError(f"grid {grid.shape} is not a dp={n_devices} grid")
@@ -180,7 +172,6 @@ def make_tp_episode_runner(cfg: NLBACConfig, tp: int, dp: int = 1,
     if dp > 1:
         _validate_batches_divisible(cfg, dp)
     _validate_tp(cfg, tp)
-    _validate_solver(cfg)
     grid = grid if grid is not None else make_mesh((dp, tp))
     if grid.dp != dp or grid.tp != tp:
         raise ValueError(f"grid {grid.shape} is not a dp={dp} x tp={tp} "

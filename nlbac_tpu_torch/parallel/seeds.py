@@ -34,12 +34,9 @@ from nlbac_tpu_torch.interop import TARGETS, TRAINED
 from nlbac_tpu_torch.ops import node_kernel
 from nlbac_tpu_torch.parallel.runners import make_parallel_runner
 from nlbac_tpu_torch.parallel.tp import gather_state_tp
+from nlbac_tpu_torch.train.aot import cached_episode_runner
 from nlbac_tpu_torch.train.checkpoint import save_model_weights
-from nlbac_tpu_torch.train.driver import (
-    create_replays,
-    episode_to_host,
-    make_episode_runner,
-)
+from nlbac_tpu_torch.train.driver import create_replays, episode_to_host
 from nlbac_tpu_torch.tree import tree_leaves
 
 
@@ -122,8 +119,9 @@ def _serve(conn, cfg, device: str, seeds, threads: int) -> None:
         dev = torch.device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        run = make_episode_runner(cfg, dev)
         states = {i: _new_seed(cfg, seed, dev) for i, seed in seeds}
+        ts, rl, node, gen, total = next(iter(states.values()))
+        run = cached_episode_runner(cfg, (ts, rl, node, gen, 0, total))
         conn.send(("ok", None))
     except Exception:  # the worker's boundary: the parent raises it
         conn.send(("error", traceback.format_exc()))

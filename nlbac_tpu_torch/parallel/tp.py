@@ -39,6 +39,12 @@ def _tp_param_specs(params, ntp: int, tp_axis: str = TP_AXIS):
     w_specs, b_specs = [], []
     want_col = True
     for w in params["w"]:
+        if w.dim() != 2:
+            raise ValueError(
+                f"tensor parallelism cuts 2-d (in, out) weights, not a "
+                f"{w.dim()}-d one: a stacked twin-Q critic "
+                "(experimental.stack_twin_q_state) has no tp layout, as "
+                "in the JAX package; use the plain layout")
         din, dout = w.shape
         if want_col and dout % ntp == 0:
             w_specs.append((None, tp_axis))

@@ -110,6 +110,14 @@ def push_row(replay: Replay, row: torch.Tensor) -> Replay:
     return replay
 
 
+def sample_indices(replay: Replay, gen: Optional[torch.Generator],
+                   n: int) -> torch.Tensor:
+    """``n`` uniform indices, with replacement, into the valid range
+    [0, size), drawn from ``gen`` on the replay's device."""
+    return torch.randint(0, max(replay.size, 1), (n,), generator=gen,
+                         device=replay.data.device)
+
+
 def sample(replay: Replay, gen: Optional[torch.Generator],
            batch_size: int, rows: Optional[slice] = None) -> dict:
     """Uniform sample of ``batch_size`` records, with replacement, from the
@@ -117,8 +125,7 @@ def sample(replay: Replay, gen: Optional[torch.Generator],
     sample (a data-parallel rank's share): all ``batch_size`` indices are
     drawn all the same, so the generator's stream is the same on every
     rank and in a run of one."""
-    idx = torch.randint(0, max(replay.size, 1), (batch_size,), generator=gen,
-                        device=replay.data.device)
+    idx = sample_indices(replay, gen, batch_size)
     if rows is not None:
         idx = idx[rows]
     return unpack_rows(replay.layout, replay.data[idx])

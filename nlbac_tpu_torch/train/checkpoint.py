@@ -2,7 +2,8 @@
 
 - ``save_model_weights`` / ``load_model_weights``: the reference's
   weights-only file layout (``actor.pkl``, ``critic.pkl`` as
-  ``{'q1','q2'}``, ``lyapunov.pkl``, ``node_model.pkl``, and
+  ``{'q1','q2'}`` whatever the state's twin-Q layout, ``lyapunov.pkl``,
+  ``node_model.pkl``, and
   ``barrier.pkl`` for the learned-barrier family), each a pickle of
   numpy arrays in the JAX package's ``(in, out)`` layout, written
   atomically. The JAX package's ``load_model_weights`` and ``nlbac-eval``
@@ -14,8 +15,9 @@
   their host-side cursors and counts (the valid rows only), the
   ``torch.Generator`` state, ``total_steps`` and ``i_episode``. Restore
   writes into a state, replays and generator built from the config, and
-  checks every array against them first, so a resumed run continues
-  bit for bit.
+  checks every array against them first (and the twin-Q layout, which
+  the archive's ``extra`` records), so a resumed run continues bit for
+  bit.
 - ``host_checkpoint_arrays`` / ``restore_host_checkpoint``: the same for
   the host loop (``train/host_loop.py``), with the native RL ring's
   snapshot (its valid rows, cursor and sampler state) in place of the
@@ -43,6 +45,7 @@ import torch
 from nlbac_tpu_torch.agent.state import OPT_GROUPS, TrainState
 from nlbac_tpu_torch.constraints.common import LagrangianState
 from nlbac_tpu_torch.interop import TARGETS, TRAINED, to_numpy
+from nlbac_tpu_torch.nn import twin_q_unstack
 from nlbac_tpu_torch.replay import Replay
 from nlbac_tpu_torch.tree import tree_leaves
 
@@ -68,6 +71,14 @@ def _weight_files(include_barrier: bool) -> dict:
     return WEIGHT_FILES
 
 
+def _weights(ts: TrainState, field: str):
+    """A weight file's tree: the critic always in the reference's
+    ``{'q1','q2'}`` layout (views of a stacked critic's leaves, see
+    ``nlbac_tpu_torch.experimental.stack_twin_q_state``)."""
+    tree = getattr(ts, field)
+    return twin_q_unstack(tree) if field == "critic" else tree
+
+
 def save_model_weights(output_dir: str, ts: TrainState,
                        include_barrier: bool = False) -> None:
     """Weights-only files in the reference's layout; ``barrier.pkl`` too
@@ -75,7 +86,7 @@ def save_model_weights(output_dir: str, ts: TrainState,
     os.makedirs(output_dir, exist_ok=True)
     for name, field in _weight_files(include_barrier).items():
         _write_atomic(os.path.join(output_dir, name),
-                      pickle.dumps(to_numpy(getattr(ts, field))))
+                      pickle.dumps(to_numpy(_weights(ts, field))))
 
 
 def _copy_leaves(what: str, dst, src) -> None:
@@ -104,7 +115,7 @@ def load_model_weights(output_dir: str, ts: TrainState,
             continue
         with open(path, "rb") as f:
             tree = pickle.load(f)
-        _copy_leaves(name, tree_leaves(getattr(ts, field)),
+        _copy_leaves(name, tree_leaves(_weights(ts, field)),
                      tree_leaves(tree))
     return ts
 
@@ -140,6 +151,7 @@ def _replay_arrays(name: str, rep: Replay) -> Dict[str, np.ndarray]:
 
 def _tail_arrays(ts: TrainState, gen: torch.Generator, total_steps: int,
                  i_episode: int, extra: dict) -> Dict[str, np.ndarray]:
+    extra = {**extra, "twin_q": _twin_q_layout(ts)}
     return {"gen": gen.get_state().numpy(),
             "counters": np.array([ts.updates, total_steps, i_episode],
                                  np.int64),
@@ -157,6 +169,10 @@ def checkpoint_arrays(ts: TrainState, rl_replay: Replay, node_replay: Replay,
     arrays.update(_tail_arrays(ts, gen, total_steps, i_episode,
                                {"mode": "fused"}))
     return arrays
+
+
+def _twin_q_layout(ts: TrainState) -> str:
+    return "plain" if "q1" in ts.critic else "stacked"
 
 
 def write_checkpoint(path: str, arrays: Dict[str, np.ndarray]) -> None:
@@ -226,6 +242,13 @@ def _mode(z, path: str) -> str:
 
 
 def _restore_state(z, ts: TrainState) -> None:
+    # an archive written before the layout was recorded holds the plain one
+    saved = json.loads(bytes(z["extra"]).decode()).get("twin_q", "plain")
+    if saved != _twin_q_layout(ts):
+        raise ValueError(
+            f"the checkpoint holds the {saved} twin-Q layout and the state "
+            f"the {_twin_q_layout(ts)} one (restore a stacked checkpoint "
+            "into a state made by experimental.stack_twin_q_state)")
     for field in TRAINED + TARGETS:
         leaves = tree_leaves(getattr(ts, field))
         _copy_leaves(f"checkpoint ts.{field}", leaves,

@@ -66,6 +66,7 @@ from nlbac_tpu_torch.parallel import (
     make_parallel_runner,
     run_gang,
 )
+from nlbac_tpu_torch.train.aot import cached_episode_runner
 from nlbac_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     checkpoint_arrays,
@@ -76,7 +77,6 @@ from nlbac_tpu_torch.train.driver import (
     build_step_kwargs,
     create_replays,
     episode_to_host,
-    make_episode_runner,
 )
 from nlbac_tpu_torch.train.host_loop import train_host_env
 from nlbac_tpu_torch.train.logging import (
@@ -336,7 +336,7 @@ def check_gang_args(args) -> None:
 def check_gang_config(args, cfg: NLBACConfig) -> None:
     """The JAX CLI's checks of the parallel flags against the config, in
     its order and with its messages, then the port's own (one rank per
-    process; no dopri5 in a gang), all before any run directory."""
+    process), all before any run directory."""
     ranks = args.dp * args.tp
     if args.num_processes > 1:
         if ranks != args.num_processes:
@@ -361,11 +361,6 @@ def check_gang_config(args, cfg: NLBACConfig) -> None:
             f"--dp {args.dp} requires batch_size "
             f"({cfg.sac.batch_size}) and the NODE max_batch "
             f"({cfg.node.max_batch}) to be divisible by the dp width")
-    if ranks > 1 and cfg.node.solver == "dopri5":
-        raise SystemExit(
-            "--dp/--tp run the fixed-step NODE solvers only: dopri5's "
-            "adaptive step reads an error norm over the whole batch and "
-            "the parameters (not ported; ROADMAP.md)")
     if args.n_seeds > 1:
         for flag in ("resume", "checkpoint", "profile_dir"):
             if getattr(args, flag, None):
@@ -546,7 +541,9 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
             ts, rl_replay, node_replay, gen, total_steps = place(
                 (ts, rl_replay, node_replay, gen, total_steps))
         else:
-            run_episode = make_episode_runner(cfg, device)
+            run_episode = cached_episode_runner(
+                cfg, (ts, rl_replay, node_replay, gen, start_episode,
+                      total_steps))
 
     def whole():
         """The state as a run of one holds it (a collective under tp)."""

@@ -106,13 +106,29 @@ def curriculum_kwargs(cfg: NLBACConfig, env) -> dict | None:
             "mix_alpha_min": cfg.env.spawn_mix_alpha_min}
 
 
+class UpdateCarry(NamedTuple):
+    """What an ``_update_step`` hook sees at an env step's update block:
+    the state, both replays and the last update's metrics."""
+
+    ts: TrainState
+    rl_replay: replay_lib.Replay
+    node_replay: replay_lib.Replay
+    train: Dict[str, torch.Tensor]
+
+
 def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None,
-                        env_override=None):
+                        env_override=None, _update_step=None):
     """Build ``run_episode(ts, rl_replay, node_replay, gen, i_episode,
     total_steps) -> (ts, rl_replay, node_replay, EpisodeMetrics,
     total_steps)``. State, replays and ``gen`` live on ``device``.
     ``env_override`` runs an env that is not in the registry (any object
-    with the ``envs/base.py`` contract) in place of ``cfg.env.name``'s."""
+    with the ``envs/base.py`` contract) in place of ``cfg.env.name``'s.
+
+    ``_update_step(agent, carry, gen, i_episode) -> (ts, train_metrics)``
+    replaces an env step's block of ``updates_per_step`` sequential
+    ``agent.update`` calls (experimental variants and measurements only,
+    see ``nlbac_tpu_torch.experimental``); ``carry`` is an ``UpdateCarry``,
+    and the metrics' ``short_integrations`` count the whole block's."""
     device = resolve_device(device)
     env = env_override if env_override is not None else \
         get_env(cfg.env.name)
@@ -156,9 +172,16 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None,
         while not done:
             # --- 1. gradient updates ------------------------------------
             if rl_replay.size > scfg.batch_size:
-                for _ in range(scfg.updates_per_step):
-                    ts, train_m = agent.update(ts, rl_replay, node_replay,
-                                               gen, i_episode)
+                if _update_step is None:
+                    for _ in range(scfg.updates_per_step):
+                        ts, train_m = agent.update(ts, rl_replay,
+                                                   node_replay, gen,
+                                                   i_episode)
+                        shorts = shorts + train_m["short_integrations"]
+                else:
+                    ts, train_m = _update_step(
+                        agent, UpdateCarry(ts, rl_replay, node_replay,
+                                           train_m), gen, i_episode)
                     shorts = shorts + train_m["short_integrations"]
                 updates_done += scfg.updates_per_step
 

@@ -28,17 +28,34 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def _keep_mark(q, p):
+    """``q`` with ``p``'s tensor-parallel mark (``nn.mlp.TPShard``)."""
+    shard = getattr(p, "tp_shard", None)
+    if shard is not None:
+        q.tp_shard = shard
+    return q
+
+
+def detach_leaf(p, requires_grad: bool = False):
+    """``p`` without its graph (a new leaf that tracks gradients when
+    ``requires_grad``), keeping its tensor-parallel mark."""
+    q = p.detach()
+    if requires_grad:
+        q.requires_grad_(True)
+    return _keep_mark(q, p)
+
+
 def detach(tree):
     """The same parameters without gradient tracking (a stop-gradient),
-    each keeping its tensor-parallel mark (``nn.mlp.TPShard``)."""
-    def stop(p):
-        q = p.detach()
-        shard = getattr(p, "tp_shard", None)
-        if shard is not None:
-            q.tp_shard = shard
-        return q
+    each keeping its tensor-parallel mark."""
+    return tree_map(detach_leaf, tree)
 
-    return tree_map(stop, tree)
+
+def snapshot(tree):
+    """A detached copy of every leaf, each keeping its tensor-parallel
+    mark: a stop-gradient that in-place steps of the parameters leave as
+    it was."""
+    return tree_map(lambda p: _keep_mark(p.detach().clone(), p), tree)
 
 
 def tree_unflatten(tree, leaves):

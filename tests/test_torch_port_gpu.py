@@ -279,6 +279,62 @@ def test_nbc_unicycle_update_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.gpu
+def test_bfloat16_unicycle_update_on_the_card_matches_the_cpu():
+    """One full-width unicycle update with ``compute_dtype='bfloat16'``
+    (the 32768-row fit and both rollouts through the plain bf16 field; K1
+    computes float32 only and is not launched) on the card against the
+    same update on the CPU, within rtol 2e-2 / atol 1e-6 (the atol for the
+    metrics that are 0): bf16 keeps 8 significant bits, so each rounding
+    of a layer's output is up to 2e-3 of it, the card's tensor cores and
+    the CPU round different partial sums, and the constraint term divides
+    the prediction's rounding by dt = 0.02."""
+    _require_gpu()
+    from nlbac_tpu_torch.agent import create_train_state, make_agent
+    from nlbac_tpu_torch.envs import unicycle
+
+    cfg = get_config("unicycle")
+    cfg = dataclasses.replace(cfg, node=dataclasses.replace(
+        cfg.node, compute_dtype="bfloat16"))
+    gen = torch.Generator().manual_seed(0)
+    ts_cpu = create_train_state(cfg, gen, "cpu")
+    ts_dev = _to_device(ts_cpu, cfg, "cuda")
+
+    def batch(n):
+        states = torch.rand(n, 3, generator=gen) * 6 - 3
+        action = (torch.rand(n, 2, generator=gen) * 2 - 1) * \
+            torch.tensor([3.5, 12.0])
+        return {"obs": unicycle.state_to_obs(states), "action": action,
+                "reward": torch.randn(n, generator=gen),
+                "constraint": torch.rand(n, generator=gen),
+                "lyap_t": torch.randn(n, 2, generator=gen),
+                "lyap_t1": torch.randn(n, 2, generator=gen),
+                "barrier_signal": torch.zeros(n),
+                "next_obs": unicycle.state_to_obs(states + 0.02),
+                "mask": (torch.rand(n, generator=gen) > 0.1).float(),
+                "t": torch.zeros(n), "next_t": torch.full((n,), 0.02)}
+
+    b, nb = batch(cfg.sac.batch_size), batch(cfg.node.max_batch)
+    noise = {k: torch.randn(cfg.sac.batch_size, 2, generator=gen)
+             for k in ("next", "pi", "backup")}
+
+    def run(ts, device):
+        moved = {k: {n: v.to(device) for n, v in d.items()}
+                 for k, d in (("b", b), ("nb", nb))}
+        _, m = make_agent(cfg, device).update_core(
+            ts, moved["b"], lambda: moved["nb"], None, 0,
+            noise={k: v.to(device) for k, v in noise.items()})
+        return {k: v.item() for k, v in m.items()}
+
+    before = nk.launch_counts["node_euler"]
+    m_dev = run(ts_dev, "cuda")
+    assert nk.launch_counts["node_euler"] == before
+    m_cpu = run(ts_cpu, "cpu")
+    assert m_cpu["node_loss"] > 0 and m_cpu["constraint_loss"] != 0
+    for k, v in m_cpu.items():
+        assert abs(m_dev[k] - v) <= 1e-6 + 2e-2 * abs(v), (k, m_dev[k], v)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("preset", ["unicycle", "cars", "pvtol",
                                     "nbc_unicycle", "nbc_pvtol",
                                     "quadrotor"])

@@ -205,3 +205,42 @@ def test_normalized_mlp_field():
     bad = dataclasses.replace(cfg_t, form="control_affine")
     with pytest.raises(ValueError, match="normalize"):
         tnn.make_field(bad)
+
+
+def test_bfloat16_node_takes_the_plain_field(monkeypatch):
+    """A ``compute_dtype='bfloat16'`` control-affine NODE steps through the
+    plain bf16 field, as the JAX package's does through XLA: its
+    ``predict_next_state`` never calls ``node_euler_step`` (the kernel
+    computes float32 only), where the float32 config does. Against JAX's
+    bf16 prediction: atol 1e-5 (the two libraries round the same bf16
+    products; here they agree bit for bit), a tenth of the gap to the
+    float32 prediction (1.3e-4 here), which the test also checks."""
+    from nlbac_tpu.nn.node import predict_next_state as j_predict
+    from nlbac_tpu_torch.nn import node as tnode
+
+    kw = dict(state_dim=3, action_dim=2, hidden_dim=12, f_hidden_layers=2,
+              g_hidden_layers=2, compute_dtype="bfloat16")
+    cfg_j, cfg_t = JNodeConfig(**kw), TNodeConfig(**kw)
+    rng = np.random.default_rng(7)
+    x, u = rand(rng, 16, 3), rand(rng, 16, 2)
+    params = jnn.node_init(jax.random.PRNGKey(3), cfg_j)
+    calls = []
+    kernel = tnode.node_euler_step
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("compute_dtype"))
+        return kernel(*args, **kwargs)
+
+    monkeypatch.setattr(tnode, "node_euler_step", counted)
+    tp = to_torch(params, requires_grad=True)
+    pred = tnode.predict_next_state(cfg_t, tp, torch.tensor(x),
+                                    torch.tensor(u), 0.02)
+    assert calls == []
+    close(j_predict(cfg_j, params, x, u, 0.02), pred, rtol=0, atol=1e-5)
+    grads = torch.autograd.grad(pred.sum(), tree_leaves(tp))
+    assert all(torch.isfinite(g).all() for g in grads)
+    f32 = dataclasses.replace(cfg_t, compute_dtype=None)
+    pred32 = tnode.predict_next_state(f32, tp, torch.tensor(x),
+                                      torch.tensor(u), 0.02)
+    assert calls == [None]
+    assert float((pred32 - pred).detach().abs().max()) > 1e-4

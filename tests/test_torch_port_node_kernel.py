@@ -209,7 +209,7 @@ def test_bookkeeping_holds_under_threads(monkeypatch):
         assert not any(t.is_alive() for t in threads)
         return out
 
-    libs = in_threads(8, lambda i, b: nk._load())
+    libs = in_threads(8, lambda i, b: nk.load())
     assert len(loads) == 1 and all(lib is libs[0] for lib in libs)
 
     nk.reset_launch_counts()

@@ -7,10 +7,22 @@ gloo gangs of 2 ranks spawned with a time limit each (``run_gang``):
   ``test_torch_port_gates.py`` and its single-update tolerances, the
   multiplier ascent on from the first update so that the constraint term
   (whose means the ranks sum inside the forward pass) is active;
-- 3 episodes of dp=2 and of tp=2 training against the port's own run of
+- under ``--node_solver dopri5``, both forms: the dp=2
+  ``update_from_batch`` against JAX's ``make_dp_update`` (metrics rtol
+  1e-5 / atol 1e-6, the state rtol 1e-4 / atol 1e-6, the NODE's Adam
+  moments within ``NODE_GRAD_FRAC`` of each leaf's largest entry: the
+  larger of the gates' and ``test_torch_port_ode.py``'s tolerances), the
+  ranks bit-equal with the same count of trial steps; the solver's
+  reductions over two ranks' row halves against one rank's (the error
+  norm rtol 1e-6, the scan form's trial errors rtol 1e-5, the adjoint's
+  gradients summed over the ranks rtol 1e-4 / atol 1e-7, so counted
+  once); and ``--dp 2``/``--tp 2`` with dopri5 through the CLI;
+- 3 episodes of dp=2 and of tp=2 training (2 episodes of dp=2 ``while``
+  and of tp=2 under both dopri5 forms) against the port's own run of
   one rank, at ``tests/test_parallel.py``'s tolerances (reward rtol 2e-4
   / atol 1e-4, the state atol 5e-4 / rtol 2e-3), the ranks' states
-  bit-equal to each other, tp's weight files those of a run of one;
+  bit-equal to each other after the same count of trial steps, tp's
+  weight files those of a run of one;
 - the tp layouts against the JAX package's ``_tp_param_specs`` and
   ``shard_state_tp``, and a wide state's shards under half its bytes;
 - the async seed runner: each seed bit-equal to its standalone run,
@@ -47,12 +59,16 @@ from nlbac_tpu_torch import parallel
 from nlbac_tpu_torch.agent import create_train_state, make_agent
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.interop import from_reference
+from nlbac_tpu_torch.nn import make_field, node_init
+from nlbac_tpu_torch.ode import odeint_adjoint
+from nlbac_tpu_torch.ode import solvers as tsolvers
 from nlbac_tpu_torch.parallel import seeds as seeds_lib
 from nlbac_tpu_torch.parallel.tp import _tp_param_specs
 from nlbac_tpu_torch.train import cli
 from nlbac_tpu_torch.train.driver import create_replays, make_episode_runner
-from nlbac_tpu_torch.tree import tree_leaves
+from nlbac_tpu_torch.tree import tree_leaves, tree_unflatten
 from test_torch_port_gates import TOL, batches, gated_cfg, out_of_band_key
+from test_torch_port_ode import NODE_GRAD_FRAC, close_scaled
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GANG_TIMEOUT = 240  # seconds, for each gang of this file
@@ -118,51 +134,71 @@ def assert_states_close(got, want, rtol, atol):
                                        err_msg=key)
 
 
+def jax_dp_case(name, preset, cfg_j, cfg_t):
+    """Two updates of JAX's ``make_dp_update`` on a (1, 2) CPU mesh from
+    a fresh state: the case the gang's ``workers.dp_updates`` replays
+    (the initial arrays, and each update's whole batches and draws) and
+    what JAX reached (the state as port arrays, each update's metrics)."""
+    n_u = cfg_j.action_dim
+    place, dp_update = j_make_dp_update(cfg_j, j_make_mesh((1, 2)))
+    ts_j = j_create_train_state(cfg_j, jax.random.PRNGKey(0))
+    init = parallel.state_arrays(
+        from_reference(jax.tree.map(np.asarray, ts_j), cfg_t, "cpu"))
+    # a port run of one rank alongside picks each update's draws
+    port = from_reference(jax.tree.map(np.asarray, ts_j), cfg_t, "cpu")
+    agent = make_agent(cfg_t, "cpu")
+    rng = np.random.default_rng(1)
+    updates, metrics = [], []
+    for k in range(2):
+        batch, node_batch = batches(preset, rng)
+        tb = {n: torch.tensor(v) for n, v in batch.items()}
+        tnb = {n: torch.tensor(v) for n, v in node_batch.items()}
+        key, noise = out_of_band_key(port, tb, preset, k, n_u)
+        port, _ = agent.update_core(port, tb, lambda: tnb, None, 0,
+                                    noise=noise)
+        ts_p, b_p, nb_p, k_p = place(ts_j, batch, node_batch, key)
+        ts_j, m_j = dp_update(ts_p, b_p, nb_p, k_p, jnp.int32(0))
+        metrics.append({n: float(m_j[n]) for n in METRIC_NAMES})
+        updates.append((tb, tnb, noise, 0))
+    want = parallel.state_arrays(from_reference(
+        jax.tree.map(np.asarray, ts_j), cfg_t, "cpu"))
+    return ({"name": name, "cfg": cfg_t, "init": init, "updates": updates},
+            (want, metrics))
+
+
+def run_dp_cases(cases, tmp_path):
+    """``workers.dp_updates`` over a gang of 2 ranks: rank 0's results,
+    after checking that rank 1's states, metrics and trial counts equal
+    them."""
+    inputs = tmp_path / "inputs.pkl"
+    inputs.write_bytes(pickle.dumps(cases))
+    parallel.run_gang(workers.dp_updates, 2, (str(inputs), str(tmp_path)),
+                      timeout=GANG_TIMEOUT)
+    r0, r1 = load_ranks(tmp_path, 2)
+    for case in cases:
+        got, other = r0[case["name"]], r1[case["name"]]
+        assert_states_equal(got["state"], other["state"])
+        assert got["metrics"] == other["metrics"]
+        assert got["trials"] == other["trials"]
+    return r0
+
+
 def test_dp_update_matches_jax_make_dp_update(tmp_path):
     """Two dp=2 updates per preset: the first with the NODE fit (its
     16384-row share on each rank in a full-width run) and the backup
     branch, both with the ascent on; metrics, multipliers and every
     parameter, target and Adam moment against JAX's dp update; the two
     ranks bit-equal."""
-    jax_mesh = j_make_mesh((1, 2))
     cases, expect = [], {}
     for preset in ("unicycle", "pvtol"):
-        cfg_j, cfg_t = dp_cfg(jconfig, preset), dp_cfg(tconfig, preset)
-        n_u = cfg_j.action_dim
-        place, dp_update = j_make_dp_update(cfg_j, jax_mesh)
-        ts_j = j_create_train_state(cfg_j, jax.random.PRNGKey(0))
-        init = parallel.state_arrays(
-            from_reference(jax.tree.map(np.asarray, ts_j), cfg_t, "cpu"))
-        # a port run of one rank alongside picks each update's draws
-        port = from_reference(jax.tree.map(np.asarray, ts_j), cfg_t, "cpu")
-        agent = make_agent(cfg_t, "cpu")
-        rng = np.random.default_rng(1)
-        updates, metrics = [], []
-        for k in range(2):
-            batch, node_batch = batches(preset, rng)
-            tb = {n: torch.tensor(v) for n, v in batch.items()}
-            tnb = {n: torch.tensor(v) for n, v in node_batch.items()}
-            key, noise = out_of_band_key(port, tb, preset, k, n_u)
-            port, _ = agent.update_core(port, tb, lambda: tnb, None, 0,
-                                        noise=noise)
-            ts_p, b_p, nb_p, k_p = place(ts_j, batch, node_batch, key)
-            ts_j, m_j = dp_update(ts_p, b_p, nb_p, k_p, jnp.int32(0))
-            metrics.append({n: float(m_j[n]) for n in METRIC_NAMES})
-            updates.append((tb, tnb, noise, 0))
-        expect[preset] = (parallel.state_arrays(from_reference(
-            jax.tree.map(np.asarray, ts_j), cfg_t, "cpu")), metrics)
-        cases.append({"preset": preset, "cfg": cfg_t, "init": init,
-                      "updates": updates})
-    inputs = tmp_path / "inputs.pkl"
-    inputs.write_bytes(pickle.dumps(cases))
-    parallel.run_gang(workers.dp_updates, 2, (str(inputs), str(tmp_path)),
-                      timeout=GANG_TIMEOUT)
-    r0, r1 = load_ranks(tmp_path, 2)
+        case, expect[preset] = jax_dp_case(preset, preset,
+                                           dp_cfg(jconfig, preset),
+                                           dp_cfg(tconfig, preset))
+        cases.append(case)
+    r0 = run_dp_cases(cases, tmp_path)
     for preset, (want, metrics_j) in expect.items():
         metric_rtol, atol = TOL[preset]
         got = r0[preset]
-        assert_states_equal(got["state"], r1[preset]["state"])
-        assert got["metrics"] == r1[preset]["metrics"]
         for k, (m_t, m_j) in enumerate(zip(got["metrics"], metrics_j)):
             for name in METRIC_NAMES:
                 np.testing.assert_allclose(
@@ -178,21 +214,121 @@ def test_dp_update_matches_jax_make_dp_update(tmp_path):
         assert_states_close(got["state"], want, rtol=1e-4, atol=atol)
 
 
-@pytest.mark.parametrize("layout", ["dp", "tp"])
+def dopri5_cfg(cfg, impl):
+    return dataclasses.replace(cfg, node=dataclasses.replace(
+        cfg.node, solver="dopri5", adaptive_impl=impl))
+
+
+@pytest.mark.parametrize("impl", ["while", "scan"])
+def test_dp_dopri5_update_matches_jax_make_dp_update(impl, tmp_path):
+    """Under ``--node_solver dopri5`` (``impl``), two dp=2 unicycle
+    updates, the NODE fit on in the first and off in the second, against
+    JAX's dp update (whose GSPMD norms span the whole batch): the ranks
+    bit-equal with the same trial counts; metrics rtol 1e-5 / atol 1e-6;
+    parameters, targets and Adam moments rtol 1e-4 / atol 1e-6, but the
+    NODE's moments, which hold the fit's gradient through the adaptive
+    solve: within ``NODE_GRAD_FRAC[impl]`` of each leaf's largest entry
+    (the larger of ``TOL`` and ``test_update_core_dopri5_matches_jax``'s
+    tolerances)."""
+    case, (want, metrics_j) = jax_dp_case(
+        "unicycle", "unicycle", dopri5_cfg(dp_cfg(jconfig, "unicycle"), impl),
+        dopri5_cfg(dp_cfg(tconfig, "unicycle"), impl))
+    got = run_dp_cases([case], tmp_path)["unicycle"]
+    assert [m["node_loss"] > 0 for m in got["metrics"]] == [True, False]
+    assert all(n > 0 for n in got["trials"])
+    for k, (m_t, m_j) in enumerate(zip(got["metrics"], metrics_j)):
+        assert m_t["short_integrations"] == 0
+        for name in METRIC_NAMES:
+            np.testing.assert_allclose(m_t[name], m_j[name], rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{k} {name}")
+    for key in want:
+        if key == "adam/node":
+            for u, v in zip(_arrays(got["state"], key), _arrays(want, key)):
+                close_scaled(v, u, NODE_GRAD_FRAC[impl], msg=key)
+        elif key != "updates":
+            for u, v in zip(_arrays(got["state"], key), _arrays(want, key)):
+                np.testing.assert_allclose(u, v, rtol=1e-4, atol=1e-6,
+                                           err_msg=key)
+
+
+def test_dopri5_norms_span_the_dp_group(tmp_path):
+    """The solver's reductions over two dp ranks, each holding half of 16
+    rows (unicycle's NODE at width 12, dopri5 over dt = 0.02): the
+    reduced ``_err_norm`` of a trial equals the one-rank norm over all
+    rows (rtol 1e-6: only the sum's order differs); the scan form's
+    trial errors are the one-rank solve's (rtol 1e-5); and the adjoint's
+    parameter gradients, summed over the ranks as the update's ``step``
+    sums them, are the one-rank gradients (rtol 1e-4 / atol 1e-7, as
+    ``test_torch_port_ode.py``'s), so the NODE's gradient is counted
+    once, with the one-rank solve's trial count; the ranks agree bit for
+    bit."""
+    ncfg = dataclasses.replace(
+        tconfig.get_config("unicycle").node, hidden_dim=12,
+        f_hidden_layers=2, g_hidden_layers=2, solver="dopri5")
+    params = node_init(torch.Generator().manual_seed(3), ncfg)
+    rng = np.random.default_rng(4)
+    y = torch.tensor(rng.normal(size=(16, 5)).astype(np.float32))
+    y5 = y + torch.tensor(rng.normal(size=(16, 5)).astype(np.float32))
+    case = {"cfg": ncfg, "params": params, "dt": 0.02, "y": y, "y5": y5,
+            "y4": y5 + 1e-6 * torch.tensor(
+                rng.normal(size=(16, 5)).astype(np.float32)),
+            "x": torch.tensor(rng.normal(size=(16, 3)).astype(np.float32)),
+            "u": torch.tensor(rng.uniform(-3, 3, (16, 2)).astype(
+                np.float32))}
+    inputs = tmp_path / "inputs.pkl"
+    inputs.write_bytes(pickle.dumps(case))
+    parallel.run_gang(workers.dopri5_halves, 2,
+                      (str(inputs), str(tmp_path)), timeout=GANG_TIMEOUT)
+    r0, r1 = load_ranks(tmp_path, 2)
+    assert r0["err"] == r1["err"] and r0["trials"] == r1["trials"]
+    assert r0["scan_errs"] == r1["scan_errs"]
+    err = tsolvers._err_norm(case["y5"], case["y4"], case["y"], 1e-5, 1e-7)
+    np.testing.assert_allclose(r0["err"], float(err), rtol=1e-6)
+
+    field = make_field(ncfg)
+    s0 = torch.cat([case["x"], case["u"]], dim=-1)
+    trace = []
+    tsolvers.solve_adaptive(field, params, s0, 0.0, 0.02, impl="scan",
+                            max_steps=16, trace=trace)
+    want = [float(e) for e, _, active in trace if active]
+    np.testing.assert_allclose(r0["scan_errs"], want, rtol=1e-5)
+    leaves = [p.clone().requires_grad_(True) for p in tree_leaves(params)]
+    plain_trial = tsolvers._trial
+    counter = workers.count_trials()
+    try:
+        s1 = odeint_adjoint(field, tree_unflatten(params, leaves), s0, 0.0,
+                            0.02, method="dopri5")
+        loss = torch.mean(torch.square(s1[:, :ncfg.state_dim]))
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        tsolvers._trial = plain_trial
+    assert r0["trials"] == counter[0] > 0
+    np.testing.assert_allclose(r0["loss"] + r1["loss"], loss.item(),
+                               rtol=1e-6)
+    for a, b, g in zip(r0["grads"], r1["grads"], grads):
+        np.testing.assert_allclose(a + b, g.numpy(), rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("layout", ["dp", "tp", "dp_dopri5_while",
+                                    "tp_dopri5_while", "tp_dopri5_scan"])
 def test_gang_training_matches_one_rank(layout, tmp_path):
-    """3 episodes of dp=2 or tp=2 against the port's run of one rank:
+    """3 episodes (2 under dopri5) of dp=2 or tp=2 against the port's run
+    of one rank:
     rewards, update counts, the whole state and the replays; every rank
-    holds the same (whole) state; under tp the first gather gives back
-    the initial state exactly, each rank holds less than the whole, and
-    rank 0's weight files (made from the gathered state) are those of a
-    run of one."""
-    cfg = tiny_cfg()
-    dp, tp = (2, 1) if layout == "dp" else (1, 2)
+    holds the same (whole) state, after the same count of adaptive trial
+    steps under ``--node_solver dopri5``; under tp the first gather gives
+    back the initial state exactly, each rank holds less than the whole,
+    and rank 0's weight files (made from the gathered state) are those of
+    a run of one."""
+    cfg, episodes = tiny_cfg(), EPISODES
+    if "dopri5" in layout:
+        cfg, episodes = dopri5_cfg(cfg, layout.rsplit("_", 1)[1]), 2
+    dp, tp = (2, 1) if layout.startswith("dp") else (1, 2)
     parallel.run_gang(workers.train_episodes, 2,
-                      (cfg, dp, tp, EPISODES, str(tmp_path)),
+                      (cfg, dp, tp, episodes, str(tmp_path)),
                       timeout=GANG_TIMEOUT)
     ranks = load_ranks(tmp_path, 2)
-    rewards, ts1, rl1 = workers.one_rank_run(cfg, EPISODES)
+    rewards, ts1, rl1 = workers.one_rank_run(cfg, episodes)
     want = parallel.state_arrays(ts1)
     for r in ranks:
         np.testing.assert_allclose(r["rewards"], rewards, rtol=2e-4,
@@ -201,6 +337,8 @@ def test_gang_training_matches_one_rank(layout, tmp_path):
         np.testing.assert_allclose(r["replay"], rl1.data.numpy(), atol=1e-5)
     assert_states_equal(ranks[0]["state"], ranks[1]["state"])
     assert np.array_equal(ranks[0]["replay"], ranks[1]["replay"])
+    assert ranks[0]["trials"] == ranks[1]["trials"]
+    assert (ranks[0]["trials"] > 0) == ("dopri5" in layout)
     assert_states_close(ranks[0]["state"], want, rtol=2e-3, atol=5e-4)
     with open(tmp_path / "weights" / "actor.pkl", "rb") as f:
         actor = pickle.load(f)
@@ -410,6 +548,22 @@ def test_multihost_cli_gang_writes_on_rank0_only(tmp_path):
               "policy_loss", "node_loss", "episode_steps", "updates"):
         np.testing.assert_allclose(cols[k], ref[k], rtol=2e-4, atol=1e-5,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dp", "2"], ["--tp", "2", "--node_adaptive_impl", "scan"]],
+    ids=["dp_while", "tp_scan"])
+def test_cli_gangs_train_dopri5(flags, tmp_path):
+    """``--node_solver dopri5`` trains in a spawned gang, as the JAX CLI
+    takes it (the 32768-row NODE fit skipped: its dopri5 solve takes
+    minutes on the CPU); rank 0 writes progress.txt with updates and
+    finite losses."""
+    cli.main(KNOBS + ["--node_solver", "dopri5", "--NODE_fit_episode_limit",
+                      "-1", *flags, "--output", str(tmp_path)])
+    cols = progress(tmp_path)
+    assert cols["updates"][-1] > 0
+    for k in ("qf1_loss", "policy_loss", "lf_loss"):
+        assert np.all(np.isfinite(cols[k])), k
 
 
 def test_seeds_over_dp_groups_match_seeds_alone(tmp_path):

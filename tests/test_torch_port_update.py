@@ -193,6 +193,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import nlbac_tpu_torch.ode.adjoint, nlbac_tpu_torch.ode.solvers\n"
         "import nlbac_tpu_torch.envs.host_shim\n"
         "import nlbac_tpu_torch.envs.host_adapter\n"
+        "import nlbac_tpu_torch.experimental, nlbac_tpu_torch.train.aot\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'optax',"
         " 'nlbac_tpu') or m.startswith(('jax.', 'nlbac_tpu.')))\n"
         "assert not bad, bad\n"
