@@ -26,9 +26,9 @@ Phases, one line each (any failure raises and exits nonzero):
    plain version;
 5. the main path: train the unicycle preset at its full widths through
    the CLI (``nlbac_tpu_torch.train.cli.main``, into
-   ``chiprun_out/chip_smoke/``), then resume it from its checkpoint.npz
-   for one more episode (launch counts reset just before each run, read
-   just after); profile 10 more steps of the restored state (device busy
+   ``chiprun_out/chip_smoke/``), the policy acting from the second
+   episode, then resume it from its checkpoint.npz for one more episode
+   (launch counts reset just before each run, read just after); profile 10 more steps of the restored state (device busy
    share, top device ops); then hold one full-width update on the card
    against the same update on the CPU;
 6. cars and PVTOL at their full widths through the CLI, each with its
@@ -108,12 +108,30 @@ Phases, one line each (any failure raises and exits nonzero):
    the package) from its spawn to its first update's end through
    ``cached_episode_runner``, with ``_build/`` empty and then warm, split
    into import, set-up, K1's library and the first episode;
-21. a JSON line of the kernel's numbers (and the tanh, lever and
-   start-up phases'), the script's total time, then the result line.
+21. the lockstep seed runner (``parallel.make_seed_parallel_runner``):
+   K1 seed-batched (LOCKSTEP_KERNEL: seeds x rows) against its plain
+   version and against one launch per seed (forward and gradients),
+   timed beside them, beside its bound and with both tile
+   configurations; then SEEDS unicycle seeds at full width in one
+   seed-batched episode loop with phase 16's seeds and argv, each seed's
+   first episode against phase 16's same seed (relative 1e-5), its later
+   episodes and node_loss within the larger of LOCKSTEP_LATER_RTOL and
+   NOISE_FACTOR times the float32 noise floor of that episode and metric,
+   which a run of LOCKSTEP_BIG seeds measures in the same call (seeds
+   SEED..SEED+3 and their twins, every weight one ulp up, drawing from
+   the same seeds); one lockstep update of the trained seeds at different
+   update counts against each seed's one-seed update on the card;
+   K1's launches per update (two at SEEDS x 128 rows, a SEEDS x 32768
+   fit when a seed fits), the aggregate env-steps/s of both runs beside
+   phase 16's and phase 5's, ms per lockstep update, and a
+   ``torch.profiler`` window's device busy share;
+22. a JSON line of the kernel's numbers (and the tanh, lever, start-up
+   and lockstep phases'), the script's total time, then the result line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
 QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN, GANG_STEPS,
-DOPRI5_GANG_STEPS, STARTUP_STEPS below); the widths are the presets'.
+DOPRI5_GANG_STEPS, STARTUP_STEPS below; the lockstep runs take the main
+path's EPISODES x EPISODE_STEPS); the widths are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -181,11 +199,16 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 # cuBLAS and the CPU's BLAS sum in different orders and the difference
 # passes through Adam's normalisation and the constraint's /dt.
 UPDATE_RTOL, UPDATE_ATOL = 1e-3, 1e-4
-# Depth of the CLI runs (the presets' widths are kept): unicycle 3
-# episodes of 300 steps (preset: 200 of 1200), resumed for a fourth; cars
-# 2 of 300 (preset: 200 of 300); PVTOL 1 of 600 (preset: 400 of 2000).
-EPISODES, EPISODE_STEPS = 3, 300
-PRESET_RUNS = {"cars": (2, 300), "pvtol": (1, 600)}
+# Depth of the CLI runs (the presets' widths are kept): unicycle 2
+# episodes of 300 steps (preset: 200 of 1200), resumed for a third; cars
+# 1 of 300 (preset: 200 of 300); PVTOL 1 of 600 (preset: 400 of 2000).
+# Short enough that the whole script ends well within its 1200 s limit on
+# a slow host. The unicycle runs take --start_steps one episode (preset:
+# 1000), so the first episode's actions are random warm-up draws and the
+# second episode and the resumed third are trained and resumed with the
+# policy acting.
+EPISODES, EPISODE_STEPS = 2, 300
+PRESET_RUNS = {"cars": (1, 300), "pvtol": (1, 600)}
 # nbc_unicycle 1 episode of 400 steps (preset: 200 of 1200), nbc_pvtol 1
 # of 500 (preset: 210 of 2000); the quadrotor in chunks of QUAD_CHUNK
 # episodes of at most QUAD_EPISODE_STEPS steps (preset: 210 of 1000).
@@ -305,6 +328,29 @@ BF16_RTOL, BF16_ATOL = 2e-2, 1e-6
 # The start-up runs' unicycle episode: its first update block (step 130)
 # is its last step.
 STARTUP_STEPS = 130
+# The lockstep phase: K1 seed-batched at (seeds, rows per seed), the main
+# path's 128-row rollouts and 32768-row fit at 4 and 8 seeds; the runner at
+# SEEDS seeds (phase 16's) and at LOCKSTEP_BIG (SEEDS seeds and their
+# one-ulp twins). Each seed's first episode (all warm-up actions) against
+# phase 16's: relative LOCKSTEP_FIRST_RTOL on reward_train. The later
+# episodes' reward_train and every episode's node_loss (the episode's last
+# update's): relative to phase 16's within the larger of
+# LOCKSTEP_LATER_RTOL and NOISE_FACTOR times that episode's and metric's
+# largest gap between a seed and its twin (a batched product need not
+# round as one seed's product does; the policy acts from the second
+# episode, so float32 noise can tip a trajectory; PERF.md §6). One
+# lockstep update of the trained seeds, set to the update counts
+# LOCKSTEP_COUNTERS with the seeds LOCKSTEP_UPDATE_ON updating (the first
+# fits the NODE and ascends, the second does neither, the third sits out,
+# the fourth ascends only), against each seed's one-seed update on the
+# card: UPDATE_RTOL/UPDATE_ATOL, the seed that sits out bit for bit.
+LOCKSTEP_KERNEL = ((4, 128), (4, 32768), (8, 128), (8, 32768))
+LOCKSTEP_BIG = 8
+LOCKSTEP_FIRST_RTOL = 1e-5
+LOCKSTEP_LATER_RTOL = 1e-3
+LOCKSTEP_PROFILE_STEPS = 10
+LOCKSTEP_COUNTERS = (960, 961, 965, 968)
+LOCKSTEP_UPDATE_ON = (True, True, False, True)
 
 
 def phase(msg: str) -> None:
@@ -675,10 +721,11 @@ def restored(preset, argv, run, dev):
 
 
 def main_path(dev, card):
-    """Unicycle at the preset's full widths through the CLI, then resumed
-    from its checkpoint for one more episode."""
+    """Unicycle at the preset's full widths through the CLI, the policy
+    acting from the second episode, then resumed from its checkpoint for
+    one more episode."""
     argv = ["--max_episodes", str(EPISODES), "--max_episode_steps",
-            str(EPISODE_STEPS)]
+            str(EPISODE_STEPS), "--start_steps", str(EPISODE_STEPS)]
     run, launches, steps, updates, seconds = cli_run("unicycle", argv, card,
                                                      "unicycle")
     # each update launches K1 twice at 128 rows (primary and backup
@@ -692,7 +739,8 @@ def main_path(dev, card):
           f"{launches} K1 launches")
 
     resume_argv = ["--max_episodes", str(EPISODES + 1),
-                   "--max_episode_steps", str(EPISODE_STEPS), "--resume",
+                   "--max_episode_steps", str(EPISODE_STEPS),
+                   "--start_steps", str(EPISODE_STEPS), "--resume",
                    str(run / "checkpoint.npz")]
     run2, launches2, steps2, _, _ = cli_run("unicycle", resume_argv, card,
                                             "unicycle_resumed")
@@ -1434,8 +1482,9 @@ def seeds_run(dev, card, one_seed):
     ``--start_steps`` one episode so that the policy acts from the second
     episode on: each seed's env steps, updates and K1 launches, the
     aggregate env-steps/s beside the main path's one-seed run of this call
-    (whose actions are all random warm-up ones), and seed 0's first
-    episode against that run's."""
+    (the same argv for one seed), and seed 0's first episode (all random
+    warm-up actions) against that run's. Returns K1's launches by path and the
+    run's output directory, env steps, seconds and env-steps/s."""
     out = OUT / "unicycle_seeds"
     shutil.rmtree(out, ignore_errors=True)
     argv = ["--preset", "unicycle", "--quiet", "--seed", str(SEED),
@@ -1481,7 +1530,8 @@ def seeds_run(dev, card, one_seed):
           f"{SEED}'s first episode vs the standalone run: reward relative "
           f"gap {gaps['reward_train']:.3e}, node_loss "
           f"{gaps['node_loss']:.3e} (limit 1e-5) on {card}")
-    return {"unicycle_seeds": sum(launches)}
+    return {"unicycle_seeds": sum(launches)}, {
+        "out": out, "steps": steps_all, "seconds": seconds, "rate": rate}
 
 
 def gang_cfg():
@@ -2096,6 +2146,423 @@ def startup_runs(card):
     return out
 
 
+def stacked_node_params(n_seeds, gen, dev):
+    """``n_seeds`` unicycle NODE parameter sets (non-zero biases) stacked
+    on a leading seed axis, as a lockstep state holds them."""
+    sets = [node_params(3, 2, gen, dev) for _ in range(n_seeds)]
+    return tree_map(lambda *ps: torch.stack([p.detach() for p in ps]
+                                            ).requires_grad_(True), *sets)
+
+
+def lockstep_kernel(dev, gen, card):
+    """K1 seed-batched at LOCKSTEP_KERNEL (unicycle dimensions): one launch
+    against its seed-batched plain version and against one launch per
+    seed, forward and gradients (u and every parameter); then the device
+    ms of the launch (both tile configurations), of the launches one per
+    seed and of the plain version, beside the bound (the seeds' work at
+    the tensor cores' rate). Returns the numbers by "seeds x rows"."""
+    out = {}
+    for n_seeds, rows in LOCKSTEP_KERNEL:
+        params = stacked_node_params(n_seeds, gen, dev)
+        x = torch.randn(n_seeds, rows, 3, device=dev, generator=gen)
+        u = (torch.rand(n_seeds, rows, 2, device=dev, generator=gen) * 2
+             - 1) * 3.5
+        u.requires_grad_(True)
+        cot = torch.randn(n_seeds, rows, 3, device=dev, generator=gen)
+        ones = [tree_map(lambda p: p[i], params) for i in range(n_seeds)]
+        before = node_kernel.launch_counts["node_euler"]
+        y_k = node_kernel.node_euler_step(params, x, u, 0.02)
+        if node_kernel.launch_counts["node_euler"] != before + 1:
+            raise RuntimeError("the seed-batched call took more than one "
+                               "launch")
+        y_p = node_kernel.node_euler_step_plain(params, x, u, 0.02)
+        y_s = torch.stack([node_kernel.node_euler_step(ones[i], x[i], u[i],
+                                                       0.02)
+                           for i in range(n_seeds)])
+        torch.cuda.synchronize()
+        inputs = [u] + tree_leaves(params)
+        errs = {}
+        for name, y in (("plain", y_p), ("per seed", y_s)):
+            torch.testing.assert_close(y_k, y, rtol=KERNEL_RTOL,
+                                       atol=KERNEL_ATOL)
+            g_k = torch.autograd.grad((y_k * cot).sum(), inputs,
+                                      retain_graph=True)
+            g = torch.autograd.grad((y * cot).sum(), inputs)
+            for a, b in zip(g_k, g):
+                torch.testing.assert_close(a, b, rtol=KERNEL_RTOL,
+                                           atol=KERNEL_ATOL)
+            errs[name] = ((y_k - y).abs().max().item(),
+                          max((a - b).abs().max().item()
+                              for a, b in zip(g_k, g)))
+        xs, us = list(x.unbind()), [t.detach() for t in u.unbind()]
+        with torch.no_grad():
+            ms, call_ms = time_ms(lambda: node_kernel.node_euler_step(
+                params, x, u, 0.02))
+            single_ms, single_call_ms = time_ms(lambda: [
+                node_kernel.node_euler_step(ones[i], xs[i], us[i], 0.02)
+                for i in range(n_seeds)])
+            plain_ms, _ = time_ms(lambda: node_kernel.node_euler_step_plain(
+                params, x, u, 0.02))
+            args = node_kernel.launch_args(params, x, u)
+            tiles = {}
+            for cfg_i, tile in enumerate(node_kernel.TILE_CONFIGS):
+                tiles[str(tile)], _ = time_ms(lambda: node_kernel._launch(
+                    args, x, u.detach(), 0.02, cfg_i))
+        flops, nbytes = work(ones[0], rows, 3, 2)
+        bound_ms, bound_by = bound(flops * n_seeds, nbytes * n_seeds)
+        picked = node_kernel.TILE_CONFIGS[node_kernel.tile_config(
+            n_seeds * rows)]
+        out[f"{n_seeds}x{rows}"] = {
+            "ms": ms, "call_ms": call_ms, "single_launches_ms": single_ms,
+            "single_launches_call_ms": single_call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "tiles_ms": tiles,
+            "picked": str(picked),
+            "max_abs_err": max(e[0] for e in errs.values())}
+        phase(f"lockstep K1 {n_seeds} seeds x {rows} rows: one launch "
+              f"against the plain version: forward max abs err "
+              f"{errs['plain'][0]:.3e}, gradients {errs['plain'][1]:.3e}; "
+              f"against {n_seeds} single launches: "
+              f"{errs['per seed'][0]:.3e}, {errs['per seed'][1]:.3e} "
+              f"(rtol {KERNEL_RTOL} atol {KERNEL_ATOL}) ok; device "
+              f"{ms:.4f} ms (tiles: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in tiles.items())
+              + f"; the wrapper picks {picked}) against {single_ms:.4f} ms "
+              f"for {n_seeds} single launches ({single_ms / ms:.2f} "
+              f"times), plain {plain_ms:.4f} ms; issued from Python "
+              f"{call_ms:.4f} / {single_call_ms:.4f} ms; bound "
+              f"{bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.1%} of it, "
+              f"on {card}")
+    return out
+
+
+def lockstep_cfg():
+    """Phase 16's config: the unicycle preset at full width, EPISODES x
+    EPISODE_STEPS, the policy acting from the second episode."""
+    argv = ["--preset", "unicycle", "--quiet", "--seed", str(SEED),
+            "--max_episodes", str(EPISODES), "--max_episode_steps",
+            str(EPISODE_STEPS), "--start_steps", str(EPISODE_STEPS)]
+    return cli.config_from_args(cli.build_parser().parse_args(argv))
+
+
+def lockstep_episodes(run_fn, state):
+    """EPISODES episodes of ``run_fn`` from ``state`` (K1's counts set to
+    0 just before, read just after): the new state, each episode's
+    per-seed host metrics, the seconds of the run_fn calls, the launches
+    and the launches by rows."""
+    ts, rl, node, gens, total = state
+    node_kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    episodes = []
+    for ep in range(EPISODES):
+        ts, rl, node, gens, m, total = run_fn(ts, rl, node, gens, ep, total)
+        episodes.append(parallel.episode_to_host_seeds(m))
+    seconds = time.perf_counter() - t0
+    return ((ts, rl, node, gens, total), episodes, seconds,
+            node_kernel.launch_counts["node_euler"],
+            dict(node_kernel.launches_by_rows))
+
+
+def lockstep_launches(n_seeds, episodes, launches, by_rows, label):
+    """Check K1's launches of a lockstep run: two at n_seeds x 128 rows a
+    lockstep update (the primary and backup rollouts of every seed), one
+    n_seeds x 32768 fit whenever a seed fits. Returns (updates, fits)."""
+    # a lockstep update serves every seed that updates at that step: the
+    # seed with the most updates in an episode took part in each of them
+    calls = sum(max(r["updates_done"] for r in ep) for ep in episodes)
+    fits = by_rows.get(n_seeds * 32768, 0)
+    rows_ok = set(by_rows) <= {n_seeds * 128, n_seeds * 32768}
+    if (not rows_ok or by_rows.get(n_seeds * 128, 0) != 2 * calls
+            or not 1 <= fits <= calls
+            or launches != 2 * calls + fits):
+        raise RuntimeError(f"{label}: {launches} K1 launches by rows "
+                           f"{by_rows} for {calls} lockstep updates")
+    return calls, fits
+
+
+def lockstep_update_check(cfg, dev, state):
+    """One lockstep update of the SEEDS seeds of ``state`` (as the runner
+    trained them), set to LOCKSTEP_COUNTERS with LOCKSTEP_UPDATE_ON
+    updating, against each updating seed's one-seed update on the same
+    device from the same batches (sampled from each seed's rings) and
+    draws: every metric, parameter, target, Adam moment and multiplier
+    within UPDATE_RTOL/UPDATE_ATOL; a seed that sits out keeps its whole
+    state bit for bit. Returns (the largest gap as a share of its
+    tolerance, the seeds that fit)."""
+    from nlbac_tpu_torch.agent.state import stack_states, unstack_state
+    from nlbac_tpu_torch.agent.update import METRIC_NAMES
+
+    ts, rl, node, _, _ = state
+    ones = [unstack_state(cfg, ts, i) for i in range(SEEDS)]
+    for one, n in zip(ones, LOCKSTEP_COUNTERS):
+        one.updates = n
+    stacked = stack_states(cfg, ones)  # copies
+    on = list(LOCKSTEP_UPDATE_ON)
+    draws = [torch.Generator(dev).manual_seed(SEED + 100 + i)
+             for i in range(SEEDS)]
+    every = [True] * SEEDS
+    batch = replay_buffer.sample_seeds(rl, draws, cfg.sac.batch_size, every)
+    node_batch = replay_buffer.sample_seeds(node, draws, cfg.node.max_batch,
+                                            every)
+    noise = {k: torch.randn(batch["action"].shape, device=dev,
+                            generator=draws[0])
+             for k in ("next", "pi", "backup")}
+    agent = make_agent(cfg, dev)
+    fits = []
+    stacked, m = agent.update_core(
+        stacked, batch, lambda fit: fits.append(fit) or node_batch, None,
+        EPISODES, noise=noise, seeds=on)
+    want_updates = [n + int(o) for n, o in zip(LOCKSTEP_COUNTERS, on)]
+    if stacked.updates != want_updates:
+        raise RuntimeError(f"lockstep update: counters {stacked.updates}, "
+                           f"expected {want_updates}")
+    worst = 0.0
+
+    def bit_equal(a, b):
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(bit_equal, a, b))
+        return np.array_equal(a, b)
+
+    def excess(got, want, what):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        share = float(np.max(np.abs(got - want)
+                             / (UPDATE_ATOL + UPDATE_RTOL * np.abs(want)),
+                             initial=0.0))
+        if not np.all(np.isfinite(got)) or share > 1:
+            raise RuntimeError(f"lockstep update: {what} off by {share:.3f}"
+                               f" of its tolerance")
+        return share
+
+    for i in range(SEEDS):
+        got = parallel.state_arrays(unstack_state(cfg, stacked, i))
+        if not on[i]:
+            want = parallel.state_arrays(ones[i])
+            for key in want:
+                if not bit_equal(got[key], want[key]):
+                    raise RuntimeError(f"lockstep update: seed {i} sat out"
+                                       f" but its {key} changed")
+            continue
+        one, m1 = agent.update_core(
+            ones[i], {k: v[i] for k, v in batch.items()},
+            lambda: {k: v[i] for k, v in node_batch.items()}, None,
+            EPISODES, noise={k: v[i] for k, v in noise.items()})
+        want = parallel.state_arrays(one)
+        if one.updates != got["updates"]:
+            raise RuntimeError(f"lockstep update: seed {i} at "
+                               f"{got['updates']} updates, one seed's at "
+                               f"{one.updates}")
+        for key in want:
+            if key == "updates":
+                continue
+            for a, b in zip(got[key], want[key]):
+                worst = max(worst, excess(a, b, f"seed {i} {key}"))
+        for k in METRIC_NAMES:
+            worst = max(worst, excess(m[k][i].item(), m1[k].item(),
+                                      f"seed {i} {k}"))
+    return worst, fits
+
+
+def lockstep_runs(dev, card, one_seed, seeds_info):
+    """The lockstep seed runner at full width: SEEDS seeds against phase
+    16's, LOCKSTEP_BIG seeds (SEEDS seeds and their one-ulp twins) for
+    the noise floor and the rate; ms per lockstep update; a profiled
+    window. Returns (its numbers, K1's launches by path)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nlbac_tpu_torch.agent.state import stack_states
+    from nlbac_tpu_torch.replay import stack_replays
+
+    cfg = lockstep_cfg()
+    init_fn, run_fn = parallel.make_seed_parallel_runner(cfg, SEEDS, dev)
+    t0 = time.perf_counter()
+    state = init_fn(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state, eps4, secs4, launches4, rows4 = lockstep_episodes(run_fn, state)
+    calls4, fits4 = lockstep_launches(SEEDS, eps4, launches4, rows4,
+                                      f"lockstep {SEEDS} seeds")
+    update_share, update_fits = lockstep_update_check(cfg, dev, state)
+    phase(f"lockstep update: {SEEDS} trained seeds at update counts "
+          f"{list(LOCKSTEP_COUNTERS)}, updating {list(LOCKSTEP_UPDATE_ON)} "
+          f"(fitting {update_fits[0]}), one lockstep update against each "
+          f"seed's one-seed update on the card: every metric, parameter, "
+          f"target, Adam moment and multiplier within rtol {UPDATE_RTOL} "
+          f"atol {UPDATE_ATOL} (worst at {update_share:.3f} of it), the "
+          f"seed that sat out bit for bit, ok on {card}")
+
+    # the noise floor: seeds SEED..SEED+3 and their twins, every weight
+    # one ulp up, each twin drawing from its seed's generator
+    twins = LOCKSTEP_BIG - SEEDS
+    gens8, states8 = [], []
+    for i in range(LOCKSTEP_BIG):
+        gen = torch.Generator(dev).manual_seed(SEED + i % SEEDS)
+        ts = create_train_state(cfg, gen, dev)
+        if i >= SEEDS:
+            with torch.no_grad():
+                for name in ("policy", "backup_policy", "critic",
+                             "critic_target", "lyap", "lyap_target",
+                             "barrier", "barrier_target", "node"):
+                    for p in tree_leaves(getattr(ts, name)):
+                        p.copy_(torch.nextafter(
+                            p, torch.full_like(p, math.inf)))
+        gens8.append(gen)
+        states8.append(ts)
+    rings = [create_replays(cfg, dev) for _ in range(LOCKSTEP_BIG)]
+    state8 = (stack_states(cfg, states8),
+              stack_replays([r[0] for r in rings]),
+              stack_replays([r[1] for r in rings]), gens8,
+              [0] * LOCKSTEP_BIG)
+    del states8, rings
+    _, run8 = parallel.make_seed_parallel_runner(cfg, LOCKSTEP_BIG, dev)
+    state8, eps8, secs8, launches8, rows8 = lockstep_episodes(run8, state8)
+    calls8, fits8 = lockstep_launches(LOCKSTEP_BIG, eps8, launches8, rows8,
+                                      f"lockstep {LOCKSTEP_BIG} seeds")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    later = [(ep, k) for ep in range(EPISODES)
+             for k in (("reward", "node_loss") if ep else ("node_loss",))]
+
+    def value(host, k):
+        return host["reward"] if k == "reward" else host["train"][k]
+
+    floors = {f"episode {ep} {k}": max(
+        rel(value(eps8[ep][i + SEEDS], k), value(eps8[ep][i], k))
+        for i in range(twins)) for ep, k in later}
+    limits = {key: max(LOCKSTEP_LATER_RTOL, NOISE_FACTOR * v)
+              for key, v in floors.items()}
+    failed = []
+    for i in range(SEEDS):
+        rows = progress_rows(seeds_info["out"] / f"s{SEED + i}")
+        first = rel(eps4[0][i]["reward"], rows[0]["reward_train"])
+        gaps = {f"episode {ep} {k}": rel(
+            value(eps4[ep][i], k),
+            rows[ep]["reward_train" if k == "reward" else k])
+            for ep, k in later}
+        steps = [ep[i]["steps"] for ep in eps4]
+        phase(f"lockstep: seed {SEED + i}: steps {steps} (phase 16: "
+              f"{[int(r['episode_steps']) for r in rows]}), updates "
+              f"{state[0].updates[i]} (phase 16: {int(rows[-1]['updates'])})"
+              f", rewards {[round(ep[i]['reward'], 3) for ep in eps4]} "
+              f"(phase 16: {[round(r['reward_train'], 3) for r in rows]}); "
+              f"first episode's reward relative gap {first:.3e} (limit "
+              f"{LOCKSTEP_FIRST_RTOL}); later gaps " + ", ".join(
+                  f"{k} {v:.3e} (limit {limits[k]:.3e})"
+                  for k, v in gaps.items()))
+        bad = [v for v in ep_values(eps4, i) if not math.isfinite(v)]
+        if first > LOCKSTEP_FIRST_RTOL or bad or any(
+                v > limits[k] for k, v in gaps.items()):
+            failed.append(f"seed {SEED + i}: first {first:.3e}, later "
+                          f"{gaps}, non-finite {bad}")
+
+    # ms per lockstep update at both widths, the seeds' replays as trained:
+    # a window as timed_updates times one seed's, then the same count of
+    # updates each synchronized, the fit updates (a seed fits: every seed's
+    # fit is computed) and the others apart
+    def update_ms(run_state, n_seeds):
+        agent = make_agent(cfg, dev)
+        ts, rl, node, gens, _ = run_state
+        warm, n = UPDATE_TIMING
+        on = [True] * n_seeds
+        for _ in range(warm):
+            agent.update(ts, rl, node, gens, EPISODES, seeds=on)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            agent.update(ts, rl, node, gens, EPISODES, seeds=on)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / n * 1e3
+        fit_ms, rest_ms = [], []
+        for _ in range(n):
+            fit = any(u % cfg.node.update_interval == 0 for u in ts.updates)
+            t1 = time.perf_counter()
+            agent.update(ts, rl, node, gens, EPISODES, seeds=on)
+            torch.cuda.synchronize()
+            (fit_ms if fit else rest_ms).append(
+                (time.perf_counter() - t1) * 1e3)
+        return ms, float(np.mean(fit_ms)), float(np.mean(rest_ms))
+
+    (ms4, fit4, rest4), (ms8, fit8, rest8) = (
+        update_ms(state, SEEDS), update_ms(state8, LOCKSTEP_BIG))
+
+    # a profiled window of LOCKSTEP_PROFILE_STEPS env steps at SEEDS seeds
+    short = dataclasses.replace(cfg, env=dataclasses.replace(
+        cfg.env, max_episode_steps=LOCKSTEP_PROFILE_STEPS))
+    _, run_short = parallel.make_seed_parallel_runner(short, SEEDS, dev)
+    ts, rl, node, gens, total = state
+    run_short(ts, rl, node, gens, EPISODES, total)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _, _, _, _, m, _ = run_short(ts, rl, node, gens, EPISODES, total)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    spans = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            spans[e.name] += e.time_range.elapsed_us() / 1e6
+    busy = sum(spans.values())
+    kern = sum(v for k, v in spans.items() if "node_euler" in k)
+
+    steps4 = sum(ep[i]["steps"] for ep in eps4 for i in range(SEEDS))
+    steps8 = sum(ep[i]["steps"] for ep in eps8 for i in range(LOCKSTEP_BIG))
+    rate1 = one_seed["steps"] / one_seed["seconds"]
+    rate4, rate8 = steps4 / secs4, steps8 / secs8
+    phase(f"lockstep: {SEEDS} seeds ({EPISODES} x {EPISODE_STEPS} steps, "
+          f"one process): {steps4} env steps in {secs4:.2f} s of run_fn "
+          f"calls ({init_s:.2f} s more for init_fn), {rate4:.2f} env-steps/s "
+          f"in all; {LOCKSTEP_BIG} seeds: {steps8} in {secs8:.2f} s, "
+          f"{rate8:.2f} env-steps/s; against --n_seeds {SEEDS} (phase 16, "
+          f"worker processes, start included) {seeds_info['rate']:.2f} and "
+          f"one seed (phase 5) {rate1:.2f}: {rate4 / seeds_info['rate']:.3f}"
+          f" / {rate8 / seeds_info['rate']:.3f} times phase 16's, "
+          f"{rate4 / rate1:.3f} / {rate8 / rate1:.3f} times one seed's; "
+          f"{ms4:.2f} / {ms8:.2f} ms per lockstep update ({UPDATE_TIMING[1]} "
+          f"updates after {UPDATE_TIMING[0]}, every seed updating, "
+          f"{UPDATE_TIMING[1] // 10} NODE fit(s) of {SEEDS} / "
+          f"{LOCKSTEP_BIG} x 32768 rows; each synchronized, a fit update "
+          f"{fit4:.2f} / {fit8:.2f} ms, the others {rest4:.2f} / "
+          f"{rest8:.2f} ms); K1: {launches4} / {launches8} "
+          f"launches for {calls4} / {calls8} lockstep updates ({fits4} / "
+          f"{fits8} fits); noise floor (a seed against its one-ulp twin) "
+          + ", ".join(f"{k} {v:.3e}" for k, v in floors.items())
+          + f" on {card}")
+    if busy > 0:
+        phase(f"lockstep profile: {SEEDS} seeds x {LOCKSTEP_PROFILE_STEPS} "
+              f"env steps ({sum(m.updates_done)} seed-updates) in "
+              f"{wall:.3f} s under the profiler; device busy {busy:.4f} s "
+              f"({busy / wall:.1%} of the window, idle "
+              f"{1 - busy / wall:.1%}); node_euler kernel "
+              f"{kern * 1e3:.3f} ms on {card}")
+    else:
+        phase("lockstep profile: the profiler recorded no device time (not "
+              "measured)")
+    if failed:
+        raise RuntimeError(f"lockstep against phase 16: {'; '.join(failed)}")
+    numbers = {
+        "seeds": SEEDS, "big": LOCKSTEP_BIG, "steps": [steps4, steps8],
+        "seconds": [secs4, secs8], "init_seconds": init_s,
+        "env_steps_per_s": [rate4, rate8],
+        "n_seeds_env_steps_per_s": seeds_info["rate"],
+        "one_seed_env_steps_per_s": rate1, "ms_per_update": [ms4, ms8],
+        "fit_update_ms": [fit4, fit8], "other_update_ms": [rest4, rest8],
+        "updates": [calls4, calls8], "fits": [fits4, fits8],
+        "noise_floor": floors, "later_limit": limits,
+        "update_check_share": update_share,
+        "busy_share": busy / wall if busy > 0 else None}
+    return numbers, {f"unicycle_lockstep_{SEEDS}": launches4,
+                     f"unicycle_lockstep_{LOCKSTEP_BIG}": launches8}
+
+
+def ep_values(episodes, i):
+    """Seed i's rewards and last-update metrics over the episodes."""
+    return [v for ep in episodes
+            for v in [ep[i]["reward"]] + list(ep[i]["train"].values())]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2153,7 +2620,8 @@ def main() -> int:
     export_run(dev, card)
     by_path["unicycle_profiled"] = profile_run(card)
     by_path.update(custom_env_runs(card))
-    by_path.update(seeds_run(dev, card, one_seed))
+    seeds_by_path, seeds_info = seeds_run(dev, card, one_seed)
+    by_path.update(seeds_by_path)
     by_path.update(gang_runs(dev, card))
     by_path.update(dopri5_gang_runs(dev, card))
     levers = levers_ab(dev, card, one_seed["run"])
@@ -2163,6 +2631,10 @@ def main() -> int:
     startup = startup_runs(card)
     by_path.update({f"startup_{k}": v["launches"]
                     for k, v in startup.items()})
+    seed_batched = lockstep_kernel(dev, gen, card)
+    lockstep, lockstep_by_path = lockstep_runs(dev, card, one_seed,
+                                               seeds_info)
+    by_path.update(lockstep_by_path)
 
     big = times[32768]
     print(json.dumps({"kernels": [{
@@ -2178,9 +2650,9 @@ def main() -> int:
         "bound_f32_ms": big["bound_f32_ms"],
         "host_us_per_call": times[128]["host_us_per_call"],
         "at_128_rows": times[128], "pvtol_chain": chain,
-        "nbc_calls_max_abs_err": nbc_err,
+        "nbc_calls_max_abs_err": nbc_err, "seed_batched": seed_batched,
         "launches_by_path": by_path}], "tanh": tanh, "levers": levers,
-        "startup": startup}), flush=True)
+        "startup": startup, "lockstep": lockstep}), flush=True)
     phase(f"total: {time.perf_counter() - start:.2f} s from the build to "
           f"the end on {card}")
     print(json.dumps({"ok": True, "device": {

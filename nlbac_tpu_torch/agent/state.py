@@ -5,13 +5,19 @@ bound to its own ``torch.optim.Adam`` (the same bias-corrected update as
 ``optax.adam``). Temperatures, Lagrangian multipliers and rho are device
 tensors. The update counter is a host integer that mirrors the reference's
 ``ts.updates``: the gates read it without a device round trip.
+
+A state stacked over seeds (``stack_states``; the lockstep seed runner,
+``parallel/lockstep.py``) is the same ``TrainState`` with a leading (S,)
+axis on every tensor, a ``SeedAdam`` per optimizer group (per-seed step
+counts and a mask) and ``updates`` a list of per-seed host integers;
+``unstack_state`` gives one seed's plain ``TrainState`` back.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Union
 
 import torch
 
@@ -19,6 +25,7 @@ from nlbac_tpu_torch import resolve_device
 from nlbac_tpu_torch.config import NLBACConfig
 from nlbac_tpu_torch.constraints import get_builder, init_lagrangian
 from nlbac_tpu_torch.constraints.common import LagrangianState
+from nlbac_tpu_torch.nn.adam import SeedAdam
 from nlbac_tpu_torch.nn import (
     barrier_init,
     deterministic_policy_init,
@@ -51,9 +58,14 @@ class TrainState:
     node: Any
     log_alpha: torch.Tensor  # (1,)
     backup_log_alpha: torch.Tensor  # (1,)
-    opt: Dict[str, torch.optim.Adam]
+    opt: Dict[str, Union[torch.optim.Adam, SeedAdam]]
     lag: LagrangianState
-    updates: int
+    updates: Union[int, List[int]]  # a list: stacked over seeds
+
+    @property
+    def seeds(self):
+        """The number of seeds of a stacked state; None for one seed."""
+        return len(self.updates) if isinstance(self.updates, list) else None
 
 
 def learning_rates(cfg: NLBACConfig) -> dict:
@@ -137,3 +149,74 @@ def create_train_state(cfg: NLBACConfig, gen: torch.Generator,
     return TrainState(**fields, opt=make_optimizers(cfg, fields), lag=lag,
                       updates=0)
 
+
+
+# the TrainState fields that hold parameter trees, trained or targets
+PARAM_FIELDS = ("policy", "backup_policy", "critic", "critic_target",
+                "lyap", "lyap_target", "barrier", "barrier_target", "node",
+                "log_alpha", "backup_log_alpha")
+
+
+def stack_states(cfg: NLBACConfig, states: Sequence[TrainState]
+                 ) -> TrainState:
+    """One state stacked over seeds from one-seed states (copies), seed i
+    from ``states[i]``: every tensor on a leading seed axis, each
+    optimizer group a ``SeedAdam`` holding each seed's moments and step
+    count. The plain twin-Q layout only."""
+    if any(ts.seeds is not None for ts in states):
+        raise ValueError("stack_states takes one-seed states")
+    if any("q1" not in ts.critic for ts in states):
+        raise ValueError(
+            "a stacked twin-Q state cannot be stacked over seeds (the "
+            "lockstep seed runner takes the plain layout; ROADMAP.md "
+            "Queue 1 item 22)")
+    fields = {}
+    for name in PARAM_FIELDS:
+        trained = any(name == f for f in OPT_GROUPS.values())
+        fields[name] = tree_map(
+            lambda *ps: torch.stack([p.detach() for p in ps]
+                                    ).requires_grad_(trained),
+            *[getattr(ts, name) for ts in states])
+    lrs = learning_rates(cfg)
+    opt = {}
+    for group, field in OPT_GROUPS.items():
+        adam = SeedAdam(tree_leaves(fields[field]), lrs[group])
+        for i, ts in enumerate(states):
+            state = ts.opt[group].state
+            leaves = tree_leaves(getattr(ts, field))
+            if leaves[0] not in state:
+                continue  # a fresh optimizer: zero moments, step 0
+            adam.load_seed(i, int(state[leaves[0]]["step"]),
+                           [state[p]["exp_avg"] for p in leaves],
+                           [state[p]["exp_avg_sq"] for p in leaves])
+        opt[group] = adam
+    lag = LagrangianState(*(torch.stack([getattr(ts.lag, f) for ts in states])
+                            for f in LagrangianState._fields))
+    return TrainState(**fields, opt=opt, lag=lag,
+                      updates=[ts.updates for ts in states])
+
+
+def unstack_state(cfg: NLBACConfig, ts: TrainState, i: int) -> TrainState:
+    """Seed i of a stacked state as a plain one-seed ``TrainState``
+    (copies), with ``torch.optim.Adam`` groups holding its moments and
+    step count: evaluation, export and ``save_model_weights`` take it as
+    they take any state."""
+    fields = {}
+    for name in PARAM_FIELDS:
+        trained = any(name == f for f in OPT_GROUPS.values())
+        fields[name] = tree_map(
+            lambda p: p[i].detach().clone().requires_grad_(trained),
+            getattr(ts, name))
+    opt = make_optimizers(cfg, fields)
+    for group, field in OPT_GROUPS.items():
+        adam = ts.opt[group]
+        step = int(adam.step_count[i])
+        if step == 0:
+            continue  # as a fresh torch.optim.Adam holds no state
+        mus, nus = adam.moments()
+        for p, mu, nu in zip(tree_leaves(fields[field]), mus, nus):
+            opt[group].state[p] = {
+                "step": torch.tensor(float(step), dtype=torch.float32),
+                "exp_avg": mu[i].clone(), "exp_avg_sq": nu[i].clone()}
+    lag = LagrangianState(*(t[i].clone() for t in ts.lag))
+    return TrainState(**fields, opt=opt, lag=lag, updates=ts.updates[i])

@@ -45,6 +45,32 @@ is written out, named where it happens:
 
 Parameters, Adam moments, the multipliers, rho and the counters stay the
 same on every rank of the group.
+
+Seeds in lockstep (a state stacked over seeds, ``agent.state.
+stack_states``; the runner is ``parallel/lockstep.py``): the same code
+runs with a leading (S,) axis on every tensor, each network layer one
+batched product for every seed. A batch quantity is (B, k) for one seed
+and (S, B, k) stacked, so a batch mean is per seed, and what is
+differentiated is the sum of the seeds' losses, so that each seed's
+gradient is its one-seed gradient. The vmap's selects take the place of
+the host gates:
+
+- the seeds that update at all (``seeds``) and each gate (the fit, the
+  ascent, the backup branch, the target update) are per-seed host lists
+  read off the per-seed counters ``ts.updates``;
+- a gated section runs for every seed when any seed's gate is on, and
+  commits only for those: each ``SeedAdam`` steps the seeds of its mask,
+  the targets and the multipliers are selected per seed, and a seed
+  whose gate is off keeps its parameters, moments, step counts and
+  multipliers bit for bit;
+- each draw is made seed by seed from the seed's own generator, with
+  the shape the one-seed path draws and only for the seeds whose gate is
+  on (``sample_seeds``, ``draw_normal``), then stacked, so that each
+  seed's stream follows its one-seed run's;
+- the metrics are (S,) tensors.
+
+Data parallelism, the decoupled variant and the probe regularizer take
+no stacked state.
 """
 
 from __future__ import annotations
@@ -57,6 +83,7 @@ from nlbac_tpu_torch import replay as replay_lib
 from nlbac_tpu_torch import resolve_device
 from nlbac_tpu_torch.agent.state import TrainState
 from nlbac_tpu_torch.config import NLBACConfig
+from nlbac_tpu_torch.constraints import LagrangianState
 from nlbac_tpu_torch.constraints import backup_loss as lag_backup_loss
 from nlbac_tpu_torch.constraints import get_builder, uses_barrier
 from nlbac_tpu_torch.constraints import primary_loss as lag_primary_loss
@@ -71,10 +98,18 @@ from nlbac_tpu_torch.nn import (
     lyapunov_apply,
     make_field,
     node_loss,
+    seed_mean,
     soft_update,
     twin_q_apply,
 )
-from nlbac_tpu_torch.tree import detach, snapshot, tree_leaves
+from nlbac_tpu_torch.nn.adam import SeedAdam
+from nlbac_tpu_torch.tree import (
+    SeedMasks,
+    detach,
+    snapshot,
+    tree_leaves,
+    where_seeds,
+)
 
 METRIC_NAMES = ("qf1_loss", "qf2_loss", "lf_loss", "policy_loss",
                 "constraint_loss", "alpha_loss", "alpha", "node_loss",
@@ -163,11 +198,14 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
     def sample_fn(params, obs_b, gen, noise=None):
         return sample_policy(params, obs_b, spec, gen=gen, noise=noise)
 
-    def batch_sample_fn(params, obs_b, gen, noise=None):
+    def batch_sample_fn(params, obs_b, gen, noise=None, on=None):
         """``sample_fn`` over this rank's rows of the batch: under dp a
         standard normal not given is drawn for the whole batch and cut to
-        the rows."""
-        if dp_group is not None and noise is None:
+        the rows. Stacked over seeds, ``gen`` is the seeds' generators and
+        a draw not given is made for the seeds in ``on``."""
+        if isinstance(gen, list) and noise is None:
+            noise = draw_normal(gen, (obs_b.shape[-2], cfg.action_dim), on)
+        elif dp_group is not None and noise is None:
             n = obs_b.shape[0] * n_dp
             noise = torch.randn((n, cfg.action_dim), generator=gen,
                                 device=obs_b.device,
@@ -175,15 +213,21 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         return sample_fn(params, obs_b, gen, noise)
 
     def mean(x):
-        """A batch mean: under dp the rank's local sum over the global
-        count, so that the group's sum is the global mean."""
+        """A batch mean of (B, k): under dp the rank's local sum over the
+        global count, so that the group's sum is the global mean; of (S,
+        B, k), stacked over seeds, each seed's (S,)."""
+        if x.dim() == 3:
+            return seed_mean(x)
         if dp_group is None:
             return torch.mean(x)
         return torch.sum(x) / (x.numel() * n_dp)
 
     def global_mean(x):
         """A batch mean that every rank needs whole, without a gradient
-        (the entropy errors): summed over the dp group."""
+        (the entropy errors): summed over the dp group; per seed for (S,
+        B, k)."""
+        if x.dim() == 3:
+            return seed_mean(x)
         if dp_group is None:
             return torch.mean(x)
         return dp_group.all_reduce(torch.sum(x)) / (x.numel() * n_dp)
@@ -191,10 +235,18 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
     def mse(a, b):
         return mean(torch.square(a - b))
 
-    def step(optimizer, params, loss, batch_loss: bool = True) -> None:
+    def step(optimizer, params, loss, batch_loss: bool = True,
+             gate=None) -> None:
         """One optimizer step of ``params`` on ``loss``. Under dp a
         ``batch_loss`` (a rank's share of a batch mean) has its gradients
-        summed over the group, in one flat bucket per optimizer group."""
+        summed over the group, in one flat bucket per optimizer group.
+        Stacked over seeds, the seeds' (S,) losses are summed and the
+        ``SeedAdam`` steps the seeds of the host list ``gate``."""
+        if isinstance(optimizer, SeedAdam):
+            optimizer.step(torch.autograd.grad(loss.sum(),
+                                               tree_leaves(params)),
+                           mask_of(gate))
+            return
         grads = torch.autograd.grad(loss, tree_leaves(params))
         if dp_group is not None and batch_loss:
             grads = dp_group.sum_flat(list(grads))
@@ -216,13 +268,60 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         def obs_to_node_state(obs):
             return obs
 
-    def zero():
-        return torch.zeros((), dtype=torch.float32, device=device)
+    def zero(seeds=None):
+        shape = () if seeds is None else (seeds,)
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    # --- seeds in lockstep: masks and draws -----------------------------
+    seed_mask = SeedMasks(device)
+
+    def mask_of(on):
+        """None when every seed of ``on`` holds (nothing to select), else
+        its mask."""
+        return None if on is None or all(on) else seed_mask(on)
+
+    def flag(gate):
+        """A gate as the constraint functions take it: a host bool for one
+        seed, or where the seeds differ a (S,) mask."""
+        if not isinstance(gate, list):
+            return gate
+        if all(gate) or not any(gate):
+            return all(gate)
+        return seed_mask(gate)
+
+    def select(gate, new, old):
+        """``new`` for the seeds of ``gate`` (a host list), ``old`` for the
+        others (one seed: ``new``)."""
+        m = mask_of(gate) if isinstance(gate, list) else None
+        return new if m is None else where_seeds(m, new, old)
+
+    def draw_normal(gens, shape, on):
+        """Each seed's standard-normal draw of ``shape`` from its own
+        generator for the seeds in ``on`` (zeros for the others), as the
+        one-seed path draws it, stacked: (S,) + shape."""
+        return torch.stack([
+            torch.randn(shape, generator=g, device=device) if o else
+            torch.zeros(shape, device=device)
+            for g, o in zip(gens, on)])
+
+    def stale_alpha(log_alpha, n_upd):
+        """Each seed's temperature for its update (alpha_init on its first
+        update), shaped (S, 1, 1) to scale (S, B, 1)."""
+        first = seed_mask([n == 0 for n in n_upd])
+        return torch.where(first, scfg.alpha_init,
+                           torch.exp(log_alpha.detach()[:, 0]))[:, None, None]
 
     # ------------------------------------------------------------------
-    def select_action(ts: TrainState, obs, gen, warmup: bool, use_backup):
+    def select_action(ts: TrainState, obs, gen, warmup: bool, use_backup,
+                      seeds=None):
         """obs: (obs_dim,). ``warmup`` is a host bool; ``use_backup`` a
-        device bool."""
+        device bool. Stacked over seeds: obs (S, obs_dim), ``gen`` the
+        seeds' generators, ``warmup`` a per-seed host list, ``use_backup``
+        (S,), and ``seeds`` the seeds that act (the others draw nothing;
+        default all)."""
+        if ts.seeds is not None:
+            return select_seed_actions(ts, obs, gen, warmup, use_backup,
+                                       seeds)
         if warmup:
             u = torch.rand((cfg.action_dim,), generator=gen, device=device)
             return action_low + u * (action_high - action_low)
@@ -234,15 +333,53 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
                 a = torch.where(use_backup, a_bak, a)
         return a[0]
 
+    def select_seed_actions(ts, obs, gens, warmup, use_backup, seeds):
+        """``select_action`` for a state stacked over seeds: each acting
+        seed draws from its own generator what the one-seed path draws
+        (the uniform warm-up action, or the policy's and then the backup
+        policy's standard normal), and one batched forward serves every
+        seed."""
+        n = ts.seeds
+        seeds = [True] * n if seeds is None else seeds
+        warm = [o and w for o, w in zip(seeds, warmup)]
+        acting = [o and not w for o, w in zip(seeds, warmup)]
+        action = torch.zeros((n, cfg.action_dim), device=device)
+        if any(acting):
+            shape = (1, cfg.action_dim)
+            draws = [[], []]
+            for g, o in zip(gens, acting):
+                for k in range(2 if ccfg.use_backup else 1):
+                    draws[k].append(torch.randn(shape, generator=g,
+                                                device=device) if o else
+                                    torch.zeros(shape, device=device))
+            with torch.no_grad():
+                obs_b = obs[:, None, :]
+                a, _, _ = sample_fn(ts.policy, obs_b, None,
+                                    torch.stack(draws[0]))
+                if ccfg.use_backup:
+                    a_bak, _, _ = sample_fn(ts.backup_policy, obs_b, None,
+                                            torch.stack(draws[1]))
+                    a = torch.where(use_backup[:, None, None], a_bak, a)
+            action = a[:, 0]
+        if any(warm):
+            u = torch.stack([
+                torch.rand((cfg.action_dim,), generator=g, device=device)
+                if w else torch.zeros((cfg.action_dim,), device=device)
+                for g, w in zip(gens, warm)])
+            action = select(warm, action_low + u * (action_high - action_low),
+                            action)
+        return action
+
     # ------------------------------------------------------------------
-    def node_fit_batch(node_params, node_opt, batch, shorts=None):
+    def node_fit_batch(node_params, node_opt, batch, shorts=None,
+                       gate=None):
         x = obs_to_node_state(batch["obs"])
         x_next = obs_to_node_state(batch["next_obs"])
-        t = batch["t"][:, None] if ncfg.time_input else None
+        t = batch["t"][..., None] if ncfg.time_input else None
         loss = node_loss(ncfg, node_params, x, batch["action"], x_next, dt,
                          t=t, field=field, shorts=shorts, mean=mean,
                          dp_group=dp_group)
-        step(node_opt, node_params, loss)
+        step(node_opt, node_params, loss, gate=gate)
         return loss.detach()
 
     def node_fit(node_params, node_opt, node_replay, gen):
@@ -252,9 +389,21 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         return node_fit_batch(node_params, node_opt, batch)
 
     # ------------------------------------------------------------------
-    def update(ts: TrainState, rl_replay, node_replay, gen, i_episode: int
-               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Sample the RL buffer, then ``update_presampled``."""
+    def update(ts: TrainState, rl_replay, node_replay, gen, i_episode: int,
+               seeds=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Sample the RL buffer, then ``update_presampled``. Stacked over
+        seeds (``SeedReplay`` rings, ``gen`` the seeds' generators), the
+        seeds in ``seeds`` (a host list; default all) sample and update,
+        each from its own ring and generator."""
+        if ts.seeds is not None:
+            on = active(ts, seeds)
+            batch = replay_lib.sample_seeds(rl_replay, gen, scfg.batch_size,
+                                            on)
+            return update_core(
+                ts, batch,
+                lambda fit: replay_lib.sample_seeds(node_replay, gen,
+                                                    ncfg.max_batch, fit),
+                gen, i_episode, seeds=on)
         batch = replay_lib.sample(rl_replay, gen, scfg.batch_size,
                                   rows(scfg.batch_size))
         return update_presampled(ts, batch, node_replay, gen, i_episode)
@@ -276,7 +425,8 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """The update over whole pre-sampled batches (the dp entry point):
         under dp this rank keeps its rows of both batches and of any
-        injected draws (``noise``, as ``update_core`` takes them)."""
+        injected draws (``noise``, as ``update_core`` takes them). Stacked
+        over seeds, the batches and draws carry a leading seed axis."""
         if dp_group is not None:
             batch = {k: v[rows(v.shape[0])] for k, v in batch.items()}
             node_batch = {k: v[rows(v.shape[0])]
@@ -288,11 +438,18 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
                              if k in RESAMPLE_DRAWS
                              else v[rows(v.shape[0])])
                          for k, v in noise.items()}
-        return update_core(ts, batch, lambda: node_batch, gen, i_episode,
+        return update_core(ts, batch, lambda *_: node_batch, gen, i_episode,
                            noise=noise)
 
+    def active(ts: TrainState, seeds):
+        """The seeds that update: the host list ``seeds``, by default all
+        of a stacked state's."""
+        return [True] * ts.seeds if seeds is None else [bool(o) for o in
+                                                         seeds]
+
     def update_core(ts: TrainState, batch, node_batch_thunk, gen,
-                    i_episode: int, noise: Optional[dict] = None
+                    i_episode: int, noise: Optional[dict] = None,
+                    seeds=None
                     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update over ``batch``. ``noise`` may hold the
         standard-normal draws for the samples ("next" for the TD targets
@@ -303,48 +460,77 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         drawn from ``gen``. Its metrics hold, besides ``METRIC_NAMES``,
         ``short_integrations``: how many of its adaptive NODE
         integrations ended short of their span. Under dp, ``batch`` holds
-        this rank's rows and ``noise`` their draws."""
+        this rank's rows and ``noise`` their draws.
+
+        Stacked over seeds (the module's note): ``gen`` is the seeds'
+        generators, ``seeds`` the host list of the seeds that update (the
+        others keep their state bit for bit; default all), and
+        ``node_batch_thunk(fit)`` takes the list of the seeds that fit."""
         noise = noise or {}
         shorts = []  # predict_next_state's ended-short flags
-        obs, action = batch["obs"], batch["action"]
-        if obs.shape[0] * n_dp != scfg.batch_size:
+        n_seeds = ts.seeds
+        if n_seeds is not None and (dp_group is not None or
+                                    _decoupled_updates or probe_pretanh_reg):
             raise ValueError(
-                f"batch has {obs.shape[0]} rows but cfg.sac.batch_size="
+                "a state stacked over seeds takes no data parallelism, "
+                "decoupled updates or probe regularizer (ROADMAP.md Queue "
+                "1 item 22)")
+        obs, action = batch["obs"], batch["action"]
+        if obs.shape[-2] * n_dp != scfg.batch_size:
+            raise ValueError(
+                f"batch has {obs.shape[-2]} rows but cfg.sac.batch_size="
                 f"{scfg.batch_size}"
                 + (f" over {n_dp} dp ranks" if n_dp > 1 else "")
                 + "; constraint means are normalized by the configured "
                 "size, so they must match")
-        reward = batch["reward"][:, None]
-        constraint = batch["constraint"][:, None]
-        mask = batch["mask"][:, None]
+        reward = batch["reward"][..., None]
+        constraint = batch["constraint"][..., None]
+        mask = batch["mask"][..., None]
         n_upd = ts.updates
+        on = None if n_seeds is None else active(ts, seeds)
+
+        def gate(pred):
+            """``pred(updates)`` as a host bool, or stacked over seeds as a
+            host list over the updating seeds."""
+            if n_seeds is None:
+                return pred(n_upd)
+            return [o and pred(n) for o, n in zip(on, n_upd)]
+
+        def any_on(g):
+            return any(g) if isinstance(g, list) else g
+
         if _decoupled_updates:
             # copies: the steps below update the parameters in place
             pre = {name: snapshot(getattr(ts, name))
                    for name in ("critic", "lyap", "barrier", "node")}
 
         # --- 1. NODE fit (gated) ----------------------------------------
-        do_node = n_upd % ncfg.update_interval == 0
-        if ncfg.fit_episode_limit is not None:
-            do_node = do_node and i_episode <= ncfg.fit_episode_limit
-        if do_node:
-            node_fit_loss = node_fit_batch(ts.node, ts.opt["node"],
-                                           node_batch_thunk(), shorts)
+        limit = ncfg.fit_episode_limit
+        do_node = gate(lambda n: n % ncfg.update_interval == 0 and
+                       (limit is None or i_episode <= limit))
+        if any_on(do_node):
+            node_batch = (node_batch_thunk() if n_seeds is None
+                          else node_batch_thunk(do_node))
+            node_fit_loss = select(do_node, node_fit_batch(
+                ts.node, ts.opt["node"], node_batch, shorts, do_node),
+                zero(n_seeds))
         else:
-            node_fit_loss = zero()
+            node_fit_loss = zero(n_seeds)
 
         # --- 2. critic / Lyapunov TD --------------------------------------
         # Stale-alpha rule: the first update uses alpha_init, later ones
         # the temperature left by the previous update.
         if not is_gaussian:
             alpha = 0.0
+        elif n_seeds is not None:
+            alpha = stale_alpha(ts.log_alpha, n_upd)
         elif n_upd == 0:
             alpha = scfg.alpha_init
         else:
             alpha = torch.exp(ts.log_alpha.detach()[0])
         with torch.no_grad():
             next_a, next_logp, _ = batch_sample_fn(
-                ts.policy, batch["next_obs"], gen, noise.get("next"))
+                ts.policy, batch["next_obs"], gen, noise.get("next"), on)
             q1_t, q2_t = twin_q_apply(ts.critic_target, batch["next_obs"],
                                       next_a)
             min_q_t = torch.minimum(q1_t, q2_t) - alpha * next_logp
@@ -354,21 +540,21 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
 
         q1, q2 = twin_q_apply(ts.critic, obs, action)
         qf1_loss, qf2_loss = mse(q1, next_q), mse(q2, next_q)
-        step(ts.opt["critic"], ts.critic, qf1_loss + qf2_loss)
+        step(ts.opt["critic"], ts.critic, qf1_loss + qf2_loss, gate=on)
 
         lf_loss = mse(lyapunov_apply(ts.lyap, batch["lyap_t"]), next_l)
-        step(ts.opt["lyap"], ts.lyap, lf_loss)
+        step(ts.opt["lyap"], ts.lyap, lf_loss, gate=on)
 
-        barrier_td_loss = zero()
+        barrier_td_loss = zero(n_seeds)
         if is_nbc:
             # the barrier's TD target takes the critic's next action
             with torch.no_grad():
                 b_next = barrier_apply(ts.barrier_target, batch["next_obs"],
                                        next_a)
-                next_b = (batch["barrier_signal"][:, None]
+                next_b = (batch["barrier_signal"][..., None]
                           + mask * scfg.gamma * b_next)
             b_loss = mse(barrier_apply(ts.barrier, obs, action), next_b)
-            step(ts.opt["barrier"], ts.barrier, b_loss)
+            step(ts.opt["barrier"], ts.barrier, b_loss, gate=on)
             barrier_td_loss = b_loss.detach()
 
         # The policy losses see the stepped critic, Lyapunov net, barrier
@@ -383,41 +569,42 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
                 detach(ts.node))
 
         # --- 3. primary policy ------------------------------------------
-        do_lam = n_upd % ccfg.lambda_update_interval == 0
         lag_live = True
         if ccfg.lagrangian_warmup_episodes > 0:
             lag_live = i_episode >= ccfg.lagrangian_warmup_episodes
-            do_lam = do_lam and lag_live
+        do_lam = gate(lambda n: n % ccfg.lambda_update_interval == 0 and
+                      lag_live)
         term_kwargs = dict(ccfg=ccfg, ncfg=ncfg, node_params=pg_node,
                            field=field, lyap_params=pg_lyap,
                            lyap_t=batch["lyap_t"], dt=dt, gen=gen,
-                           t=batch["t"][:, None],
-                           next_t=batch["next_t"][:, None],
+                           t=batch["t"][..., None],
+                           next_t=batch["next_t"][..., None],
                            env_name=cfg.env.name,
                            barrier_params=pg_barrier,
                            shorts=shorts, dp_group=dp_group)
 
-        def make_resampler(policy, draws):
+        def make_resampler(policy, draws, on_k):
             """The chain's k-th resampled control, from the policy being
             optimized; it carries no gradient."""
             def resample(obs_k, k):
                 with torch.no_grad():
                     a, _, _ = batch_sample_fn(
                         policy, obs_k, gen,
-                        None if draws is None else draws[k])
+                        None if draws is None else draws[k], on_k)
                 return a
             return resample
 
-        pi, logp, _ = batch_sample_fn(ts.policy, obs, gen, noise.get("pi"))
+        pi, logp, _ = batch_sample_fn(ts.policy, obs, gen, noise.get("pi"),
+                                      on)
         pq1, pq2 = twin_q_apply(pg_critic, obs, pi)
         policy_loss_1 = mean(alpha * logp - torch.minimum(pq1, pq2))
         terms = builder.terms(
             obs=obs, action=pi, include_clf=True,
-            resample=make_resampler(ts.policy, noise.get("resample")),
+            resample=make_resampler(ts.policy, noise.get("resample"), on),
             **term_kwargs)
         policy_loss_2, lam_new, rho1 = lag_primary_loss(
-            ccfg, terms, ts.lag.lam, ts.lag.rho, do_lam, scfg.batch_size,
-            do_rho_growth=lag_live, reduce=reduce_means)
+            ccfg, terms, ts.lag.lam, ts.lag.rho, flag(do_lam),
+            scfg.batch_size, do_rho_growth=lag_live, reduce=reduce_means)
         loss = policy_loss_1 + policy_loss_2
         if pretanh_reg:
             mu, _ = gaussian_policy_forward(ts.policy, obs)
@@ -428,7 +615,7 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
             mu_p, _ = gaussian_policy_forward(ts.policy, probe_obs)
             loss = loss + probe_pretanh_reg * torch.mean(
                 torch.square(mu_p)) / n_dp
-        step(ts.opt["policy"], ts.policy, loss)
+        step(ts.opt["policy"], ts.policy, loss, gate=on)
         logp = logp.detach()
 
         # --- 4. backup policy branch --------------------------------------
@@ -436,36 +623,42 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         if ccfg.use_backup:
             backup_rho_out = (ts.lag.backup_rho if ccfg.separate_backup_rho
                               else rho1)
-            do_backup = (ccfg.backup_update_interval <= 1
-                         or n_upd % ccfg.backup_update_interval == 0)
-            if do_backup:
+            do_backup = gate(lambda n: ccfg.backup_update_interval <= 1
+                             or n % ccfg.backup_update_interval == 0)
+            if any_on(do_backup):
                 if not is_gaussian:
                     backup_alpha = 0.0
+                elif n_seeds is not None:
+                    backup_alpha = stale_alpha(ts.backup_log_alpha, n_upd)
                 elif n_upd == 0:
                     backup_alpha = scfg.alpha_init
                 else:
                     backup_alpha = torch.exp(ts.backup_log_alpha.detach()[0])
                 bpi, blogp, _ = batch_sample_fn(ts.backup_policy, obs, gen,
-                                                noise.get("backup"))
+                                                noise.get("backup"),
+                                                do_backup)
                 bq1, bq2 = twin_q_apply(pg_critic, obs, bpi)
                 bloss1 = mean(backup_alpha * blogp
                               - torch.minimum(bq1, bq2))
                 bterms = builder.terms(
                     obs=obs, action=bpi, include_clf=False,
                     resample=make_resampler(ts.backup_policy,
-                                            noise.get("backup_resample")),
+                                            noise.get("backup_resample"),
+                                            do_backup),
                     **term_kwargs)
-                bloss2, backup_lam, backup_rho_out = lag_backup_loss(
-                    ccfg, bterms, backup_lam, backup_rho_out, do_lam,
+                bloss2, new_lam, new_rho = lag_backup_loss(
+                    ccfg, bterms, backup_lam, backup_rho_out, flag(do_lam),
                     scfg.batch_size, do_rho_growth=lag_live,
                     reduce=reduce_means)
+                backup_lam = select(do_backup, new_lam, backup_lam)
+                backup_rho_out = select(do_backup, new_rho, backup_rho_out)
                 step(ts.opt["backup_policy"], ts.backup_policy,
-                     bloss1 + bloss2)
+                     bloss1 + bloss2, gate=do_backup)
                 if entropy_tuning:
                     ent_err = global_mean(blogp.detach()) + target_entropy
                     step(ts.opt["backup_alpha"], ts.backup_log_alpha,
-                         -(ts.backup_log_alpha[0] * ent_err),
-                         batch_loss=False)
+                         -(ts.backup_log_alpha[..., 0] * ent_err),
+                         batch_loss=False, gate=do_backup)
             if ccfg.separate_backup_rho:
                 rho_final, backup_rho_final = rho1, backup_rho_out
             else:
@@ -475,38 +668,51 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
             rho_final, backup_rho_final = rho1, ts.lag.backup_rho
 
         # --- 5. primary entropy temperature -------------------------------
-        alpha_loss = zero()
+        alpha_loss = zero(n_seeds)
         if entropy_tuning:
             ent_err = global_mean(logp) + target_entropy
-            a_loss = -(ts.log_alpha[0] * ent_err)
+            a_loss = -(ts.log_alpha[..., 0] * ent_err)
             alpha_loss = a_loss.detach()
-            step(ts.opt["alpha"], ts.log_alpha, a_loss, batch_loss=False)
+            step(ts.opt["alpha"], ts.log_alpha, a_loss, batch_loss=False,
+                 gate=on)
 
         # --- 6. soft target updates ---------------------------------------
-        if scfg.target_update_interval <= 1 or \
-                n_upd % scfg.target_update_interval == 0:
-            soft_update(ts.critic_target, ts.critic, scfg.tau)
-            soft_update(ts.lyap_target, ts.lyap, scfg.tau)
+        do_target = gate(lambda n: scfg.target_update_interval <= 1 or
+                         n % scfg.target_update_interval == 0)
+        if any_on(do_target):
+            m_target = mask_of(do_target) if n_seeds is not None else None
+            soft_update(ts.critic_target, ts.critic, scfg.tau, m_target)
+            soft_update(ts.lyap_target, ts.lyap, scfg.tau, m_target)
             if is_nbc:
-                soft_update(ts.barrier_target, ts.barrier, scfg.tau)
+                soft_update(ts.barrier_target, ts.barrier, scfg.tau,
+                            m_target)
 
-        ts.lag = ts.lag._replace(lam=lam_new.detach(),
-                                 backup_lam=backup_lam.detach(),
-                                 rho=rho_final, backup_rho=backup_rho_final)
-        ts.updates = n_upd + 1
+        lag = LagrangianState(lam=lam_new.detach(),
+                              backup_lam=backup_lam.detach(),
+                              rho=rho_final, backup_rho=backup_rho_final)
+        if n_seeds is None:
+            ts.lag, ts.updates = lag, n_upd + 1
+        else:
+            # a seed that does not update keeps its multipliers and rho
+            ts.lag = LagrangianState(*(select(on, new, old)
+                                       for new, old in zip(lag, ts.lag)))
+            ts.updates = [n + int(o) for n, o in zip(n_upd, on)]
         metrics = {
             "qf1_loss": qf1_loss.detach(), "qf2_loss": qf2_loss.detach(),
             "lf_loss": lf_loss.detach(),
             "policy_loss": policy_loss_1.detach(),
             "constraint_loss": policy_loss_2.detach(),
             "alpha_loss": alpha_loss,
-            "alpha": (torch.exp(ts.log_alpha.detach()[0]) if is_gaussian
-                      else zero()),
+            "alpha": (torch.exp(ts.log_alpha.detach()[..., 0])
+                      if is_gaussian else zero(n_seeds)),
             "node_loss": node_fit_loss, "barrier_td_loss": barrier_td_loss,
-            "rho": rho_final, "lam_max": torch.max(lam_new.detach()),
-            "short_integrations": (torch.stack(shorts).sum() if shorts
-                                   else torch.zeros((), dtype=torch.int64,
-                                                    device=device)),
+            "rho": rho_final,
+            "lam_max": (torch.max(lam_new.detach()) if n_seeds is None else
+                        torch.amax(lam_new.detach(), dim=-1)),
+            "short_integrations": (
+                torch.stack(shorts).sum() if shorts else
+                torch.zeros(() if n_seeds is None else (n_seeds,),
+                            dtype=torch.int64, device=device)),
         }
         if dp_group is not None:
             # the batch-mean metrics are each rank's share: one sum

@@ -6,7 +6,8 @@
   h_i(p) = 1/2 (||p - o_i||^2 - (1.05 r)^2), 7 hazards
 
 The gradient reaches the action through the one-step NODE prediction,
-which runs the fused Euler kernel on the GPU.
+which runs the fused Euler kernel on the GPU. Stacked over seeds, obs and
+action carry a leading (S,) axis and the residuals are (S, B, K).
 """
 
 from __future__ import annotations
@@ -24,10 +25,9 @@ def _lookahead(xy, theta, l_p):
 
 
 def _h(ps, collision_radius):
-    """(B,2) lookahead points -> (B, 7) barrier values."""
+    """(..., B, 2) lookahead points -> (..., B, 7) barrier values."""
     hazards = env.constants(ps.device)["hazards"]
-    d2 = torch.sum(torch.square(ps[:, None, :] - hazards[None, :, :]),
-                   dim=2)
+    d2 = torch.sum(torch.square(ps[..., None, :] - hazards), dim=-1)
     return 0.5 * (d2 - collision_radius ** 2)
 
 
@@ -38,11 +38,11 @@ def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
     l_p = ccfg.lookahead
     collision_radius = ccfg.collision_buffer * env.HAZARD_RADIUS
 
-    ps = _lookahead(state[:, :2], state[:, 2], l_p)
+    ps = _lookahead(state[..., :2], state[..., 2], l_p)
     pred = predict_next_state(ncfg, node_params, state, action, dt,
                               field=field, shorts=shorts,
                               dp_group=dp_group)  # (B, 3)
-    ps_next = _lookahead(pred[:, :2], pred[:, 2], l_p)
+    ps_next = _lookahead(pred[..., :2], pred[..., 2], l_p)
 
     hs = _h(ps, collision_radius)
     hs_next = _h(ps_next, collision_radius)
@@ -55,7 +55,7 @@ def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
     l_t1 = lyapunov_apply(lyap_params, ps_next)
     denom = dt if ccfg.clf_time_scaled else 1.0
     clf = (l_t1 - l_t) / denom + ccfg.gamma_l * l_t  # (B, 1)
-    return torch.cat([cbf, clf], dim=1)
+    return torch.cat([cbf, clf], dim=-1)
 
 
 NUM_PRIMARY = 8  # 7 CBFs + 1 CLF

@@ -58,6 +58,16 @@
 //   half the columns, two blocks an SM) makes each B fragment serve two
 //   row tiles and each A fragment seven column tiles, which halves the
 //   loads and splits per product.
+// - A seed axis: S independent parameter sets (the seeds of a lockstep
+//   run, parallel/lockstep.py), stacked as W (S, K, N) and b (S, N), each
+//   with its own B rows of x (S, B, n_s) and u (S, B, n_u). One launch
+//   covers every seed: gridDim.y = S, and a block offsets x, u, x' by its
+//   seed's B rows and each layer's weight and bias pointers by its seed's
+//   stride (K * N and N floats; a multiple of 16 bytes wherever the
+//   weights take the bulk copy). The tiles are picked from the launch's
+//   S * B rows, since what a tile size trades is blocks in flight against
+//   loads per product (chip_smoke.py phase 4 sweeps both at S * B).
+//   S = 1 is the one-seed launch, unchanged.
 // The ragged last tile runs on zero rows and is masked on store. TPU
 // tiling (128x128 MXU padding, one sequential grid) is not carried over.
 
@@ -77,14 +87,17 @@ struct Net {
   int kp[kMaxLayers];   // K padded to 8
   int np[kMaxLayers];   // N padded to 8
   int bulk[kMaxLayers];  // 1: weights staged by one bulk copy
+  int wstride[kMaxLayers];  // floats from one seed's weights to the next
+  int bstride[kMaxLayers];  // floats from one seed's bias to the next
   int n;
 };
 
 struct Args {
-  const float* x;
-  const float* u;
-  float* out;
-  int B, n_s, n_u;
+  const float* x;  // (S, B, n_s)
+  const float* u;  // (S, B, n_u)
+  float* out;      // (S, B, n_s)
+  int B, n_s, n_u;  // B: rows per seed
+  int S;            // seeds (gridDim.y)
   float dt;
   Net net[2];  // cluster rank 0 runs net[0] (f_net), rank 1 net[1] (g_net)
   int lda;     // leading dimension of the activation buffer
@@ -234,10 +247,13 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
 // size is a multiple of 16 bytes, else by 4-byte cp.async; the bias by
 // 4-byte cp.async. The cp.async copies are committed as one group. Run
 // by one warp, the block's producer; `lane` is the thread's index in it.
+// The block's seed (blockIdx.y) picks its slice of stacked weights.
 __device__ void stage(const Net& net, int l, float* ws, uint64_t* bar,
                       int lane) {
   const int K = net.K[l], N = net.N[l], kp = net.kp[l], np = net.np[l];
-  const float* W = net.w[l];
+  const size_t seed = blockIdx.y;
+  const float* W = net.w[l] + seed * net.wstride[l];
+  const float* bias = net.b[l] + seed * net.bstride[l];
   if (net.bulk[l]) {
     if (lane == 0) {
       mbar_expect_tx(bar, K * N * 4);
@@ -247,7 +263,7 @@ __device__ void stage(const Net& net, int l, float* ws, uint64_t* bar,
     for (int i = lane; i < K * N; i += 32) cp_async4(ws + i, W + i);
   }
   float* bs = ws + kp * N + 8;
-  for (int i = lane; i < N; i += 32) cp_async4(bs + i, net.b[l] + i);
+  for (int i = lane; i < N; i += 32) cp_async4(bs + i, bias + i);
   cp_async_commit();
   for (int i = K * N + lane; i < kp * N + 8; i += 32) ws[i] = 0.f;
   for (int i = N + lane; i < np; i += 32) bs[i] = 0.f;
@@ -462,6 +478,11 @@ node_euler_kernel(const __grid_constant__ Args a) {
   const Net& net = a.net[rank];
   const int lda = a.lda, n_s = a.n_s, n_u = a.n_u, tid = threadIdx.x;
   const int row0 = (blockIdx.x >> 1) * TM;
+  // this block's seed: its rows of x, u and x'
+  const size_t seed = blockIdx.y;
+  const float* const x = a.x + seed * a.B * n_s;
+  const float* const u = a.u + seed * a.B * n_u;
+  float* const out = a.out + seed * a.B * n_s;
 
   if (tid == 0) {
     mbar_init(&bars[0], 1);
@@ -478,12 +499,12 @@ node_euler_kernel(const __grid_constant__ Args a) {
   for (int i = tid; i < TM * kp0; i += THREADS) {
     const int r = i / kp0, c = i - r * kp0, gr = row0 + r;
     if (c < n_s && gr < a.B)
-      cp_async4(act + r * lda + c, a.x + gr * n_s + c);
+      cp_async4(act + r * lda + c, x + gr * n_s + c);
     else
       act[r * lda + c] = 0.f;
   }
   const int n_io = rank ? n_u : n_s;
-  const float* src = rank ? a.u : a.x;
+  const float* src = rank ? u : x;
   for (int i = tid; i < TM * n_io; i += THREADS) {
     if (row0 * n_io + i < a.B * n_io)
       cp_async4(io + i, src + row0 * n_io + i);
@@ -531,7 +552,7 @@ node_euler_kernel(const __grid_constant__ Args a) {
   for (int i = tid; i < TM * n_s; i += THREADS) {
     const int r = i / n_s, j = i - r * n_s;
     if (row0 + r < a.B)
-      a.out[row0 * n_s + i] = io[i] + a.dt * (act[r * lda + j] + gu[i]);
+      out[row0 * n_s + i] = io[i] + a.dt * (act[r * lda + j] + gu[i]);
   }
 }
 
@@ -550,8 +571,12 @@ bool fill_net(Net& net, int n, const void* const* w, const void* const* b,
     net.N[l] = N;
     net.kp[l] = pad8(K);
     net.np[l] = pad8(N);
+    // a seed's weights start K * N floats after the last seed's, so
+    // the bulk copy's 16-byte alignment holds for every seed
     net.bulk[l] = (K * N) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(w[l]) % 16 == 0;
+    net.wstride[l] = K * N;
+    net.bstride[l] = N;
   }
   return true;
 }
@@ -569,7 +594,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     attr_bytes = bytes;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * ((a.B + TM - 1) / TM), 1, 1);
+  cfg.gridDim = dim3(2 * ((a.B + TM - 1) / TM), a.S, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
@@ -590,16 +615,19 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // The launch takes two calls. nlbac_node_euler_plan checks the nets and
 // fills a plan of nlbac_node_euler_plan_bytes() bytes that the caller
 // keeps while the weights stay where they are; nlbac_node_euler_run
-// launches the kernel on a plan for B rows of x and u. Both return a
-// cudaError_t (0 on success). Pointers to x, u, out and the weights are
-// device pointers; the pointer and dims arrays live on the host, dims
-// holding n+1 layer widths per net. `config` picks the tiles: 0 for
+// launches the kernel on a plan for B rows of x and u per seed. Both
+// return a cudaError_t (0 on success). Pointers to x, u, out and the
+// weights are device pointers; the pointer and dims arrays live on the
+// host, dims holding n+1 layer widths per net. With n_seeds = S > 1 the
+// weights are stacked, each layer's W (S, K, N) and b (S, N) contiguous,
+// and x, u and out hold S blocks of B rows. `config` picks the tiles: 0 for
 // 16-row tiles (4 warps, each 16 rows by a quarter of the columns), 1 for
 // 64-row tiles (4 warps, each 32 rows by half of the columns). Nothing is
 // allocated and nothing waits.
 extern "C" int nlbac_node_euler_plan_bytes() { return (int)sizeof(Args); }
 
-extern "C" int nlbac_node_euler_plan(void* plan, int n_s, int n_u, int n_f,
+extern "C" int nlbac_node_euler_plan(void* plan, int n_seeds, int n_s,
+                                     int n_u, int n_f,
                                      const void* const* f_w,
                                      const void* const* f_b,
                                      const int* f_dims, int n_g,
@@ -609,7 +637,9 @@ extern "C" int nlbac_node_euler_plan(void* plan, int n_s, int n_u, int n_f,
   Args a = {};
   a.n_s = n_s;
   a.n_u = n_u;
-  if (n_s < 1 || n_u < 1 || n_s + n_u > kMaxWidth ||
+  a.S = n_seeds;
+  if (n_seeds < 1 || n_seeds > 65535 || n_s < 1 || n_u < 1 ||
+      n_s + n_u > kMaxWidth ||
       !fill_net(a.net[0], n_f, f_w, f_b, f_dims) ||
       !fill_net(a.net[1], n_g, g_w, g_b, g_dims) || f_dims[0] != n_s ||
       f_dims[n_f] != n_s || g_dims[0] != n_s || g_dims[n_g] != n_s * n_u)

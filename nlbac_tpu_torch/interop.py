@@ -15,6 +15,12 @@ grid=)`` gives a tensor-parallel rank its shards of the reference's state
 (a data-parallel rank holds all of it), and ``to_reference`` of a rank's
 shards puts the whole state together first (a collective of the tp
 group), so a gang's state comes back as one reference tree.
+
+For the lockstep seed runner, ``from_reference_stacked`` takes a
+reference state with a leading seed axis on every leaf (as
+``jax.vmap(create_train_state)`` makes it, or a vmapped update leaves
+it) and returns the port's state stacked over seeds
+(``agent.state.stack_states``); ``to_reference_stacked`` goes back.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from nlbac_tpu_torch.agent.state import (
     OPT_GROUPS,
     TrainState,
     make_optimizers,
+    stack_states,
+    unstack_state,
 )
 from nlbac_tpu_torch.config import NLBACConfig
 from nlbac_tpu_torch.constraints.common import LagrangianState
@@ -151,3 +159,49 @@ def to_reference(ts: TrainState, template):
     return template._replace(
         **out, opt=opt, lag=lag,
         updates=np.asarray(ts.updates, np.asarray(template.updates).dtype))
+
+
+def _seed_slice(tree, i: int):
+    """Seed i of a numpy pytree (dicts, lists, tuples, NamedTuples) whose
+    leaves carry a leading seed axis."""
+    if isinstance(tree, dict):
+        return {k: _seed_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_seed_slice(v, i) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_seed_slice(v, i) for v in tree)
+    return np.asarray(tree)[i]
+
+
+def _seed_stack(trees):
+    """The numpy pytrees ``trees`` (one structure) stacked on a new
+    leading seed axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _seed_stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_seed_stack(list(vs)) for vs in zip(*trees)))
+    if isinstance(first, (list, tuple)):
+        return type(first)(_seed_stack(list(vs)) for vs in zip(*trees))
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def from_reference_stacked(ref, cfg: NLBACConfig, n_seeds: int,
+                           device="cuda") -> TrainState:
+    """The reference's numpy ``TrainState`` with a leading seed axis of
+    ``n_seeds`` on every leaf -> the port's state stacked over seeds,
+    seed i from the reference's seed i (weights, Adam moments and count,
+    the Lagrangian state, the update counter)."""
+    device = resolve_device(device)
+    return stack_states(cfg, [from_reference(_seed_slice(ref, i), cfg,
+                                             device)
+                              for i in range(n_seeds)])
+
+
+def to_reference_stacked(ts: TrainState, template, cfg: NLBACConfig):
+    """The port's state stacked over seeds -> a numpy pytree with
+    ``template``'s structure (a reference ``TrainState`` with a leading
+    seed axis), seed by seed."""
+    return _seed_stack([to_reference(unstack_state(cfg, ts, i),
+                                     _seed_slice(template, i))
+                        for i in range(ts.seeds)])

@@ -11,6 +11,7 @@ from nlbac_tpu_torch.nn.critics import (  # noqa: F401
     value_apply,
     value_init,
 )
+from nlbac_tpu_torch.nn.adam import SeedAdam  # noqa: F401
 from nlbac_tpu_torch.nn.mlp import (  # noqa: F401
     TPShard,
     mlp_apply,
@@ -26,6 +27,7 @@ from nlbac_tpu_torch.nn.node import (  # noqa: F401
     node_train_step,
     pack_input,
     predict_next_state,
+    seed_mean,
     uses_euler_kernel,
 )
 from nlbac_tpu_torch.nn.policy import (  # noqa: F401

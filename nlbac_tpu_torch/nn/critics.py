@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from nlbac_tpu_torch.nn.mlp import mlp_apply, mlp_init
-from nlbac_tpu_torch.tree import tree_leaves
+from nlbac_tpu_torch.tree import tree_leaves, where_seeds
 
 
 def twin_q_init(gen, obs_dim: int, action_dim: int, hidden: int,
@@ -85,10 +85,18 @@ def barrier_apply(params, obs, action):
 
 
 @torch.no_grad()
-def soft_update(target_params, online_params, tau: float):
+def soft_update(target_params, online_params, tau: float, mask=None):
     """Polyak averaging, target <- (1 - tau) * target + tau * online, in
-    place on ``target_params`` (which is returned)."""
+    place on ``target_params`` (which is returned). Stacked over seeds, a
+    ``mask`` ((S,) bool) averages only its seeds; the others keep their
+    targets bit for bit."""
     targets = tree_leaves(target_params)
-    torch._foreach_mul_(targets, 1.0 - tau)
-    torch._foreach_add_(targets, tree_leaves(online_params), alpha=tau)
+    if mask is None:
+        torch._foreach_mul_(targets, 1.0 - tau)
+        torch._foreach_add_(targets, tree_leaves(online_params), alpha=tau)
+        return target_params
+    new = torch._foreach_mul(targets, 1.0 - tau)
+    torch._foreach_add_(new, tree_leaves(online_params), alpha=tau)
+    for t, n in zip(targets, new):
+        t.copy_(where_seeds(mask, n, t))
     return target_params

@@ -12,7 +12,12 @@ operator before a column layer (the identity forward, the sum of the
 input's gradient backward), the g operator after a row layer (the sum
 of the partial products forward, the identity backward; the row layer's
 bias, held whole, is added after it) and, where a net ends on a column
-layer, the gather of its output columns. Unmarked layers are whole."""
+layer, the gather of its output columns. Unmarked layers are whole.
+
+Stacked over seeds (the lockstep seed runner, ``parallel/lockstep.py``),
+a layer's weight is (S, in, out) and its bias (S, out), and x is (S, B,
+in): each layer is one ``torch.baddbmm`` for every seed. Stacked layers
+take no tp mark."""
 
 from __future__ import annotations
 
@@ -57,7 +62,8 @@ def mlp_apply(params, x: torch.Tensor, *,
               final_activation: Optional[Callable] = None,
               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """ReLU between layers, linear (or ``final_activation``) output. Layers
-    marked ``tp_shard`` run tensor-parallel (see the module's note)."""
+    marked ``tp_shard`` run tensor-parallel, and stacked layers over a
+    seed axis as batched products (see the module's note)."""
     ws, bs = params["w"], params["b"]
     orig_dtype = x.dtype
     if compute_dtype is not None:
@@ -69,7 +75,12 @@ def mlp_apply(params, x: torch.Tensor, *,
         shard = getattr(w, "tp_shard", None)
         if compute_dtype is not None:
             w, b = w.to(compute_dtype), b.to(compute_dtype)
-        if shard is None:
+        if w.dim() == 3:
+            if shard is not None:
+                raise ValueError("a layer stacked over seeds cannot be a "
+                                 "tensor-parallel shard")
+            x = torch.baddbmm(b.unsqueeze(-2), x, w)
+        elif shard is None:
             if split is not None:
                 x, split = split.comm.gather(x), None
             x = x @ w + b

@@ -20,6 +20,10 @@ the plain field (the ``scan`` form differentiated by autograd, the
 batch of a data-parallel group (``dp_group``) and, given a ``shorts``
 list, appends to it on the device whether each integration ended short
 of its span.
+
+Stacked over seeds (every leaf with a leading seed axis, x (S, B, n_s)),
+the control-affine Euler step is one seed-batched K1 launch and the loss
+a per-seed mean.
 """
 
 from __future__ import annotations
@@ -157,11 +161,25 @@ def tp_sharded(params) -> bool:
                for net in params.values() for w in net["w"])
 
 
+def seed_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over every axis but the leading seed axis: (S,)."""
+    return torch.mean(x, dim=tuple(range(1, x.dim())))
+
+
+def _stacked(params) -> bool:
+    """Whether a NODE's parameters carry a leading seed axis."""
+    net = next(iter(params.values()))
+    return net["b"][0].dim() == 2
+
+
 def node_loss(cfg: NodeConfig, params, x, u, x_next, dt, t=None,
-              field=None, shorts=None, mean=torch.mean, dp_group=None):
+              field=None, shorts=None, mean=None, dp_group=None):
     """Mean-squared one-step prediction error (``mean`` takes the squared
     errors to the loss: a data-parallel rank passes its share of the
-    global mean, and its ``dp_group``)."""
+    global mean, and its ``dp_group``). By default the mean over the
+    batch, per seed for stacked parameters."""
+    if mean is None:
+        mean = seed_mean if _stacked(params) else torch.mean
     pred = predict_next_state(cfg, params, x, u, dt, t, field, shorts,
                               dp_group)
     return mean(torch.square(pred - x_next))

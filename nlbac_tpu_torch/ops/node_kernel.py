@@ -21,6 +21,13 @@ threads may share the wrapper; a launch goes to the calling thread's
 current stream. A process that holds several seeds (an ``--n_seeds``
 worker, a rank of a seed group) keeps each seed's parameter set in the
 cache, up to ``_LAUNCH_ARGS_KEPT`` of them.
+
+Seed-batched form (the lockstep seed runner, ``parallel/lockstep.py``):
+S parameter sets stacked on a leading seed axis, each weight (S, K, N)
+and bias (S, N), with x (S, B, n_s) and u (S, B, n_u). One launch covers
+every seed and counts once, with S * B rows in ``launches_by_rows``; its
+plain version runs each layer as one ``torch.baddbmm``. A stacked
+parameter set is one cache entry.
 """
 
 from __future__ import annotations
@@ -45,8 +52,8 @@ MAX_WIDTH = 128  # kMaxWidth in the CUDA source
 # (rows, warps) of the kernel's two tile configurations, in the order of
 # the `config` index nlbac_node_euler_run takes.
 TILE_CONFIGS = ((16, 4), (64, 4))
-# Calls of at most this many rows take 16-row tiles, larger ones 64-row
-# tiles (from the sweep of chip_smoke.py phase 4).
+# Calls of at most this many rows (all seeds' rows) take 16-row tiles,
+# larger ones 64-row tiles (from the sweep of chip_smoke.py phase 4).
 SMALL_TILE_MAX_ROWS = 2048
 
 # Kernel launches made through ``node_euler_step`` since the last reset,
@@ -121,7 +128,8 @@ def _bind(lib):
     """Declare the C entry points' argument types on a loaded library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nlbac_node_euler_plan_bytes.argtypes = []
-    lib.nlbac_node_euler_plan.argtypes = [p, i, i, i, p, p, p, i, p, p, p]
+    lib.nlbac_node_euler_plan.argtypes = [p, i, i, i, i, p, p, p, i, p, p,
+                                          p]
     lib.nlbac_node_euler_run.argtypes = [p, p, p, p, i, ctypes.c_float, i, p]
     for fn in (lib.nlbac_node_euler_plan_bytes, lib.nlbac_node_euler_plan,
                lib.nlbac_node_euler_run):
@@ -152,9 +160,13 @@ def _check_compute_dtype(compute_dtype: Optional[str]) -> None:
 
 
 def _check_rows(x: torch.Tensor, u: torch.Tensor) -> None:
-    if x.dim() != 2 or u.dim() != 2 or x.shape[0] != u.shape[0]:
-        raise ValueError(f"x must be (B, n_s) and u (B, n_u), got "
-                         f"{tuple(x.shape)} and {tuple(u.shape)}")
+    """x (B, n_s) and u (B, n_u), or stacked over seeds (S, B, n_s) and
+    (S, B, n_u)."""
+    if x.dim() not in (2, 3) or u.dim() != x.dim() or \
+            x.shape[:-1] != u.shape[:-1]:
+        raise ValueError(f"x must be (B, n_s) and u (B, n_u), or (S, B, "
+                         f"n_s) and (S, B, n_u), got {tuple(x.shape)} and "
+                         f"{tuple(u.shape)}")
 
 
 def _check_tensors(tensors, device) -> None:
@@ -167,7 +179,12 @@ def _check_tensors(tensors, device) -> None:
             raise ValueError("node_euler inputs must be contiguous")
 
 
-def _validate_params(params, n_s: int, n_u: int, device) -> None:
+def _validate_params(params, n_s: int, n_u: int, device,
+                     seeds: Optional[int] = None) -> None:
+    """The nets' layers chain from n_s to n_s (f) and n_s * n_u (g) within
+    the compiled limits; with ``seeds`` = S each weight is (S, K, N) and
+    each bias (S, N)."""
+    lead = () if seeds is None else (seeds,)
     tensors = []
     for name, out_dim in (("f", n_s), ("g", n_s * n_u)):
         ws, bs = _layers(params[name])
@@ -176,14 +193,15 @@ def _validate_params(params, n_s: int, n_u: int, device) -> None:
                              f"got {len(ws)}")
         prev = n_s
         for w, b in zip(ws, bs):
-            if w.dim() != 2 or w.shape[0] != prev or \
-                    tuple(b.shape) != (w.shape[1],):
+            if w.dim() != len(lead) + 2 or w.shape[:-2] != lead or \
+                    w.shape[-2] != prev or \
+                    tuple(b.shape) != lead + (w.shape[-1],):
                 raise ValueError(f"{name}_net layer shapes do not chain: "
                                  f"{tuple(w.shape)}, {tuple(b.shape)}")
-            if w.shape[1] > MAX_WIDTH:
-                raise ValueError(f"{name}_net width {w.shape[1]} exceeds "
+            if w.shape[-1] > MAX_WIDTH:
+                raise ValueError(f"{name}_net width {w.shape[-1]} exceeds "
                                  f"the kernel's {MAX_WIDTH}")
-            prev = w.shape[1]
+            prev = w.shape[-1]
         if prev != out_dim:
             raise ValueError(f"{name}_net ends at {prev}, expected {out_dim}")
         tensors += ws + bs
@@ -195,21 +213,24 @@ def _validate_params(params, n_s: int, n_u: int, device) -> None:
 def validate(params, x: torch.Tensor, u: torch.Tensor,
              compute_dtype: Optional[str] = None) -> None:
     """Raise unless the kernel takes these inputs: float32, contiguous, on
-    one device, f32 compute, (B, n_s) and (B, n_u) rows and the layer
-    widths within the compiled limits."""
+    one device, f32 compute, (B, n_s) and (B, n_u) rows (or (S, B, n_s)
+    and (S, B, n_u) with S stacked parameter sets) and the layer widths
+    within the compiled limits."""
     _check_compute_dtype(compute_dtype)
     launch_args(params, x, u)
 
 
 class LaunchArgs:
-    """Validated parameters, ready for the kernel: the dimensions, the
-    device, the ctypes arguments of ``nlbac_node_euler_plan`` (layer
-    counts, weight and bias pointer arrays, layer widths) and, from the
-    first launch on, the plan it fills."""
+    """Validated parameters, ready for the kernel: the seeds (1 for an
+    unstacked set), the dimensions, the device, the ctypes arguments of
+    ``nlbac_node_euler_plan`` (layer counts, weight and bias pointer
+    arrays, layer widths) and, from the first launch on, the plan it
+    fills."""
 
     def __init__(self, n_s: int, n_u: int, device: torch.device,
-                 c_args: tuple):
+                 c_args: tuple, seeds: int = 1):
         self.n_s, self.n_u, self.device, self.c_args = n_s, n_u, device, c_args
+        self.seeds = seeds
         self._plan = None
 
     def plan(self):
@@ -217,8 +238,8 @@ class LaunchArgs:
             lib = load()
             plan = ctypes.create_string_buffer(
                 lib.nlbac_node_euler_plan_bytes())
-            err = lib.nlbac_node_euler_plan(plan, self.n_s, self.n_u,
-                                            *self.c_args)
+            err = lib.nlbac_node_euler_plan(plan, self.seeds, self.n_s,
+                                            self.n_u, *self.c_args)
             if err != 0:
                 raise ValueError(f"nlbac_node_euler_plan refused the "
                                  f"parameters: cudaError_t {err}")
@@ -238,26 +259,27 @@ def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
     cache when the parameters are the tensors last validated, else
     validated and built anew."""
     _check_rows(x, u)
-    n_s, n_u = x.shape[1], u.shape[1]
+    n_s, n_u = x.shape[-1], u.shape[-1]
+    seeds = x.shape[0] if x.dim() == 3 else None
     fw, fb = _layers(params["f"])
     gw, gb = _layers(params["g"])
-    key = (n_s, n_u, len(fw), len(gw)) + tuple(
+    key = (seeds, n_s, n_u, len(fw), len(gw)) + tuple(
         (t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
         for t in fw + fb + gw + gb)
     args = _launch_args.get(key)
     if args is None:
-        _validate_params(params, n_s, n_u, x.device)
+        _validate_params(params, n_s, n_u, x.device, seeds)
 
         def ptrs(ts):
             return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
         def dims(ws):
-            d = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+            d = [ws[0].shape[-2]] + [w.shape[-1] for w in ws]
             return (ctypes.c_int * len(d))(*d)
 
         args = LaunchArgs(n_s, n_u, x.device, (
             len(fw), ptrs(fw), ptrs(fb), dims(fw),
-            len(gw), ptrs(gw), ptrs(gb), dims(gw)))
+            len(gw), ptrs(gw), ptrs(gb), dims(gw)), seeds or 1)
         if len(_launch_args) >= _LAUNCH_ARGS_KEPT:
             _launch_args.clear()
         _launch_args[key] = args
@@ -266,8 +288,8 @@ def launch_args(params, x: torch.Tensor, u: torch.Tensor) -> LaunchArgs:
 
 
 def tile_config(rows: int) -> int:
-    """Index into TILE_CONFIGS of the tiles a call of ``rows`` rows
-    takes."""
+    """Index into TILE_CONFIGS of the tiles a call of ``rows`` rows (all
+    seeds' rows) takes."""
     return 0 if rows <= SMALL_TILE_MAX_ROWS else 1
 
 
@@ -278,13 +300,14 @@ def _launch(args: LaunchArgs, x: torch.Tensor, u: torch.Tensor, dt: float,
     ``tile_config``)."""
     lib, plan = load(), args.plan()
     out = torch.empty_like(x)
-    rows = x.shape[0]
+    per_seed = x.shape[-2]
+    rows = per_seed * args.seeds
     if config is None:
         config = tile_config(rows)
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
     err = lib.nlbac_node_euler_run(plan, x.data_ptr(), u.data_ptr(),
-                                   out.data_ptr(), rows, float(dt), config,
-                                   stream)
+                                   out.data_ptr(), per_seed, float(dt),
+                                   config, stream)
     if err != 0:
         raise RuntimeError(f"node_euler kernel launch failed: cudaError_t "
                            f"{err}")
@@ -293,7 +316,8 @@ def _launch(args: LaunchArgs, x: torch.Tensor, u: torch.Tensor, dt: float,
 
 
 def _mlp(net, x, cdt):
-    """ReLU MLP over (in, out) weights, as ``nn.mlp.mlp_apply``."""
+    """ReLU MLP over (in, out) weights, as ``nn.mlp.mlp_apply``; stacked
+    weights (S, K, N) with x (S, B, K) take one ``baddbmm`` a layer."""
     out_dtype = x.dtype
     if cdt is not None:
         x = x.to(cdt)
@@ -301,7 +325,10 @@ def _mlp(net, x, cdt):
     for i, (w, b) in enumerate(zip(net["w"], net["b"])):
         if cdt is not None:
             w, b = w.to(cdt), b.to(cdt)
-        x = x @ w + b
+        if w.dim() == 3:
+            x = torch.baddbmm(b.unsqueeze(-2), x, w)
+        else:
+            x = x @ w + b
         if i < n - 1:
             x = torch.relu(x)
     return x.to(out_dtype)
@@ -368,7 +395,9 @@ def _unflatten(treedef, leaves):
 def node_euler_step(params, x: torch.Tensor, u: torch.Tensor, dt: float,
                     compute_dtype: Optional[str] = None) -> torch.Tensor:
     """x + dt * (f(x) + g(x) u) for control-affine NODE params
-    ``{"f": mlp, "g": mlp}``; differentiable in params, x and u.
+    ``{"f": mlp, "g": mlp}``; differentiable in params, x and u. Stacked
+    params (a leading seed axis on every leaf) take x (S, B, n_s) and u
+    (S, B, n_u): one launch for every seed.
 
     CUDA tensors go through the kernel or raise; CPU tensors take the
     plain version (in ``compute_dtype`` where one is given)."""

@@ -1,0 +1,340 @@
+"""The lockstep seed runner (port of ``nlbac_tpu/parallel/mesh.py:95-136``,
+``make_seed_parallel_runner``).
+
+JAX's runner is ``jax.vmap`` of the episode program over a seed axis:
+every seed's episode runs in one XLA program, the batched ``while_loop``
+runs until every seed is done and freezes a finished seed's carry by a
+select, and every ``lax.cond`` becomes a select on a per-seed predicate.
+Here the seed axis is written out. One process on one card holds N seeds
+stacked (``agent.state.stack_states``, ``replay.SeedReplay``), and one
+Python episode loop, ``train/driver.py``'s step for step, issues each
+launch once for every seed: a layer is one batched product, the NODE's
+Euler step one seed-batched K1 launch.
+
+- All seeds share ``i_episode``; each keeps its own step total, update
+  counter, replay cursors and sizes, supervisor, multipliers and Adam
+  state.
+- The loop runs while any seed runs. A finished seed makes no update, no
+  push and no draw, and its state, rings, generator and metrics stay as
+  they were at its last step.
+- Every gate is decided per seed on the host: the update gate (``size >
+  batch_size``), the warm-up (``total < start_steps``), and inside the
+  update the fit, the ascent, the backup branch and the target update
+  (``agent/update.py``'s note). The running seeds share the episode's
+  step count, so the time limit and the supervisor's ring slot stay host
+  integers.
+- A step reads the device once, for every seed's ``done`` and backup
+  flag together.
+- Seed i is made as ``parallel/seeds.py::_new_seed`` makes seed
+  ``base_seed + i`` (its own ``torch.Generator``), and each draw site
+  draws seed i's share from seed i's generator with the one-seed shape,
+  so seed i follows its standalone run (``--n_seeds``' seed i, or
+  ``train()`` with that seed) up to float32 rounding: a batched product
+  need not round as the one-seed product does. JAX derives its seeds'
+  keys with ``split(PRNGKey(base_seed), n)`` instead; threefry and
+  Philox never match anyway (ROADMAP.md Queue 3).
+
+It covers what its ``_refuse`` lets through: the unicycle preset (and
+envs registered with its constraint builder), the control-affine NODE
+under one float32 Euler step (K1 on its path), on one device. The rest
+raises, naming the ROADMAP item that queues it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from nlbac_tpu_torch import replay as replay_lib
+from nlbac_tpu_torch import resolve_device
+from nlbac_tpu_torch.agent import create_train_state, make_agent
+from nlbac_tpu_torch.agent.state import stack_states
+from nlbac_tpu_torch.agent.update import METRIC_NAMES
+from nlbac_tpu_torch.config import NLBACConfig
+from nlbac_tpu_torch.envs import get_env
+from nlbac_tpu_torch.nn import uses_euler_kernel
+from nlbac_tpu_torch.train.aot import _LOADERS, episode_kernels
+from nlbac_tpu_torch.train.driver import (
+    EpisodeMetrics,
+    _f32,
+    build_step_kwargs,
+    create_replays,
+)
+from nlbac_tpu_torch.train.supervisor import (
+    init_supervisor,
+    post_step,
+    pre_action,
+)
+from nlbac_tpu_torch.tree import SeedMasks, where_seeds
+
+# The ROADMAP.md items that queue what the runner refuses
+PRESETS_ITEM = "ROADMAP.md Queue 1 item 22"
+DEVICES_ITEM = "ROADMAP.md Queue 1 item 23"
+
+
+def _refuse(cfg: NLBACConfig) -> None:
+    """Raise a ValueError for a config the lockstep runner does not cover,
+    naming its ROADMAP item."""
+    def no(what):
+        raise ValueError(f"make_seed_parallel_runner covers the unicycle "
+                         f"preset's path (control-affine NODE, one float32 "
+                         f"Euler step); {what} is queued as {PRESETS_ITEM}")
+    if cfg.env.name in ("cars", "pvtol", "quadrotor"):
+        no(f"the {cfg.env.name} env")
+    if cfg.constraint.kind != "unicycle":
+        no(f"the {cfg.constraint.kind!r} constraint builder")
+    if cfg.supervisor.kind not in ("trap", "none"):
+        no(f"the {cfg.supervisor.kind!r} supervisor")
+    if cfg.node.solver != "euler":
+        no(f"--node_solver {cfg.node.solver}")
+    if cfg.node.compute_dtype is not None:
+        no(f"a {cfg.node.compute_dtype} NODE")
+    if not uses_euler_kernel(cfg.node):
+        no(f"the {cfg.node.form!r} NODE field with "
+           f"{cfg.node.solver_steps} steps")
+    if cfg.env.spawn_curriculum_episodes > 0:
+        no("a spawn curriculum")
+    if cfg.sac.probe_pretanh_reg:
+        no("the probe pre-tanh regularizer")
+
+
+def _reset_seeds(env, device, gens, max_steps):
+    """Each seed's ``env.reset`` (from its own generator), stacked: the
+    state's tensors on a leading seed axis, its host values (the step
+    count) shared."""
+    pairs = [env.reset(device, gen=g, max_episode_steps=max_steps)
+             for g in gens]
+    flats = [tree_flatten(st) for st, _ in pairs]
+    spec = flats[0][1]
+    leaves = []
+    for vals in zip(*(f[0] for f in flats)):
+        if isinstance(vals[0], torch.Tensor):
+            leaves.append(torch.stack(vals))
+        elif any(v != vals[0] for v in vals):
+            raise ValueError(f"the seeds' env states differ in a host "
+                             f"value: {vals}")
+        else:
+            leaves.append(vals[0])
+    return tree_unflatten(leaves, spec), torch.stack([o for _, o in pairs])
+
+
+def _seed_step(env, **kwargs):
+    """``env.step`` over a leading seed axis: ``torch.func.vmap`` over the
+    state's tensors and the action, the host values (the step count)
+    passed through as the one-seed step sets them."""
+    def step(state, action):
+        leaves, spec = tree_flatten(state)
+        is_tensor = [isinstance(v, torch.Tensor) for v in leaves]
+        host = [v for v, t in zip(leaves, is_tensor) if not t]
+        new_host, new_spec, new_is_tensor = [], [], []
+
+        def one(tensors, a):
+            it, hs = iter(tensors), iter(host)
+            st = tree_unflatten([next(it) if t else next(hs)
+                                 for t in is_tensor], spec)
+            new_st, out = env.step(st, a, **kwargs)
+            vals, sp = tree_flatten(new_st)
+            # the one traced call's host values and structure
+            new_spec[:] = [sp]
+            new_is_tensor[:] = [isinstance(v, torch.Tensor) for v in vals]
+            new_host[:] = [v for v in vals if not isinstance(v, torch.Tensor)]
+            return [v for v in vals if isinstance(v, torch.Tensor)], out
+
+        tensors, out = torch.func.vmap(one)(
+            [v for v, t in zip(leaves, is_tensor) if t], action)
+        it, hs = iter(tensors), iter(new_host)
+        new_state = tree_unflatten([next(it) if t else next(hs)
+                                    for t in new_is_tensor], new_spec[0])
+        return new_state, out
+    return step
+
+
+def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
+                              device="cuda"):
+    """Build ``(init_fn, run_fn)`` for N-seed lockstep training on one
+    device (the module's note).
+
+    ``init_fn(base_seed) -> (ts, rl, node, gens, total)``: the state
+    stacked over seeds, both ``SeedReplay`` rings, the seeds' generators
+    (seed i ``torch.Generator(device).manual_seed(base_seed + i)``) and
+    the per-seed step totals (a host list).
+
+    ``run_fn(ts, rl, node, gens, i_episode, total) -> (ts, rl, node, gens,
+    metrics, total)`` runs one episode of every seed: ``metrics`` is an
+    ``EpisodeMetrics`` whose tensors carry a leading seed axis (the last
+    update's ``train`` metrics per seed) and whose ``steps`` and
+    ``updates_done`` are per-seed host lists; ``total`` is a host list.
+    ``unstack_state(cfg, ts, i)`` gives seed i's plain state.
+
+    ``device`` is one device: a list of several raises (the lockstep over
+    several cards is queued; ``make_async_seed_runner`` spreads seeds over
+    cards)."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != 1:
+            raise ValueError(
+                f"make_seed_parallel_runner runs on one device; "
+                f"{len(device)} devices are queued as {DEVICES_ITEM} "
+                f"(make_async_seed_runner, --n_seeds, spreads seeds over "
+                f"cards)")
+        device = device[0]
+    if n_seeds < 1:
+        raise ValueError(f"n_seeds must be at least 1, got {n_seeds}")
+    _refuse(cfg)
+    device = resolve_device(device)
+    env = get_env(cfg.env.name)
+    agent = make_agent(cfg, device)
+    scfg = cfg.sac
+    dt = cfg.env.dt
+    max_steps = cfg.env.max_episode_steps
+    barrier_B = cfg.env.barrier_B if cfg.env.barrier_signals else 0.0
+    barrier_b = cfg.env.barrier_b if cfg.env.barrier_signals else 0.0
+    env_step = _seed_step(env, barrier_B=barrier_B, barrier_b=barrier_b,
+                          max_episode_steps=max_steps,
+                          **build_step_kwargs(cfg, env))
+    if cfg.supervisor.kind != "none" and not cfg.constraint.use_backup:
+        raise ValueError(
+            f"supervisor.kind={cfg.supervisor.kind!r} requires "
+            "constraint.use_backup=True: the backup controller it would "
+            "engage is never trained or sampled")
+    # as cached_episode_runner: every kernel library the episode launches
+    # is loaded (built where missing) before the first episode
+    for name in episode_kernels(cfg, device):
+        _LOADERS[name]()
+    seed_mask = SeedMasks(device)
+
+    def select(on, new, old):
+        return new if all(on) else where_seeds(seed_mask(on), new, old)
+
+    def init_fn(base_seed: int):
+        gens, states = [], []
+        for i in range(n_seeds):
+            gen = torch.Generator(device).manual_seed(base_seed + i)
+            gens.append(gen)
+            states.append(create_train_state(cfg, gen, device))
+        ts = stack_states(cfg, states)
+        del states
+        rings = [create_replays(cfg, device) for _ in range(n_seeds)]
+        rl = replay_lib.stack_replays([r[0] for r in rings])
+        node = replay_lib.stack_replays([r[1] for r in rings])
+        return ts, rl, node, gens, [0] * n_seeds
+
+    def run_fn(ts, rl, node, gens, i_episode: int, total):
+        if ts.seeds != n_seeds or len(gens) != n_seeds:
+            raise ValueError(f"run_fn takes the {n_seeds} seeds of "
+                             f"init_fn, got {ts.seeds}")
+        env_state, obs = _reset_seeds(env, device, gens, max_steps)
+        start_backup = i_episode >= cfg.supervisor.enable_after_episodes
+        sup = init_supervisor(cfg.supervisor, device, seeds=n_seeds)
+        zeros = torch.zeros((n_seeds,), device=device)
+        acc = {k: zeros for k in ("reward", "num_violations", "safety_cost",
+                                  "reached")}
+        viol = torch.zeros((n_seeds, 4), device=device)
+        cost = torch.zeros((n_seeds, 4), device=device)
+        goal_met = torch.zeros((n_seeds,), dtype=torch.bool, device=device)
+        backup_steps = torch.zeros((n_seeds,), dtype=torch.int32,
+                                   device=device)
+        train_m = {k: zeros for k in METRIC_NAMES}
+        shorts = torch.zeros((n_seeds,), dtype=torch.int64, device=device)
+        total = list(total)
+        steps = [0] * n_seeds
+        updates_done = [0] * n_seeds
+        running = [True] * n_seeds
+        episode_steps = 0
+        while any(running):
+            # --- 1. gradient updates, for the seeds whose ring holds more
+            # than a batch ------------------------------------------------
+            upd = [r and n > scfg.batch_size
+                   for r, n in zip(running, rl.size)]
+            if any(upd):
+                for _ in range(scfg.updates_per_step):
+                    ts, m = agent.update(ts, rl, node, gens, i_episode,
+                                         seeds=upd)
+                    train_m = {k: select(upd, m[k], train_m[k])
+                               for k in METRIC_NAMES}
+                    shorts = shorts + select(
+                        upd, m["short_integrations"],
+                        torch.zeros_like(shorts))
+                updates_done = [d + scfg.updates_per_step * int(o)
+                                for d, o in zip(updates_done, upd)]
+
+            # --- 2. action selection (+ supervisor timer bumps) -----------
+            use_backup, sup = pre_action(cfg.supervisor, sup, start_backup)
+            warmup = [t < scfg.start_steps for t in total]
+            action = agent.select_action(ts, obs, gens, warmup, use_backup,
+                                         seeds=running)
+
+            # --- 3. env step (every seed; a finished seed's is unused) -----
+            env_state, out = env_step(env_state, action)
+            episode_steps += 1
+            for i, r in enumerate(running):
+                if r:
+                    steps[i] = episode_steps
+                    total[i] += 1
+            if episode_steps == max_steps:
+                mask = 1.0
+            else:
+                mask = 1.0 - out.done.to(torch.float32)
+
+            # --- 4. the supervisor and the running seeds' accumulators -----
+            sup = post_step(cfg.supervisor, sup, obs, out, episode_steps,
+                            start_backup)
+            run = seed_mask(running)
+            acc = {k: acc[k] + torch.where(run, getattr(out, k), 0.0)
+                   for k in acc}
+            viol = viol + torch.where(run[:, None], out.viol_breakdown, 0.0)
+            cost = cost + torch.where(run[:, None], out.cost_breakdown, 0.0)
+            goal_met = goal_met | (out.goal_met & run)
+            backup_steps = backup_steps + (use_backup & run).to(torch.int32)
+
+            # --- 5. replay pushes (after the step's one device read) --------
+            done, backup_on = torch.stack([out.done, use_backup]).tolist()
+            t = _f32(np.float32(episode_steps - 1) * np.float32(dt))
+            next_t = _f32(np.float32(t) + np.float32(dt))
+            rec = replay_lib.record_from_step(obs, action, out, mask, t,
+                                              next_t)
+            rows = replay_lib.pack_record(rl.layout, rec, device, n_seeds)
+            replay_lib.push_seed_rows(
+                rl, rows, [r and not b for r, b in zip(running, backup_on)])
+            if cfg.node.reference_time_labels:
+                node_rec = replay_lib.record_from_step(
+                    obs, action, out, mask, next_t,
+                    _f32(np.float32(t) + np.float32(2.0 * dt)))
+                rows = replay_lib.pack_record(node.layout, node_rec, device,
+                                              n_seeds)
+            replay_lib.push_seed_rows(node, rows, running)
+            obs = out.obs
+            running = [r and not d for r, d in zip(running, done)]
+
+        metrics = EpisodeMetrics(
+            reward=acc["reward"], steps=steps,
+            num_violations=acc["num_violations"],
+            safety_cost=acc["safety_cost"], reached=acc["reached"],
+            goal_met=goal_met, viol_breakdown=viol, cost_breakdown=cost,
+            backup_steps=backup_steps, updates_done=updates_done,
+            train=train_m, short_integrations=shorts)
+        return ts, rl, node, gens, metrics, total
+
+    return init_fn, run_fn
+
+
+def episode_to_host_seeds(m: EpisodeMetrics) -> list:
+    """Each seed's episode metrics as Python numbers (one device read), in
+    ``train.driver.episode_to_host``'s form."""
+    scalars = ("reward", "num_violations", "safety_cost", "reached",
+               "goal_met", "backup_steps", "short_integrations")
+    flat = torch.cat(
+        [torch.stack([getattr(m, k).to(torch.float32) for k in scalars], 1),
+         m.viol_breakdown, m.cost_breakdown,
+         torch.stack([m.train[k].to(torch.float32) for k in METRIC_NAMES],
+                     1)], dim=1).tolist()
+    out = []
+    for i, row in enumerate(flat):
+        host = dict(zip(scalars, row))
+        host["viol_breakdown"] = row[len(scalars):len(scalars) + 4]
+        host["cost_breakdown"] = row[len(scalars) + 4:len(scalars) + 8]
+        host["train"] = dict(zip(METRIC_NAMES, row[len(scalars) + 8:]))
+        host["steps"] = m.steps[i]
+        host["updates_done"] = m.updates_done[i]
+        out.append(host)
+    return out

@@ -6,12 +6,18 @@ so a row means the same in both packages. The write cursor and counts are
 host integers: the driver decides each push on the host after its one
 per-step read of the device, so no counter needs a device round trip.
 ``push`` writes in place.
+
+``SeedReplay`` stacks S rings on a leading seed axis, (S, capacity,
+width), for the lockstep seed runner: each seed keeps its own host
+cursor, size and total, a push writes the rows of the seeds it is given,
+and a sample draws each seed's indices from that seed's generator over
+its own valid range, as ``sample`` draws them for one ring.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,16 +77,21 @@ def create(capacity: int, obs_dim: int, action_dim: int, lyap_dim: int,
                   position=0, size=0, total=0, layout=layout)
 
 
-def _pack(layout, record: dict, device) -> torch.Tensor:
+def pack_record(layout, record: dict, device,
+                seeds: Optional[int] = None) -> torch.Tensor:
+    """A record as one packed row (record_width,); with ``seeds`` = S, a
+    record whose tensors carry a leading seed axis as (S, record_width)
+    rows."""
+    lead = () if seeds is None else (seeds,)
     parts = []
     for name, _, w in layout:
         v = record[name]
         if isinstance(v, torch.Tensor):
-            parts.append(v.to(dtype=torch.float32).reshape(w))
+            parts.append(v.to(dtype=torch.float32).reshape(lead + (w,)))
         else:  # a host number: a fill, with no host-to-device copy
-            parts.append(torch.full((w,), float(v), dtype=torch.float32,
-                                    device=device))
-    return torch.cat(parts)
+            parts.append(torch.full(lead + (w,), float(v),
+                                    dtype=torch.float32, device=device))
+    return torch.cat(parts, dim=-1)
 
 
 def unpack_rows(layout, rows: torch.Tensor) -> dict:
@@ -97,7 +108,8 @@ def push(replay: Replay, record: dict, do_push: bool = True) -> Replay:
     (the RL buffer while the backup controller is active)."""
     if not do_push:
         return replay
-    return push_row(replay, _pack(replay.layout, record, replay.data.device))
+    return push_row(replay, pack_record(replay.layout, record,
+                                        replay.data.device))
 
 
 def push_row(replay: Replay, row: torch.Tensor) -> Replay:
@@ -139,3 +151,67 @@ def record_from_step(obs, action, out, mask, t, next_t) -> dict:
         "lyap_t1": out.lyap_t1, "barrier_signal": out.barrier_signal,
         "next_obs": out.obs, "mask": mask, "t": t, "next_t": next_t,
     }
+
+
+@dataclass
+class SeedReplay:
+    data: torch.Tensor  # (S, capacity, record_width) f32, on the device
+    position: List[int]  # each seed's next write slot
+    size: List[int]  # each seed's valid records
+    total: List[int]  # each seed's pushes ever
+    layout: Tuple[Tuple[str, int, int], ...]
+
+
+def stack_replays(replays: Sequence[Replay]) -> SeedReplay:
+    """One ``SeedReplay`` holding copies of the seeds' rings, in order."""
+    return SeedReplay(data=torch.stack([r.data for r in replays]),
+                      position=[r.position for r in replays],
+                      size=[r.size for r in replays],
+                      total=[r.total for r in replays],
+                      layout=replays[0].layout)
+
+
+def unstack_replay(replay: SeedReplay, i: int) -> Replay:
+    """Seed i's ring as a plain ``Replay`` (a copy)."""
+    return Replay(data=replay.data[i].clone(), position=replay.position[i],
+                  size=replay.size[i], total=replay.total[i],
+                  layout=replay.layout)
+
+
+def push_seed_rows(replay: SeedReplay, rows: torch.Tensor,
+                   on: Sequence[bool]) -> SeedReplay:
+    """Write seed i's row of ``rows`` (S, record_width) at its cursor for
+    every seed where ``on`` holds, in place. Seeds at one cursor that all
+    push take one write."""
+    seeds = [i for i, o in enumerate(on) if o]
+    if not seeds:
+        return replay
+    capacity = replay.data.shape[1]
+    if len(seeds) == len(on) and len(set(replay.position)) == 1:
+        replay.data[:, replay.position[0]] = rows
+    else:
+        for i in seeds:
+            replay.data[i, replay.position[i]] = rows[i]
+    for i in seeds:
+        replay.position[i] = (replay.position[i] + 1) % capacity
+        replay.size[i] = min(replay.size[i] + 1, capacity)
+        replay.total[i] += 1
+    return replay
+
+
+def sample_seeds(replay: SeedReplay, gens: Sequence[torch.Generator],
+                 batch_size: int, on: Sequence[bool]) -> dict:
+    """A uniform sample of ``batch_size`` records per seed, with
+    replacement, from each seed's valid range, the indices drawn from the
+    seed's generator (as ``sample_indices`` draws them) for the seeds
+    where ``on`` holds; another seed draws nothing and its rows are its
+    ring's first record. Fields carry a leading (S,) axis."""
+    data = replay.data
+    idx = torch.zeros((data.shape[0], batch_size), dtype=torch.int64,
+                      device=data.device)
+    for i, (gen, o) in enumerate(zip(gens, on)):
+        if o:
+            idx[i].random_(0, max(replay.size[i], 1), generator=gen)
+    rows = torch.gather(data, 1, idx[..., None].expand(-1, -1,
+                                                       data.shape[2]))
+    return unpack_rows(replay.layout, rows)

@@ -17,6 +17,12 @@
 The flags and timers are device tensors, so a machine adds no device
 read to the step; the ring's write slot and the step count are host
 integers.
+
+Stacked over seeds (the lockstep seed runner), every tensor field gains
+a leading (S,) axis (``init_supervisor(..., seeds=S)``): ``pre_action``
+and the ``trap`` machine run elementwise over it, the seeds sharing the
+host slot and step count (they run in lockstep); ``cars_gap`` and
+``pvtol`` take one seed.
 """
 
 from __future__ import annotations
@@ -43,20 +49,23 @@ class SupervisorState(NamedTuple):
     anchor: torch.Tensor  # (2,) switch-time position
 
 
-def init_supervisor(cfg: SupervisorConfig, device) -> SupervisorState:
+def init_supervisor(cfg: SupervisorConfig, device,
+                    seeds: int | None = None) -> SupervisorState:
+    """A fresh machine; with ``seeds`` = S, S of them stacked."""
     if cfg.kind not in KINDS:
         raise ValueError(f"unknown supervisor kind {cfg.kind!r}; options: "
                          f"{KINDS}")
+    lead = () if seeds is None else (seeds,)
     i32 = dict(dtype=torch.int32, device=device)
-    false = torch.zeros((), dtype=torch.bool, device=device)
+    false = torch.zeros(lead, dtype=torch.bool, device=device)
     return SupervisorState(
-        positions=torch.zeros((cfg.window, 2), device=device), ptr=0,
+        positions=torch.zeros(lead + (cfg.window, 2), device=device), ptr=0,
         use_backup=false, use_backup_y=false.clone(),
-        backup_time=torch.zeros((), **i32),
-        backup_y_time=torch.zeros((), **i32),
-        violation_time=torch.zeros((), **i32),
-        violation_y_time=torch.zeros((), **i32),
-        anchor=torch.zeros((2,), device=device))
+        backup_time=torch.zeros(lead, **i32),
+        backup_y_time=torch.zeros(lead, **i32),
+        violation_time=torch.zeros(lead, **i32),
+        violation_y_time=torch.zeros(lead, **i32),
+        anchor=torch.zeros(lead + (2,), device=device))
 
 
 def backup_active(sup: SupervisorState, start: bool) -> torch.Tensor:
@@ -78,13 +87,13 @@ def pre_action(cfg: SupervisorConfig, sup: SupervisorState, start: bool
 
 def _trap_machine(cfg: SupervisorConfig, sup: SupervisorState, pos2,
                   episode_steps: int, start: bool) -> SupervisorState:
-    window = sup.positions.shape[0]
+    window = sup.positions.shape[-2]
     positions = sup.positions.clone()
-    positions[sup.ptr] = pos2
-    newest = positions[sup.ptr]
+    positions[..., sup.ptr, :] = pos2
+    newest = positions[..., sup.ptr, :]
     ptr = (sup.ptr + 1) % window
-    oldest = positions[ptr]
-    disp2 = torch.sum(torch.square(newest - oldest))
+    oldest = positions[..., ptr, :]
+    disp2 = torch.sum(torch.square(newest - oldest), dim=-1)
     checking = episode_steps >= cfg.min_steps
 
     trapped = disp2 <= cfg.trap_threshold
@@ -95,11 +104,12 @@ def _trap_machine(cfg: SupervisorConfig, sup: SupervisorState, pos2,
     vt = torch.where(fire, 0, vt)
     vt = torch.where(can_check & ~trapped, 0, vt)
     use_backup = sup.use_backup | fire
-    anchor = torch.where(fire, pos2, sup.anchor)
+    anchor = torch.where(fire[..., None], pos2, sup.anchor)
 
     exiting_ctx = use_backup & (checking and start)
     timeout = sup.backup_time >= cfg.backup_max_steps
-    escaped = torch.sum(torch.square(pos2 - anchor)) >= cfg.escape_distance_sq
+    escaped = torch.sum(torch.square(pos2 - anchor),
+                        dim=-1) >= cfg.escape_distance_sq
     stop = exiting_ctx & (timeout | escaped)
     use_backup = use_backup & ~stop
     backup_time = torch.where(stop, 0, sup.backup_time)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import torch
+
 
 def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
@@ -56,6 +58,28 @@ def snapshot(tree):
     mark: a stop-gradient that in-place steps of the parameters leave as
     it was."""
     return tree_map(lambda p: _keep_mark(p.detach().clone(), p), tree)
+
+
+def where_seeds(mask: torch.Tensor, new: torch.Tensor,
+                old: torch.Tensor) -> torch.Tensor:
+    """``new`` for the seeds where ``mask`` ((S,) bool) holds, ``old`` for
+    the others, along a leading seed axis."""
+    return torch.where(mask.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+class SeedMasks:
+    """Host lists of per-seed flags as (S,) bool tensors on ``device``; a
+    run repeats a few patterns, so each is copied to the device once."""
+
+    def __init__(self, device):
+        self.device, self._masks = device, {}
+
+    def __call__(self, on) -> torch.Tensor:
+        key = tuple(bool(o) for o in on)
+        if key not in self._masks:
+            self._masks[key] = torch.tensor(key, dtype=torch.bool,
+                                            device=self.device)
+        return self._masks[key]
 
 
 def tree_unflatten(tree, leaves):

@@ -117,7 +117,7 @@ STAMPS = [
     ("                    net.np[l], l + 1 < net.n);\n",
      "      STAMP(3 + 2 * l)\n"),
     ("    mbar_arrive_cluster(map_rank(&bars[2], 0));\n", "    STAMP(20)\n"),
-    ("      a.out[row0 * n_s + i] = io[i] + a.dt * (act[r * lda + j] + gu[i]);"
+    ("      out[row0 * n_s + i] = io[i] + a.dt * (act[r * lda + j] + gu[i]);"
      "\n  }\n", "  STAMP(20)\n"),
 ]
 

@@ -549,3 +549,138 @@ def test_nccl_is_refused_for_ranks_that_share_a_card():
     import torch_gang_workers
     with pytest.raises(ProcessRaisedException, match="share cards"):
         run_gang(torch_gang_workers.nccl_on_one_card, 2, timeout=120)
+
+
+def _stacked_params(n_s, n_u, seeds, gen):
+    """``seeds`` parameter sets stacked on a leading seed axis, and the
+    sets themselves (views of the stacked leaves)."""
+    from nlbac_tpu_torch.tree import tree_map
+
+    sets = [_params(n_s, n_u, gen) for _ in range(seeds)]
+    stacked = tree_map(lambda *ps: torch.stack([p.detach() for p in ps]
+                                               ).requires_grad_(True), *sets)
+    return stacked
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(3, 2), (6, 2)])
+@pytest.mark.parametrize("rows", (1, 128, 129, 32768))
+@pytest.mark.parametrize("seeds", (1, 3, 8))
+def test_seed_batched_kernel_matches_plain_version(dims, rows, seeds):
+    """K1 over stacked seeds (one launch, counted once at seeds * rows)
+    against its seed-batched plain version (forward and every gradient)
+    and against one launch per seed (forward)."""
+    from nlbac_tpu_torch.tree import tree_map
+
+    _require_gpu()
+    n_s, n_u = dims
+    gen = torch.Generator("cuda").manual_seed(1000 * seeds + rows)
+    params = _stacked_params(n_s, n_u, seeds, gen)
+    x = torch.randn(seeds, rows, n_s, device="cuda", generator=gen)
+    u = torch.randn(seeds, rows, n_u, device="cuda", generator=gen,
+                    requires_grad=True)
+    before = nk.launch_counts["node_euler"]
+    by_rows = nk.launches_by_rows[seeds * rows]
+    y_k = nk.node_euler_step(params, x, u, 0.02)
+    torch.cuda.synchronize()
+    assert nk.launch_counts["node_euler"] == before + 1
+    assert nk.launches_by_rows[seeds * rows] == by_rows + 1
+    y_p = nk.node_euler_step_plain(params, x, u, 0.02)
+    torch.testing.assert_close(y_k, y_p, rtol=1e-5, atol=1e-5)
+    inputs = [u] + tree_leaves(params)
+    g_k = torch.autograd.grad(y_k.square().sum(), inputs)
+    g_p = torch.autograd.grad(y_p.square().sum(), inputs)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        for i in range(seeds):
+            one = tree_map(lambda p: p[i].contiguous(), params)
+            y_1 = nk.node_euler_step(one, x[i], u[i], 0.02)
+            torch.testing.assert_close(y_k[i], y_1, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_seed_batched_unicycle_update_on_the_card_matches_the_cpu():
+    """One full-width unicycle update of 3 stacked seeds at different
+    counters (seed 0 fits the NODE on 32768 rows and ascends, seed 1 does
+    neither, seed 2 does not update) on the card, through one
+    seed-batched K1 launch per rollout and per fit, against the same
+    update on the CPU: every metric and parameter at the update
+    tolerance, seed 2's state unchanged on both."""
+    _require_gpu()
+    from nlbac_tpu_torch.agent import create_train_state, make_agent
+    from nlbac_tpu_torch.agent.state import stack_states, unstack_state
+    from nlbac_tpu_torch.envs import unicycle
+    from nlbac_tpu_torch.parallel import state_arrays
+
+    cfg = get_config("unicycle")
+    gen = torch.Generator().manual_seed(0)
+    states = [create_train_state(cfg, gen, "cpu") for _ in range(3)]
+    counters = [0, 3, 5]
+    for ts, n in zip(states, counters):
+        ts.updates = n
+
+    def batch(n):
+        states = torch.stack([torch.rand(3, n, generator=gen) * 6 - 3,
+                              torch.rand(3, n, generator=gen) * 6 - 3,
+                              torch.rand(3, n, generator=gen) * 6 - 3], -1)
+        action = (torch.rand(3, n, 2, generator=gen) * 2 - 1) * \
+            torch.tensor([3.5, 12.0])
+        return {"obs": unicycle.state_to_obs(states), "action": action,
+                "reward": torch.randn(3, n, generator=gen),
+                "constraint": torch.rand(3, n, generator=gen),
+                "lyap_t": torch.randn(3, n, 2, generator=gen),
+                "lyap_t1": torch.randn(3, n, 2, generator=gen),
+                "barrier_signal": torch.zeros(3, n),
+                "next_obs": unicycle.state_to_obs(states + 0.02),
+                "mask": (torch.rand(3, n, generator=gen) > 0.1).float(),
+                "t": torch.zeros(3, n), "next_t": torch.full((3, n), 0.02)}
+
+    b, nb = batch(cfg.sac.batch_size), batch(cfg.node.max_batch)
+    noise = {k: torch.randn(3, cfg.sac.batch_size, 2, generator=gen)
+             for k in ("next", "pi", "backup")}
+    seeds = [True, True, False]
+
+    def run(device):
+        ts = stack_states(cfg, [_to_device(s, cfg, device) for s in states])
+        moved = {k: {n: v.to(device) for n, v in d.items()}
+                 for k, d in (("b", b), ("nb", nb))}
+        fits = []
+        ts, m = make_agent(cfg, device).update_core(
+            ts, moved["b"], lambda fit: fits.append(fit) or moved["nb"],
+            None, 0, noise={k: v.to(device) for k, v in noise.items()},
+            seeds=seeds)
+        assert fits == [[True, False, False]] and ts.updates == [1, 4, 5]
+        return ts, {k: v.cpu() for k, v in m.items()}
+
+    before = nk.launch_counts["node_euler"]
+    by_rows = dict(nk.launches_by_rows)
+    ts_dev, m_dev = run("cuda")
+    assert nk.launch_counts["node_euler"] == before + 3
+    assert nk.launches_by_rows[3 * 128] == by_rows.get(3 * 128, 0) + 2
+    assert nk.launches_by_rows[3 * 32768] == by_rows.get(3 * 32768, 0) + 1
+    ts_cpu, m_cpu = run("cpu")
+    for k, v in m_cpu.items():
+        torch.testing.assert_close(m_dev[k], v, rtol=1e-3, atol=1e-4,
+                                   msg=k)
+    # each Adam moment within 2e-3 of the CPU's, relative to its 2-norm
+    # (an Adam step's size is its sign where a gradient is near zero, so
+    # the parameters after one step are not held tighter than that)
+    for group in ts_cpu.opt:
+        for a, b in zip(ts_dev.opt[group].moments(),
+                        ts_cpu.opt[group].moments()):
+            for x, y in zip(a, b):
+                gap = (x.cpu() - y).norm() / y.norm().clamp_min(1e-30)
+                assert gap <= 2e-3, (group, float(gap))
+    # seed 2 did not update: its whole state as it was, bit for bit
+    start = state_arrays(states[2])
+    for ts in (ts_dev, ts_cpu):
+        got = state_arrays(unstack_state(cfg, ts, 2))
+        for key, want in start.items():
+            if key == "updates":
+                assert got[key] == want == 5
+            else:
+                assert len(got[key]) == len(want), key
+                for g, w in zip(got[key], want):
+                    assert (torch.as_tensor(g) == torch.as_tensor(w)).all(
+                    ), key
