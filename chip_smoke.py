@@ -125,13 +125,27 @@ Phases, one line each (any failure raises and exits nonzero):
    fit when a seed fits), the aggregate env-steps/s of both runs beside
    phase 16's and phase 5's, ms per lockstep update, and a
    ``torch.profiler`` window's device busy share;
-22. a JSON line of the kernel's numbers (and the tanh, lever, start-up
+22. the lockstep seed runner over the other presets: K1 seed-batched at
+   SEEDS seeds where their constraints call it (PVTOL's chain of three
+   calls at SEEDS x 256 rows (6, 2), gradients of u_t, x and the
+   parameters; the learned barrier's one call at SEEDS x 128 (3, 2) and
+   SEEDS x 256 (6, 2)) against the plain version, timed beside SEEDS
+   single launches a call and the bound; then cars, PVTOL (its supervisor
+   from episode 0), nbc_unicycle, nbc_pvtol and the quadrotor (QUAD_FLAGS)
+   in ``make_seed_parallel_runner`` at SEEDS seeds, one episode each (the
+   quadrotor until every seed has LOCKSTEP_QUAD_UPDATES updates), the
+   policy acting in its second half: each seed's steps and updates, K1's
+   launches against its count per lockstep update, the aggregate
+   env-steps/s beside one seed's run of the same episodes, and
+   ``lockstep_update_check`` on the trained seeds;
+23. a JSON line of the kernel's numbers (and the tanh, lever, start-up
    and lockstep phases'), the script's total time, then the result line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
 QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN, GANG_STEPS,
-DOPRI5_GANG_STEPS, STARTUP_STEPS below; the lockstep runs take the main
-path's EPISODES x EPISODE_STEPS); the widths are the presets'.
+DOPRI5_GANG_STEPS, STARTUP_STEPS, LOCKSTEP_PRESETS below; phase 21's
+lockstep runs take the main path's EPISODES x EPISODE_STEPS); the widths
+are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -168,6 +182,7 @@ from nlbac_tpu_torch.nn import (
     node_init,
     pack_input,
     twin_q_unstack,
+    uses_euler_kernel,
 )
 from nlbac_tpu_torch.ode import odeint_adjoint, solve_adaptive, solvers
 from nlbac_tpu_torch import parallel
@@ -351,6 +366,28 @@ LOCKSTEP_LATER_RTOL = 1e-3
 LOCKSTEP_PROFILE_STEPS = 10
 LOCKSTEP_COUNTERS = (960, 961, 965, 968)
 LOCKSTEP_UPDATE_ON = (True, True, False, True)
+# The lockstep phase over the other presets (22), at full width and SEEDS
+# seeds: K1 seed-batched where their constraints call it (PVTOL's chain of
+# 3 calls at SEEDS x 256 rows (6, 2), the learned barrier's one call at
+# SEEDS x 128 (3, 2) and SEEDS x 256 (6, 2)); then each preset's runner
+# for one episode of LOCKSTEP_PRESETS[preset] steps (preset: cars 300,
+# PVTOL and nbc_pvtol 2000, nbc_unicycle 1200), just past the batch
+# (256 rows; nbc_unicycle 128) so that every seed updates, the policy
+# acting in the second half (--start_steps half of it), PVTOL with its
+# supervisor from episode 0 (preset: 3) so that both machines run; the
+# quadrotor with phase 7's QUAD_FLAGS in episodes of QUAD_EPISODE_STEPS
+# until every seed has LOCKSTEP_QUAD_UPDATES updates (random warm-up
+# thrusts crash it early), at most LOCKSTEP_QUAD_EPISODES episodes. One
+# seed's run of the same preset and episodes (seed SEED, the lockstep's
+# seed 0) in the same call gives the rate beside it. Each run is followed
+# by ``lockstep_update_check`` on its trained state.
+LOCKSTEP_PRESETS = {"cars": 300, "pvtol": 320, "nbc_unicycle": 180,
+                    "nbc_pvtol": 320, "quadrotor": QUAD_EPISODE_STEPS}
+LOCKSTEP_QUAD_UPDATES, LOCKSTEP_QUAD_EPISODES = 30, 12
+# K1 calls a lockstep update makes on each preset's constraint rollout,
+# and the backup branch's (PVTOL: every backup_update_interval-th update)
+K1_CHAIN_CALLS = {"cars": 0, "pvtol": 3, "nbc_unicycle": 1, "nbc_pvtol": 1,
+                  "quadrotor": 0}
 
 
 def phase(msg: str) -> None:
@@ -2146,10 +2183,11 @@ def startup_runs(card):
     return out
 
 
-def stacked_node_params(n_seeds, gen, dev):
-    """``n_seeds`` unicycle NODE parameter sets (non-zero biases) stacked
-    on a leading seed axis, as a lockstep state holds them."""
-    sets = [node_params(3, 2, gen, dev) for _ in range(n_seeds)]
+def stacked_node_params(n_seeds, gen, dev, dims=(3, 2)):
+    """``n_seeds`` NODE parameter sets of ``dims`` (n_s, n_u; non-zero
+    biases) stacked on a leading seed axis, as a lockstep state holds
+    them."""
+    sets = [node_params(*dims, gen, dev) for _ in range(n_seeds)]
     return tree_map(lambda *ps: torch.stack([p.detach() for p in ps]
                                             ).requires_grad_(True), *sets)
 
@@ -2287,15 +2325,27 @@ def lockstep_update_check(cfg, dev, state):
     device from the same batches (sampled from each seed's rings) and
     draws: every metric, parameter, target, Adam moment and multiplier
     within UPDATE_RTOL/UPDATE_ATOL; a seed that sits out keeps its whole
-    state bit for bit. Returns (the largest gap as a share of its
-    tolerance, the seeds that fit)."""
-    from nlbac_tpu_torch.agent.state import stack_states, unstack_state
+    state bit for bit. Then two noise floors on the seed with the
+    largest gap: its one-seed update from the same state with every NODE
+    weight, then every network weight (targets included), one ulp up,
+    against its one-seed update, as a share of the same tolerance.
+    Returns ((the largest gap as a share of its tolerance, where), {the
+    floor's name: (its share, where)}, the seeds that fit)."""
+    from nlbac_tpu_torch.agent.state import (
+        PARAM_FIELDS,
+        stack_states,
+        unstack_state,
+    )
     from nlbac_tpu_torch.agent.update import METRIC_NAMES
 
     ts, rl, node, _, _ = state
-    ones = [unstack_state(cfg, ts, i) for i in range(SEEDS)]
-    for one, n in zip(ones, LOCKSTEP_COUNTERS):
-        one.updates = n
+
+    def seed_state(i):
+        one = unstack_state(cfg, ts, i)  # copies
+        one.updates = LOCKSTEP_COUNTERS[i]
+        return one
+
+    ones = [seed_state(i) for i in range(SEEDS)]
     stacked = stack_states(cfg, ones)  # copies
     on = list(LOCKSTEP_UPDATE_ON)
     draws = [torch.Generator(dev).manual_seed(SEED + 100 + i)
@@ -2307,6 +2357,17 @@ def lockstep_update_check(cfg, dev, state):
     noise = {k: torch.randn(batch["action"].shape, device=dev,
                             generator=draws[0])
              for k in ("next", "pi", "backup")}
+    # a resample draw per chain step, the seeds stacked inside each
+    n_resample = RESAMPLES[cfg.constraint.kind]
+    if n_resample:
+        noise.update({k: torch.randn((n_resample,) + batch["action"].shape,
+                                     device=dev, generator=draws[0])
+                      for k in ("resample", "backup_resample")})
+
+    def seed_noise(i):
+        return {k: v[:, i] if k in ("resample", "backup_resample") else v[i]
+                for k, v in noise.items()}
+
     agent = make_agent(cfg, dev)
     fits = []
     stacked, m = agent.update_core(
@@ -2316,50 +2377,95 @@ def lockstep_update_check(cfg, dev, state):
     if stacked.updates != want_updates:
         raise RuntimeError(f"lockstep update: counters {stacked.updates}, "
                            f"expected {want_updates}")
-    worst = 0.0
+
+    def one_seed_update(one, i):
+        return agent.update_core(
+            one, {k: v[i] for k, v in batch.items()},
+            lambda: {k: v[i] for k, v in node_batch.items()}, None,
+            EPISODES, noise=seed_noise(i))
 
     def bit_equal(a, b):
         if isinstance(a, (list, tuple)):
             return len(a) == len(b) and all(map(bit_equal, a, b))
         return np.array_equal(a, b)
 
-    def excess(got, want, what):
-        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-        share = float(np.max(np.abs(got - want)
-                             / (UPDATE_ATOL + UPDATE_RTOL * np.abs(want)),
-                             initial=0.0))
-        if not np.all(np.isfinite(got)) or share > 1:
-            raise RuntimeError(f"lockstep update: {what} off by {share:.3f}"
-                               f" of its tolerance")
-        return share
+    def named_leaves(arrays):
+        """(name, array) of every leaf of ``parallel.state_arrays``' dict
+        but the update count, each Adam moment on its own."""
+        for key, vals in arrays.items():
+            if key == "updates":
+                continue
+            for j, v in enumerate(vals):
+                moments = zip(("exp_avg", "exp_avg_sq"), v) \
+                    if isinstance(v, tuple) else [("", v)]
+                for name, a in moments:
+                    yield (f"{key}[{j}]{'.' if name else ''}{name} "
+                           f"{tuple(np.shape(a))}", a)
 
+    def gaps(got_state, got_m, want_state, want_m, label):
+        """The largest gap, leaf or metric, as a share of the tolerance."""
+        worst = (0.0, None)
+        got, want = map(parallel.state_arrays, (got_state, want_state))
+        pairs = [(name, a, b) for (name, a), (_, b) in
+                 zip(named_leaves(got), named_leaves(want))]
+        pairs += [(k, got_m[k].item(), want_m[k].item())
+                  for k in METRIC_NAMES]
+        for name, a, b in pairs:
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            if not np.all(np.isfinite(a)):
+                raise RuntimeError(f"lockstep update: {label} {name} is "
+                                   f"not finite")
+            share = float(np.max(np.abs(a - b) / (UPDATE_ATOL + UPDATE_RTOL
+                                                  * np.abs(b)), initial=0.0))
+            worst = max(worst, (share, f"{label} {name}"),
+                        key=lambda w: w[0])
+        return worst
+
+    worst, worst_seed, results = (0.0, None), None, {}
     for i in range(SEEDS):
-        got = parallel.state_arrays(unstack_state(cfg, stacked, i))
+        got_state = unstack_state(cfg, stacked, i)
         if not on[i]:
+            got = parallel.state_arrays(got_state)
             want = parallel.state_arrays(ones[i])
             for key in want:
                 if not bit_equal(got[key], want[key]):
                     raise RuntimeError(f"lockstep update: seed {i} sat out"
                                        f" but its {key} changed")
             continue
-        one, m1 = agent.update_core(
-            ones[i], {k: v[i] for k, v in batch.items()},
-            lambda: {k: v[i] for k, v in node_batch.items()}, None,
-            EPISODES, noise={k: v[i] for k, v in noise.items()})
-        want = parallel.state_arrays(one)
-        if one.updates != got["updates"]:
+        one, m1 = one_seed_update(ones[i], i)
+        results[i] = (one, m1)
+        if one.updates != got_state.updates:
             raise RuntimeError(f"lockstep update: seed {i} at "
-                               f"{got['updates']} updates, one seed's at "
+                               f"{got_state.updates} updates, one seed's at "
                                f"{one.updates}")
-        for key in want:
-            if key == "updates":
-                continue
-            for a, b in zip(got[key], want[key]):
-                worst = max(worst, excess(a, b, f"seed {i} {key}"))
-        for k in METRIC_NAMES:
-            worst = max(worst, excess(m[k][i].item(), m1[k].item(),
-                                      f"seed {i} {k}"))
-    return worst, fits
+        gap = gaps(got_state, {k: v[i] for k, v in m.items()}, one, m1,
+                   f"seed {i}")
+        if gap[0] > 1:
+            raise RuntimeError(f"lockstep update: {gap[1]} off by "
+                               f"{gap[0]:.3f} of its tolerance")
+        if worst_seed is None or gap[0] > worst[0]:
+            worst, worst_seed = gap, i
+
+    # the noise floors: one ulp of some weights in the one-seed update
+    floors = {}
+    for name, fields in (("node", ("node",)), ("every weight",
+                                               PARAM_FIELDS)):
+        nudged = seed_state(worst_seed)
+        with torch.no_grad():
+            for p in tree_leaves([getattr(nudged, f) for f in fields]):
+                if isinstance(p, torch.Tensor):
+                    p.copy_(torch.nextafter(p, torch.full_like(p,
+                                                               math.inf)))
+        floors[name] = gaps(*one_seed_update(nudged, worst_seed),
+                            *results[worst_seed],
+                            f"seed {worst_seed} {name} one ulp")
+    return worst, floors, fits
+
+
+def floors_text(floors):
+    """``lockstep_update_check``'s floors for a phase line."""
+    return "; ".join(f"the one-ulp {name} floor {share:.4f}, {where}"
+                     for name, (share, where) in floors.items())
 
 
 def lockstep_runs(dev, card, one_seed, seeds_info):
@@ -2382,14 +2488,16 @@ def lockstep_runs(dev, card, one_seed, seeds_info):
     state, eps4, secs4, launches4, rows4 = lockstep_episodes(run_fn, state)
     calls4, fits4 = lockstep_launches(SEEDS, eps4, launches4, rows4,
                                       f"lockstep {SEEDS} seeds")
-    update_share, update_fits = lockstep_update_check(cfg, dev, state)
+    (update_share, update_worst), update_floors, update_fits = \
+        lockstep_update_check(cfg, dev, state)
     phase(f"lockstep update: {SEEDS} trained seeds at update counts "
           f"{list(LOCKSTEP_COUNTERS)}, updating {list(LOCKSTEP_UPDATE_ON)} "
           f"(fitting {update_fits[0]}), one lockstep update against each "
           f"seed's one-seed update on the card: every metric, parameter, "
           f"target, Adam moment and multiplier within rtol {UPDATE_RTOL} "
-          f"atol {UPDATE_ATOL} (worst at {update_share:.3f} of it), the "
-          f"seed that sat out bit for bit, ok on {card}")
+          f"atol {UPDATE_ATOL} (worst at {update_share:.4f} of it, "
+          f"{update_worst}; {floors_text(update_floors)}), the seed that "
+          f"sat out bit for bit, ok on {card}")
 
     # the noise floor: seeds SEED..SEED+3 and their twins, every weight
     # one ulp up, each twin drawing from its seed's generator
@@ -2552,9 +2660,259 @@ def lockstep_runs(dev, card, one_seed, seeds_info):
         "updates": [calls4, calls8], "fits": [fits4, fits8],
         "noise_floor": floors, "later_limit": limits,
         "update_check_share": update_share,
+        "update_check_worst": update_worst,
+        "update_check_floors": update_floors,
         "busy_share": busy / wall if busy > 0 else None}
     return numbers, {f"unicycle_lockstep_{SEEDS}": launches4,
                      f"unicycle_lockstep_{LOCKSTEP_BIG}": launches8}
+
+
+def k1_against_plain(run, inputs, cot):
+    """``run(step)`` with the kernel and with its plain version: the forward
+    and the gradients of ``inputs`` within KERNEL_RTOL/KERNEL_ATOL. Returns
+    (forward, gradient) max abs errors."""
+    y_k, y_p = run(node_kernel.node_euler_step), run(
+        node_kernel.node_euler_step_plain)
+    torch.testing.assert_close(y_k, y_p, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    g_k = torch.autograd.grad((y_k * cot).sum(), inputs)
+    g_p = torch.autograd.grad((y_p * cot).sum(), inputs)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    return ((y_k - y_p).abs().max().item(),
+            max((a - b).abs().max().item() for a, b in zip(g_k, g_p)))
+
+
+def lockstep_k1_calls(dev, gen, card):
+    """K1 seed-batched where the presets' constraints call it in a lockstep
+    update of SEEDS seeds: PVTOL's chain (3 chained calls at SEEDS x 256
+    rows (6, 2): the gradients of u_t through all three, of x through one
+    and of every parameter) and the learned barrier's one call (SEEDS x 128
+    (3, 2), SEEDS x 256 (6, 2): the gradients of u and the parameters),
+    against the plain version; each one launch a call. Then the device ms
+    of the seed-batched calls against SEEDS single launches a call and the
+    plain version, beside the bound. Returns the numbers by call."""
+    out = {}
+    for name, (n_s, n_u), rows, calls in (
+            ("pvtol_chain", (6, 2), PVTOL_ROWS, 3),
+            ("barrier_nbc_unicycle", (3, 2), 128, 1),
+            ("barrier_nbc_pvtol", (6, 2), PVTOL_ROWS, 1)):
+        params = stacked_node_params(SEEDS, gen, dev, (n_s, n_u))
+        sets = [tree_map(lambda p: p[i], params) for i in range(SEEDS)]
+        x0 = torch.randn(SEEDS, rows, n_s, device=dev, generator=gen)
+        u0 = torch.randn(SEEDS, rows, n_u, device=dev, generator=gen,
+                         requires_grad=True)
+        resampled = [torch.randn(SEEDS, rows, n_u, device=dev,
+                                 generator=gen) for _ in range(calls - 1)]
+        cot = torch.randn(calls, SEEDS, rows, n_s, device=dev, generator=gen)
+
+        def chain(step, params=params, x=x0, u=u0, draws=resampled):
+            ys = []
+            for k in range(calls):
+                x = step(params, x, u, 0.02)
+                ys.append(x)
+                if k + 1 < calls:
+                    u = draws[k]
+            return torch.stack(ys)
+
+        before = node_kernel.launch_counts["node_euler"]
+        err, g_err = k1_against_plain(chain, [u0] + tree_leaves(params), cot)
+        took = node_kernel.launch_counts["node_euler"] - before
+        if took != calls:
+            raise RuntimeError(f"{name}: the seed-batched calls took {took}"
+                               f" launches, expected {calls}")
+        x = x0.clone().requires_grad_(True)
+        g_x = k1_against_plain(lambda step: step(params, x, u0, 0.02),
+                               [x], cot[0])[1]
+        with torch.no_grad():
+            ms, _ = time_ms(lambda: chain(node_kernel.node_euler_step))
+            plain_ms, _ = time_ms(
+                lambda: chain(node_kernel.node_euler_step_plain))
+            singles = [(sets[i], x0[i].contiguous(),
+                        u0[i].detach().contiguous(),
+                        [d[i].contiguous() for d in resampled])
+                       for i in range(SEEDS)]
+            single_ms, _ = time_ms(lambda: [
+                chain(node_kernel.node_euler_step, p, xi, ui, di)
+                for p, xi, ui, di in singles])
+        flops, nbytes = work(sets[0], rows, n_s, n_u)
+        bound_ms, bound_by = bound(flops * SEEDS * calls,
+                                   nbytes * SEEDS * calls)
+        out[name] = {"seeds": SEEDS, "rows": rows, "dims": [n_s, n_u],
+                     "calls": calls, "max_abs_err": err,
+                     "grad_max_abs_err": max(g_err, g_x), "ms": ms,
+                     "single_launches_ms": single_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        phase(f"lockstep K1 {name}: {calls} call(s) at {SEEDS} seeds x "
+              f"{rows} rows (n_s,n_u)=({n_s},{n_u}), one launch each, "
+              f"against the plain version: forward max abs err {err:.3e}, "
+              f"gradients (u_t, parameters) {g_err:.3e}, x {g_x:.3e} (rtol "
+              f"{KERNEL_RTOL} atol {KERNEL_ATOL}) ok; device {ms:.4f} ms "
+              f"against {single_ms:.4f} ms for {SEEDS * calls} single "
+              f"launches ({single_ms / ms:.2f} times), plain {plain_ms:.4f} "
+              f"ms; bound {bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.1%}"
+              f" of it, on {card}")
+    return out
+
+
+class CountedAgent:
+    """The lockstep runner's agent, recording for every update call the
+    episode, the seeds' counters and the seeds that update; the calls
+    pass through."""
+
+    def __init__(self, agent, calls):
+        self.agent, self.calls = agent, calls
+
+    def update(self, ts, rl, node, gens, i_episode, seeds=None):
+        self.calls.append((i_episode, list(ts.updates), list(seeds)))
+        return self.agent.update(ts, rl, node, gens, i_episode, seeds=seeds)
+
+    def select_action(self, *args, **kwargs):
+        return self.agent.select_action(*args, **kwargs)
+
+
+def expected_k1(preset, cfg, calls):
+    """K1's launches by rows for the lockstep update ``calls`` (episode,
+    counters, seeds): K1_CHAIN_CALLS at SEEDS x batch rows an update, the
+    backup branch's as many again when an updating seed takes it
+    (PVTOL's), and one SEEDS x max_batch fit when an updating seed fits
+    (the control-affine NODE's)."""
+    if not uses_euler_kernel(cfg.node):
+        return {}
+    ccfg, ncfg = cfg.constraint, cfg.node
+    chain = fits = 0
+    for episode, counters, on in calls:
+        live = [n for n, o in zip(counters, on) if o]
+        chain += K1_CHAIN_CALLS[preset]
+        if preset == "pvtol" and any(
+                n % ccfg.backup_update_interval == 0 for n in live):
+            chain += K1_CHAIN_CALLS[preset]
+        limit = ncfg.fit_episode_limit
+        if any(n % ncfg.update_interval == 0 for n in live) and (
+                limit is None or episode <= limit):
+            fits += 1
+    return {k: v for k, v in ((SEEDS * cfg.sac.batch_size, chain),
+                              (SEEDS * ncfg.max_batch, fits)) if v}
+
+
+def lockstep_preset_cfg(preset):
+    """The preset at full width for phase 22 (LOCKSTEP_PRESETS' note)."""
+    steps = LOCKSTEP_PRESETS[preset]
+    argv = ["--preset", preset, "--quiet", "--seed", str(SEED),
+            "--max_episode_steps", str(steps), "--start_steps",
+            str(steps // 2)]
+    if preset == "quadrotor":
+        argv += QUAD_FLAGS
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    if preset == "pvtol":
+        cfg = dataclasses.replace(cfg, supervisor=dataclasses.replace(
+            cfg.supervisor, enable_after_episodes=0))
+    return cfg
+
+
+def lockstep_preset_run(preset, dev, card):
+    """One preset's lockstep runner at SEEDS seeds and one seed's run of
+    the same episodes (LOCKSTEP_PRESETS' note); K1's launches against
+    ``expected_k1``; then ``lockstep_update_check`` on the trained seeds.
+    Returns (its numbers, its K1 launches)."""
+    cfg = lockstep_preset_cfg(preset)
+    calls = []
+    real = parallel.lockstep.make_agent
+    parallel.lockstep.make_agent = lambda c, d: CountedAgent(real(c, d),
+                                                             calls)
+    try:
+        init_fn, run_fn = parallel.make_seed_parallel_runner(cfg, SEEDS,
+                                                             dev)
+    finally:
+        parallel.lockstep.make_agent = real
+    ts, rl, node, gens, total = init_fn(SEED)
+    episodes = []
+    node_kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        ts, rl, node, gens, m, total = run_fn(ts, rl, node, gens,
+                                              len(episodes), total)
+        episodes.append(parallel.episode_to_host_seeds(m))
+        if preset != "quadrotor" or min(ts.updates) >= \
+                LOCKSTEP_QUAD_UPDATES:
+            break
+        if len(episodes) == LOCKSTEP_QUAD_EPISODES:
+            raise RuntimeError(f"lockstep quadrotor: updates {ts.updates} "
+                               f"after {len(episodes)} episodes")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = node_kernel.launch_counts["node_euler"]
+    by_rows = dict(node_kernel.launches_by_rows)
+    want = expected_k1(preset, cfg, calls)
+    if by_rows != want or launches != sum(want.values()):
+        raise RuntimeError(f"lockstep {preset}: K1 launches by rows "
+                           f"{by_rows}, expected {want} for {len(calls)} "
+                           f"lockstep updates")
+    steps = [sum(ep[i]["steps"] for ep in episodes) for i in range(SEEDS)]
+    bad = [i for i in range(SEEDS) for v in ep_values(episodes, i)
+           if not math.isfinite(v)]
+    if bad or min(ts.updates) <= 0:
+        raise RuntimeError(f"lockstep {preset}: updates {ts.updates}, "
+                           f"non-finite metrics of seeds {sorted(set(bad))}")
+
+    # one seed (the lockstep's seed 0) over the same episodes
+    gen = torch.Generator(dev).manual_seed(SEED)
+    one = create_train_state(cfg, gen, dev)
+    rl1, node1 = create_replays(cfg, dev)
+    run1 = make_episode_runner(cfg, dev)
+    total1, steps1, rewards1 = 0, 0, []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for ep in range(len(episodes)):
+        one, rl1, node1, m1, total1 = run1(one, rl1, node1, gen, ep, total1)
+        steps1 += m1.steps
+        rewards1.append(m1.reward)
+    rewards1 = torch.stack(rewards1).tolist()
+    torch.cuda.synchronize()
+    seconds1 = time.perf_counter() - t1
+    del one, rl1, node1
+
+    (share, where), floors, fits = lockstep_update_check(
+        cfg, dev, (ts, rl, node, gens, total))
+    rate, rate1 = sum(steps) / seconds, steps1 / seconds1
+    rewards = [round(sum(ep[i]["reward"] for ep in episodes), 3)
+               for i in range(SEEDS)]
+    per_update = {str(k): v / len(calls) for k, v in want.items()}
+    phase(f"lockstep {preset}: {SEEDS} seeds x {len(episodes)} episode(s) "
+          f"of at most {cfg.env.max_episode_steps} steps (--start_steps "
+          f"{cfg.sac.start_steps}): steps {steps}, updates {ts.updates}, "
+          f"rewards {rewards} (one seed: {steps1} steps, rewards "
+          f"{[round(r, 3) for r in rewards1]}); {len(calls)} lockstep "
+          f"updates, K1 {launches} launches by rows {by_rows} (per update "
+          f"{per_update}), as expected; {sum(steps)} env steps in "
+          f"{seconds:.2f} s, {rate:.2f} env-steps/s, against one seed's "
+          f"{rate1:.2f} ({steps1} in {seconds1:.2f} s): {rate / rate1:.3f} "
+          f"times; update check at counters {list(LOCKSTEP_COUNTERS)}, "
+          f"updating {list(LOCKSTEP_UPDATE_ON)} (fitting "
+          f"{fits[0] if fits else None}): "
+          f"worst at {share:.4f} of rtol {UPDATE_RTOL} atol {UPDATE_ATOL} "
+          f"({where}; {floors_text(floors)}), "
+          f"the seed that sat out bit for bit, ok on {card}")
+    return {"episodes": len(episodes), "steps": steps,
+            "updates": list(ts.updates), "lockstep_updates": len(calls),
+            "k1_launches": launches, "k1_by_rows": {str(k): v for k, v in
+                                                     by_rows.items()},
+            "seconds": seconds, "env_steps_per_s": rate,
+            "one_seed_steps": steps1, "one_seed_seconds": seconds1,
+            "one_seed_env_steps_per_s": rate1, "ratio": rate / rate1,
+            "update_check_share": share, "update_check_worst": where,
+            "update_check_floors": floors}, \
+        launches
+
+
+def lockstep_presets(dev, card):
+    """Phase 22: every preset but the unicycle in the lockstep runner.
+    Returns (the numbers by preset, K1's launches by path)."""
+    numbers, by_path = {}, {}
+    for preset in LOCKSTEP_PRESETS:
+        numbers[preset], by_path[f"{preset}_lockstep_{SEEDS}"] = \
+            lockstep_preset_run(preset, dev, card)
+    return numbers, by_path
 
 
 def ep_values(episodes, i):
@@ -2580,6 +2938,11 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     start = t0 = time.perf_counter()
+    marks = []  # (phase, seconds since the start) at each phase's end
+
+    def mark(name):
+        marks.append((name, round(time.perf_counter() - start, 2)))
+
     lib = node_kernel.build(verbose=True)
     phase(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
     tensor_core_check(lib)
@@ -2590,10 +2953,12 @@ def main() -> int:
     times = time_kernel(dev, gen, card)
     chain = pvtol_chain(dev, gen, card)
     sweep(dev, gen, card)
+    mark("kernel (2-4)")
     cfg, ts, rl, node, launches, by_path, one_seed = main_path(dev, card)
     profile_steps(cfg, ts, rl, node, dev, card)
     time_updates(cfg, ts, rl, node, dev, card)
     update_on_card_vs_cpu(cfg, rl, node, dev)
+    mark("main path (5)")
     for preset, (episodes, steps) in PRESET_RUNS.items():
         argv = ["--max_episodes", str(episodes), "--max_episode_steps",
                 str(steps)]
@@ -2611,19 +2976,23 @@ def main() -> int:
     quad_dir, argv = quad_run(card)
     by_path["quadrotor"] = 0
     check_preset("quadrotor", argv, quad_dir, dev, card)
+    mark("presets (6-7)")
 
     dopri5_on_card(dev, gen, card)
     by_path["unicycle_dopri5_scan"] = dopri5_run(dev, card)
     by_path.update(host_loop_runs(dev, card))
+    mark("dopri5, host loop (8-11)")
 
     eval_runs(card, quad_dir)
     export_run(dev, card)
     by_path["unicycle_profiled"] = profile_run(card)
     by_path.update(custom_env_runs(card))
+    mark("eval, export, profile, custom envs (12-15)")
     seeds_by_path, seeds_info = seeds_run(dev, card, one_seed)
     by_path.update(seeds_by_path)
     by_path.update(gang_runs(dev, card))
     by_path.update(dopri5_gang_runs(dev, card))
+    mark("seeds, gangs (16-17)")
     levers = levers_ab(dev, card, one_seed["run"])
     by_path.update({f"unicycle_lever_{k}": v["launches"]
                     for k, v in levers.items()})
@@ -2631,10 +3000,16 @@ def main() -> int:
     startup = startup_runs(card)
     by_path.update({f"startup_{k}": v["launches"]
                     for k, v in startup.items()})
+    mark("levers, bf16, start-up (18-20)")
     seed_batched = lockstep_kernel(dev, gen, card)
     lockstep, lockstep_by_path = lockstep_runs(dev, card, one_seed,
                                                seeds_info)
     by_path.update(lockstep_by_path)
+    mark("lockstep unicycle (21)")
+    lockstep_calls = lockstep_k1_calls(dev, gen, card)
+    lockstep["presets"], presets_by_path = lockstep_presets(dev, card)
+    by_path.update(presets_by_path)
+    mark("lockstep presets (22)")
 
     big = times[32768]
     print(json.dumps({"kernels": [{
@@ -2651,10 +3026,13 @@ def main() -> int:
         "host_us_per_call": times[128]["host_us_per_call"],
         "at_128_rows": times[128], "pvtol_chain": chain,
         "nbc_calls_max_abs_err": nbc_err, "seed_batched": seed_batched,
+        "seed_batched_calls": lockstep_calls,
         "launches_by_path": by_path}], "tanh": tanh, "levers": levers,
-        "startup": startup, "lockstep": lockstep}), flush=True)
+        "startup": startup, "lockstep": lockstep,
+        "phase_end_seconds": dict(marks)}), flush=True)
     phase(f"total: {time.perf_counter() - start:.2f} s from the build to "
-          f"the end on {card}")
+          f"the end on {card}; seconds since the start at each phase's "
+          f"end: {dict(marks)}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

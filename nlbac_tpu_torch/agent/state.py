@@ -169,7 +169,7 @@ def stack_states(cfg: NLBACConfig, states: Sequence[TrainState]
         raise ValueError(
             "a stacked twin-Q state cannot be stacked over seeds (the "
             "lockstep seed runner takes the plain layout; ROADMAP.md "
-            "Queue 1 item 22)")
+            "Queue 1 item 25)")
     fields = {}
     for name in PARAM_FIELDS:
         trained = any(name == f for f in OPT_GROUPS.values())

@@ -69,8 +69,9 @@ the host gates:
   seed's stream follows its one-seed run's;
 - the metrics are (S,) tensors.
 
-Data parallelism, the decoupled variant and the probe regularizer take
-no stacked state.
+The probe regularizer's batch is one for every seed, each seed's policy
+taking its own term. Data parallelism and the decoupled variant take no
+stacked state (ROADMAP.md Queue 1 item 25).
 """
 
 from __future__ import annotations
@@ -470,11 +471,10 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         shorts = []  # predict_next_state's ended-short flags
         n_seeds = ts.seeds
         if n_seeds is not None and (dp_group is not None or
-                                    _decoupled_updates or probe_pretanh_reg):
+                                    _decoupled_updates):
             raise ValueError(
-                "a state stacked over seeds takes no data parallelism, "
-                "decoupled updates or probe regularizer (ROADMAP.md Queue "
-                "1 item 22)")
+                "a state stacked over seeds takes no data parallelism or "
+                "decoupled updates (ROADMAP.md Queue 1 item 25)")
         obs, action = batch["obs"], batch["action"]
         if obs.shape[-2] * n_dp != scfg.batch_size:
             raise ValueError(
@@ -609,7 +609,12 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         if pretanh_reg:
             mu, _ = gaussian_policy_forward(ts.policy, obs)
             loss = loss + pretanh_reg * mean(torch.square(mu))
-        if probe_pretanh_reg:
+        if probe_pretanh_reg and n_seeds is not None:
+            # one probe batch for every seed, each through its own policy
+            mu_p, _ = gaussian_policy_forward(
+                ts.policy, probe_obs.expand((n_seeds,) + probe_obs.shape))
+            loss = loss + probe_pretanh_reg * seed_mean(torch.square(mu_p))
+        elif probe_pretanh_reg:
             # the probe batch is the same on every rank: each takes
             # 1/n_dp of its term, so the group's gradient sum is whole
             mu_p, _ = gaussian_policy_forward(ts.policy, probe_obs)

@@ -56,6 +56,11 @@ def register_builder(kind: str, module) -> None:
     reads the live ``barrier_params`` and the ``resample(obs, k)`` closure
     over the current policy, and the agent TD-trains the barrier critic on
     the env's ``barrier_signal`` (examples/torch_custom_barrier_env.py).
+    ``SEED_AXIS = True`` declares that ``terms`` also takes a leading seed
+    axis, (S, B, .) rows with (S, ...) parameters, indexing only the last
+    axes (``x[..., k]``, ``dim=-1``) as the built-in builders do: the
+    lockstep seed runner (``parallel.make_seed_parallel_runner``) refuses
+    a builder that does not declare it.
 
     Same collision rule as ``register_env``: re-registering the same
     object is a no-op, shadowing a different one raises."""

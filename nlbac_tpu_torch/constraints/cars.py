@@ -15,6 +15,9 @@ horizons, composed as relative-degree-2 HOCBFs::
 
 CLF: L on [x3, v3, x4, v4] of the prediction, residual
 (L_{t+1} - L_t) + gamma_l L_t (not dt-scaled in the preset).
+
+Stacked over seeds, obs and action carry a leading (S,) axis and the
+residuals are (S, B, K).
 """
 
 from __future__ import annotations
@@ -29,9 +32,9 @@ COLLISION_RADIUS = 4.5
 
 
 def _gaps(x):
-    """(B,10) states -> (h23, h34), each (B,1)."""
-    h23 = (x[:, 4] - x[:, 6] - COLLISION_RADIUS)[:, None]
-    h34 = (x[:, 6] - x[:, 8] - COLLISION_RADIUS)[:, None]
+    """(..., B, 10) states -> (h23, h34), each (..., B, 1)."""
+    h23 = (x[..., 4] - x[..., 6] - COLLISION_RADIUS)[..., None]
+    h34 = (x[..., 6] - x[..., 8] - COLLISION_RADIUS)[..., None]
     return h23, h34
 
 
@@ -66,16 +69,17 @@ def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
         return -(l2 - l1) - ccfg.gamma_b * l1
 
     cbf = torch.cat([hocbf(h23_0, h23_1, h23_2),
-                     hocbf(h34_0, h34_1, h34_2)], dim=1)
+                     hocbf(h34_0, h34_1, h34_2)], dim=-1)
     if not include_clf:
         return cbf
 
     l_t = lyapunov_apply(lyap_params, lyap_t).detach()
-    l_t1 = lyapunov_apply(lyap_params, x1[:, 4:8])  # [x3, v3, x4, v4]
+    l_t1 = lyapunov_apply(lyap_params, x1[..., 4:8])  # [x3, v3, x4, v4]
     denom = dt if ccfg.clf_time_scaled else 1.0
     clf = (l_t1 - l_t) / denom + ccfg.gamma_l * l_t
-    return torch.cat([cbf, clf], dim=1)
+    return torch.cat([cbf, clf], dim=-1)
 
 
 NUM_PRIMARY = 3  # 2 HOCBFs + 1 CLF
 NUM_BACKUP = 2
+SEED_AXIS = True  # terms index the last axis: the lockstep runner takes it

@@ -13,6 +13,10 @@ The CLF residual follows the env: the unicycle's predicted lookahead point,
 PVTOL's reconstructed 11-d predicted obs (the operator propagated
 analytically), the quadrotor's predicted (x, z), and for a host env whose
 obs is the NODE state (``identity``) the predicted obs.
+
+Stacked over seeds, obs and action carry a leading (S,) axis, the NODE's
+one step is one seed-batched K1 launch for a control-affine field, and
+the residuals are (S, B, K).
 """
 
 from __future__ import annotations
@@ -37,20 +41,21 @@ def _predict(ncfg, node_params, field, obs, action, dt, env_name, lookahead,
                                   field=field, shorts=shorts,
                                   dp_group=dp_group)  # (B, 3)
         return (unicycle_env.state_to_obs(pred),
-                _lookahead(pred[:, :2], pred[:, 2], lookahead))
+                _lookahead(pred[..., :2], pred[..., 2], lookahead))
     if env_name == "quadrotor":
         pred = predict_next_state(ncfg, node_params,
                                   quad_env.obs_to_state(obs), action, dt,
                                   field=field, shorts=shorts,
                                   dp_group=dp_group)  # (B, 6)
-        return quad_env.state_to_obs(pred), pred[:, [0, 2]]
+        return quad_env.state_to_obs(pred), pred[..., [0, 2]]
     if env_name == "pvtol":
         state7 = pvtol_env.obs_to_state(obs)
-        dyn1 = predict_next_state(ncfg, node_params, state7[:, :6], action,
+        dyn1 = predict_next_state(ncfg, node_params, state7[..., :6], action,
                                   dt, field=field, shorts=shorts,
                                   dp_group=dp_group)
-        op1 = pvtol_env.propagate_operator(state7[:, 6], dyn1[:, 0])
-        obs1 = pvtol_env.state_to_obs(torch.cat([dyn1, op1[:, None]], dim=1))
+        op1 = pvtol_env.propagate_operator(state7[..., 6], dyn1[..., 0])
+        obs1 = pvtol_env.state_to_obs(torch.cat([dyn1, op1[..., None]],
+                                                dim=-1))
         return obs1, obs1
     if env_name == "identity":
         # a host env whose obs IS the NODE state: predict in obs space,
@@ -81,7 +86,7 @@ def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
     l_t1 = lyapunov_apply(lyap_params, clf_in_next)
     denom = dt if ccfg.clf_time_scaled else 1.0
     clf = (l_t1 - l_t) / denom + ccfg.gamma_l * l_t
-    return torch.cat([barrier, clf], dim=1)
+    return torch.cat([barrier, clf], dim=-1)
 
 
 NUM_PRIMARY = 2  # 1 learned barrier + 1 CLF
@@ -89,3 +94,4 @@ NUM_PRIMARY = 2  # 1 learned barrier + 1 CLF
 # (nbc_unicycle and nbc_pvtol train none)
 NUM_BACKUP = 1
 USES_BARRIER = True  # the agent TD-trains the barrier critic
+SEED_AXIS = True  # terms index the last axis: the lockstep runner takes it

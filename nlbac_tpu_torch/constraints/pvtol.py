@@ -20,6 +20,9 @@ h families: 5 obstacle circles (1/2(||y-o||^2 - (1.2 r)^2)), two operator
 distance half-planes with margin 0.9*operator_dist, and the y_max/y_min
 box with delta 10. CLF: L on the 11-d obs of the 1-step prediction,
 residual (L1 - L0) + gamma_l L0.
+
+Stacked over seeds, obs and action carry a leading (S,) axis, each NODE
+step is one seed-batched K1 launch and the residuals are (S, B, K).
 """
 
 from __future__ import annotations
@@ -39,14 +42,14 @@ def _chain(ncfg, node_params, field, state7, action, dt, resample,
 
     Returns the full 7-d states [s_t, s_{t+1}, ..., s_{t+horizon}]."""
     states = [state7]
-    dyn = state7[:, :6]  # obs_to_dynamics_state
-    op = state7[:, 6]
+    dyn = state7[..., :6]  # obs_to_dynamics_state
+    op = state7[..., 6]
     u = action
     for k in range(horizon):
         dyn = predict_next_state(ncfg, node_params, dyn, u, dt, field=field,
                                  shorts=shorts, dp_group=dp_group)
-        op = env.propagate_operator(op, dyn[:, 0])
-        s = torch.cat([dyn, op[:, None]], dim=1)
+        op = env.propagate_operator(op, dyn[..., 0])
+        s = torch.cat([dyn, op[..., None]], dim=-1)
         states.append(s)
         if k + 1 < horizon:
             # only u_t carries gradient: the detach prunes every path
@@ -85,13 +88,13 @@ def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
     s_all = torch.stack(states)
     hazards = env.constants(obs.device)["hazards"]
     d2 = torch.sum(torch.square(s_all[..., None, :2]
-                                - hazards[None, None, :, :]), dim=3)
+                                - hazards), dim=-1)
     h_obs = 0.5 * (d2 - collision_radius ** 2)  # (4, B, 5)
     h_op1 = (s_all[..., 0] - s_all[..., 6] + op_margin)[..., None]
     h_op2 = (s_all[..., 6] - s_all[..., 0] + op_margin)[..., None]
     h_ymax = (-s_all[..., 1] + env.Y_MAX - dy)[..., None]
     h_ymin = (s_all[..., 1] - env.Y_MIN - dy)[..., None]
-    h = torch.cat([h_obs, h_op1, h_op2, h_ymax, h_ymin], dim=2)
+    h = torch.cat([h_obs, h_op1, h_op2, h_ymax, h_ymin], dim=-1)
     cbf = _hocbf3([h[0], h[1], h[2], h[3]], ccfg.gamma_b)  # (B, 9)
     if not include_clf:
         return cbf
@@ -100,8 +103,9 @@ def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
     l_t1 = lyapunov_apply(lyap_params, env.state_to_obs(states[1]))
     denom = dt if ccfg.clf_time_scaled else 1.0
     clf = (l_t1 - l_t) / denom + ccfg.gamma_l * l_t
-    return torch.cat([cbf, clf], dim=1)
+    return torch.cat([cbf, clf], dim=-1)
 
 
 NUM_PRIMARY = 10  # 5 obstacle + 2 operator + 2 box HOCBFs + 1 CLF
 NUM_BACKUP = 9
+SEED_AXIS = True  # terms index the last axis: the lockstep runner takes it

@@ -60,3 +60,4 @@ def terms(ccfg: ConstraintConfig, ncfg: NodeConfig, node_params, field,
 
 NUM_PRIMARY = 8  # 7 CBFs + 1 CLF
 NUM_BACKUP = 7
+SEED_AXIS = True  # terms index the last axis: the lockstep runner takes it

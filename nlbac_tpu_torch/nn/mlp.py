@@ -16,8 +16,10 @@ layer, the gather of its output columns. Unmarked layers are whole.
 
 Stacked over seeds (the lockstep seed runner, ``parallel/lockstep.py``),
 a layer's weight is (S, in, out) and its bias (S, out), and x is (S, B,
-in): each layer is one ``torch.baddbmm`` for every seed. Stacked layers
-take no tp mark."""
+in): each layer is one ``torch.baddbmm`` for every seed (in a
+``compute_dtype`` such as bf16, a ``torch.bmm`` and the bias added after
+it, so that each seed's layer rounds as its one-seed layer does).
+Stacked layers take no tp mark."""
 
 from __future__ import annotations
 
@@ -79,7 +81,10 @@ def mlp_apply(params, x: torch.Tensor, *,
             if shard is not None:
                 raise ValueError("a layer stacked over seeds cannot be a "
                                  "tensor-parallel shard")
-            x = torch.baddbmm(b.unsqueeze(-2), x, w)
+            # in a low-precision compute dtype the product is rounded
+            # before the bias is added, as one seed's ``x @ w + b`` rounds
+            x = (torch.baddbmm(b.unsqueeze(-2), x, w) if compute_dtype is None
+                 else torch.bmm(x, w) + b.unsqueeze(-2))
         elif shard is None:
             if split is not None:
                 x, split = split.comm.gather(x), None

@@ -22,8 +22,10 @@ list, appends to it on the device whether each integration ended short
 of its span.
 
 Stacked over seeds (every leaf with a leading seed axis, x (S, B, n_s)),
-the control-affine Euler step is one seed-batched K1 launch and the loss
-a per-seed mean.
+the control-affine Euler step is one seed-batched K1 launch, chained
+calls included; the plain fields (the ``mlp`` field with its time input
+or normalization, a bf16 or multi-step control-affine field) run each
+layer as one batched product; the loss is a per-seed mean.
 """
 
 from __future__ import annotations

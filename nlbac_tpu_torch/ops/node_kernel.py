@@ -26,8 +26,12 @@ Seed-batched form (the lockstep seed runner, ``parallel/lockstep.py``):
 S parameter sets stacked on a leading seed axis, each weight (S, K, N)
 and bias (S, N), with x (S, B, n_s) and u (S, B, n_u). One launch covers
 every seed and counts once, with S * B rows in ``launches_by_rows``; its
-plain version runs each layer as one ``torch.baddbmm``. A stacked
-parameter set is one cache entry.
+plain version runs each layer as ``nn.mlp.mlp_apply`` runs a stacked
+layer (one batched product for every seed). A stacked
+parameter set is one cache entry. Chained calls (PVTOL's constraint
+chain, each call's x the last one's output) take the same path: each
+call's backward recomputes its own plain step, so the gradient reaches
+u_t, x and the parameters through every call of the chain.
 """
 
 from __future__ import annotations
@@ -315,33 +319,17 @@ def _launch(args: LaunchArgs, x: torch.Tensor, u: torch.Tensor, dt: float,
     return out
 
 
-def _mlp(net, x, cdt):
-    """ReLU MLP over (in, out) weights, as ``nn.mlp.mlp_apply``; stacked
-    weights (S, K, N) with x (S, B, K) take one ``baddbmm`` a layer."""
-    out_dtype = x.dtype
-    if cdt is not None:
-        x = x.to(cdt)
-    n = len(net["w"])
-    for i, (w, b) in enumerate(zip(net["w"], net["b"])):
-        if cdt is not None:
-            w, b = w.to(cdt), b.to(cdt)
-        if w.dim() == 3:
-            x = torch.baddbmm(b.unsqueeze(-2), x, w)
-        else:
-            x = x @ w + b
-        if i < n - 1:
-            x = torch.relu(x)
-    return x.to(out_dtype)
-
-
 def node_euler_step_plain(params, x: torch.Tensor, u: torch.Tensor,
                           dt: float, compute_dtype=None) -> torch.Tensor:
     """The same function in plain PyTorch ops: the reference for the
     kernel, the CPU path and the recomputation behind the gradient."""
+    # here, not at the top: nn/ imports this module
+    from nlbac_tpu_torch.nn.mlp import mlp_apply
+
     n_s, n_u = x.shape[-1], u.shape[-1]
     cdt = torch.bfloat16 if compute_dtype == "bfloat16" else None
-    f_x = _mlp(params["f"], x, cdt)
-    g_x = _mlp(params["g"], x, cdt)
+    f_x = mlp_apply(params["f"], x, compute_dtype=cdt)
+    g_x = mlp_apply(params["g"], x, compute_dtype=cdt)
     g_x = g_x.reshape(g_x.shape[:-1] + (n_s, n_u))
     dx = f_x + torch.einsum("...ij,...j->...i", g_x, u)
     return x + dt * dx

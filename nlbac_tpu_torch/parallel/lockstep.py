@@ -8,8 +8,10 @@ select, and every ``lax.cond`` becomes a select on a per-seed predicate.
 Here the seed axis is written out. One process on one card holds N seeds
 stacked (``agent.state.stack_states``, ``replay.SeedReplay``), and one
 Python episode loop, ``train/driver.py``'s step for step, issues each
-launch once for every seed: a layer is one batched product, the NODE's
-Euler step one seed-batched K1 launch.
+launch once for every seed: a layer is one batched product, the
+control-affine NODE's Euler step one seed-batched K1 launch (each of
+PVTOL's three chained calls, the learned barrier's one call, the fit),
+the env step one ``torch.func.vmap`` of the env's one-seed step.
 
 - All seeds share ``i_episode``; each keeps its own step total, update
   counter, replay cursors and sizes, supervisor, multipliers and Adam
@@ -25,6 +27,10 @@ Euler step one seed-batched K1 launch.
   integers.
 - A step reads the device once, for every seed's ``done`` and backup
   flag together.
+- Each seed resets from its own generator, through ``reset_curriculum``
+  where the run has a spawn curriculum (``train/driver.py``'s
+  ``curriculum_kwargs``), and steps with the run's kill terms
+  (``build_step_kwargs``).
 - Seed i is made as ``parallel/seeds.py::_new_seed`` makes seed
   ``base_seed + i`` (its own ``torch.Generator``), and each draw site
   draws seed i's share from seed i's generator with the one-seed shape,
@@ -34,10 +40,14 @@ Euler step one seed-batched K1 launch.
   keys with ``split(PRNGKey(base_seed), n)`` instead; threefry and
   Philox never match anyway (ROADMAP.md Queue 3).
 
-It covers what its ``_refuse`` lets through: the unicycle preset (and
-envs registered with its constraint builder), the control-affine NODE
-under one float32 Euler step (K1 on its path), on one device. The rest
-raises, naming the ROADMAP item that queues it.
+It trains every preset (and envs registered with their builders, or with
+a registered builder that declares ``SEED_AXIS``) under the fixed-step
+NODE solvers: K1 where ``nn.uses_euler_kernel`` routes the field to it,
+the plain field on stacked weights otherwise (the ``mlp`` field of cars
+and the quadrotor, a bf16 or multi-step Euler NODE). What ``_refuse`` and
+the state's stacking refuse (dopri5, a builder without ``SEED_AXIS``, a
+stacked twin-Q state, a seed-stacked state in a dp gang) and several
+devices raise, naming the ROADMAP item that queues them.
 """
 
 from __future__ import annotations
@@ -52,14 +62,15 @@ from nlbac_tpu_torch.agent import create_train_state, make_agent
 from nlbac_tpu_torch.agent.state import stack_states
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.config import NLBACConfig
+from nlbac_tpu_torch.constraints import get_builder
 from nlbac_tpu_torch.envs import get_env
-from nlbac_tpu_torch.nn import uses_euler_kernel
 from nlbac_tpu_torch.train.aot import _LOADERS, episode_kernels
 from nlbac_tpu_torch.train.driver import (
     EpisodeMetrics,
     _f32,
     build_step_kwargs,
     create_replays,
+    curriculum_kwargs,
 )
 from nlbac_tpu_torch.train.supervisor import (
     init_supervisor,
@@ -69,42 +80,40 @@ from nlbac_tpu_torch.train.supervisor import (
 from nlbac_tpu_torch.tree import SeedMasks, where_seeds
 
 # The ROADMAP.md items that queue what the runner refuses
-PRESETS_ITEM = "ROADMAP.md Queue 1 item 22"
+LEFTOVERS_ITEM = "ROADMAP.md Queue 1 item 25"
 DEVICES_ITEM = "ROADMAP.md Queue 1 item 23"
 
 
 def _refuse(cfg: NLBACConfig) -> None:
     """Raise a ValueError for a config the lockstep runner does not cover,
-    naming its ROADMAP item."""
-    def no(what):
-        raise ValueError(f"make_seed_parallel_runner covers the unicycle "
-                         f"preset's path (control-affine NODE, one float32 "
-                         f"Euler step); {what} is queued as {PRESETS_ITEM}")
-    if cfg.env.name in ("cars", "pvtol", "quadrotor"):
-        no(f"the {cfg.env.name} env")
-    if cfg.constraint.kind != "unicycle":
-        no(f"the {cfg.constraint.kind!r} constraint builder")
-    if cfg.supervisor.kind not in ("trap", "none"):
-        no(f"the {cfg.supervisor.kind!r} supervisor")
-    if cfg.node.solver != "euler":
-        no(f"--node_solver {cfg.node.solver}")
-    if cfg.node.compute_dtype is not None:
-        no(f"a {cfg.node.compute_dtype} NODE")
-    if not uses_euler_kernel(cfg.node):
-        no(f"the {cfg.node.form!r} NODE field with "
-           f"{cfg.node.solver_steps} steps")
-    if cfg.env.spawn_curriculum_episodes > 0:
-        no("a spawn curriculum")
-    if cfg.sac.probe_pretanh_reg:
-        no("the probe pre-tanh regularizer")
+    naming its ROADMAP item: the adaptive dopri5 NODE, which needs each
+    seed's own step control, and a constraint builder that does not
+    declare ``SEED_AXIS`` (``constraints.register_builder``): one written
+    for (B, .) rows may index their first axis, which here is the seeds."""
+    if not getattr(get_builder(cfg.constraint.kind), "SEED_AXIS", False):
+        raise ValueError(
+            f"make_seed_parallel_runner takes constraint builders that "
+            f"declare SEED_AXIS = True; {cfg.constraint.kind!r} does not "
+            f"(a lockstep form of it is queued as {LEFTOVERS_ITEM})")
+    if cfg.node.solver == "dopri5":
+        raise ValueError(
+            f"make_seed_parallel_runner takes the fixed-step NODE solvers; "
+            f"--node_solver dopri5 (per-seed adaptive step control) is "
+            f"queued as {LEFTOVERS_ITEM}")
 
 
-def _reset_seeds(env, device, gens, max_steps):
-    """Each seed's ``env.reset`` (from its own generator), stacked: the
-    state's tensors on a leading seed axis, its host values (the step
-    count) shared."""
-    pairs = [env.reset(device, gen=g, max_episode_steps=max_steps)
-             for g in gens]
+def _reset_seeds(env, device, gens, max_steps, i_episode, curriculum):
+    """Each seed's reset from its own generator (``reset_curriculum`` with
+    ``curriculum``'s kwargs where the run has one, as the one-seed driver
+    resets), stacked: the state's tensors on a leading seed axis, its host
+    values (the step count) shared."""
+    if curriculum is None:
+        pairs = [env.reset(device, gen=g, max_episode_steps=max_steps)
+                 for g in gens]
+    else:
+        pairs = [env.reset_curriculum(device, i_episode, gen=g,
+                                      max_episode_steps=max_steps,
+                                      **curriculum) for g in gens]
     flats = [tree_flatten(st) for st, _ in pairs]
     spec = flats[0][1]
     leaves = []
@@ -189,6 +198,7 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
     max_steps = cfg.env.max_episode_steps
     barrier_B = cfg.env.barrier_B if cfg.env.barrier_signals else 0.0
     barrier_b = cfg.env.barrier_b if cfg.env.barrier_signals else 0.0
+    curriculum = curriculum_kwargs(cfg, env)
     env_step = _seed_step(env, barrier_B=barrier_B, barrier_b=barrier_b,
                           max_episode_steps=max_steps,
                           **build_step_kwargs(cfg, env))
@@ -223,7 +233,8 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
         if ts.seeds != n_seeds or len(gens) != n_seeds:
             raise ValueError(f"run_fn takes the {n_seeds} seeds of "
                              f"init_fn, got {ts.seeds}")
-        env_state, obs = _reset_seeds(env, device, gens, max_steps)
+        env_state, obs = _reset_seeds(env, device, gens, max_steps,
+                                      i_episode, curriculum)
         start_backup = i_episode >= cfg.supervisor.enable_after_episodes
         sup = init_supervisor(cfg.supervisor, device, seeds=n_seeds)
         zeros = torch.zeros((n_seeds,), device=device)

@@ -19,10 +19,10 @@ read to the step; the ring's write slot and the step count are host
 integers.
 
 Stacked over seeds (the lockstep seed runner), every tensor field gains
-a leading (S,) axis (``init_supervisor(..., seeds=S)``): ``pre_action``
-and the ``trap`` machine run elementwise over it, the seeds sharing the
-host slot and step count (they run in lockstep); ``cars_gap`` and
-``pvtol`` take one seed.
+a leading (S,) axis (``init_supervisor(..., seeds=S)``): every machine
+runs elementwise over it, reading an observation's coordinates on its
+last axis, the seeds sharing the host slot and step count (they run in
+lockstep).
 """
 
 from __future__ import annotations
@@ -122,8 +122,8 @@ def _trap_machine(cfg: SupervisorConfig, sup: SupervisorState, pos2,
 def _cars_machine(cfg: SupervisorConfig, sup: SupervisorState,
                   out: StepOut, start: bool) -> SupervisorState:
     obs = out.obs
-    gap34 = obs[4] * 100.0 - obs[6] * 100.0
-    gap45 = obs[6] * 100.0 - obs[8] * 100.0
+    gap34 = obs[..., 4] * 100.0 - obs[..., 6] * 100.0
+    gap45 = obs[..., 6] * 100.0 - obs[..., 8] * 100.0
 
     trigger = (gap45 < cfg.cars_gap) & (out.reached != 0)
     fire = (~sup.use_backup) & trigger & start
@@ -146,7 +146,7 @@ def _pvtol_rush_machine(cfg: SupervisorConfig, sup: SupervisorState,
     """Operator-rush trigger: rushing toward the goal while beyond the
     operator distance."""
     checking = episode_steps >= cfg.min_steps
-    x, x_prev, op = obs[0], obs_prev[0], obs[7]
+    x, x_prev, op = obs[..., 0], obs_prev[..., 0], obs[..., 7]
     od = cfg.operator_dist
     rushing = (((x <= 4.5) & (x - x_prev > 0) & (x - op > od))
                | ((x > 4.5) & (x - x_prev < 0) & (op - x > od)))
@@ -184,7 +184,8 @@ def post_step(cfg: SupervisorConfig, sup: SupervisorState, obs_prev,
     if cfg.kind == "cars_gap":
         return _cars_machine(cfg, sup, out, start)
     if cfg.kind == "pvtol":
-        sup = _trap_machine(cfg, sup, out.obs[:2], episode_steps, start)
+        sup = _trap_machine(cfg, sup, out.obs[..., :2], episode_steps,
+                            start)
         return _pvtol_rush_machine(cfg, sup, obs_prev, out.obs,
                                    episode_steps, start)
     raise ValueError(f"unknown supervisor kind {cfg.kind!r}")

@@ -684,3 +684,102 @@ def test_seed_batched_unicycle_update_on_the_card_matches_the_cpu():
                 for g, w in zip(got[key], want):
                     assert (torch.as_tensor(g) == torch.as_tensor(w)).all(
                     ), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", ["pvtol", "nbc_pvtol"])
+def test_seed_batched_pvtol_update_on_the_card_matches_the_cpu(preset):
+    """One full-width update of 3 stacked PVTOL-family seeds at different
+    counters (seed 0 fits the NODE on 32768 rows, ascends and, for PVTOL,
+    takes the backup branch; seed 1 does none of these; seed 2 does not
+    update) on the card against the same update on the CPU: K1 seed-batched
+    on PVTOL's three chained calls (and three more for the backup branch)
+    or on the learned barrier's one call, each at 3 x 256 rows (6, 2), and
+    on the fit at 3 x 32768; every metric at the update tolerance, the
+    Adam moments as the unicycle's, seed 2's state unchanged on both."""
+    _require_gpu()
+    from nlbac_tpu_torch.agent import create_train_state, make_agent
+    from nlbac_tpu_torch.agent.state import stack_states, unstack_state
+    from nlbac_tpu_torch.envs import pvtol
+    from nlbac_tpu_torch.parallel import state_arrays
+
+    cfg = get_config(preset)
+    n = cfg.sac.batch_size
+    gen = torch.Generator().manual_seed(1)
+    states = [create_train_state(cfg, gen, "cpu") for _ in range(3)]
+    for ts, count in zip(states, (0, 3, 5)):
+        ts.updates = count
+
+    def obs(rows):
+        s = torch.zeros(3, rows, 7)
+        s[..., :2] = torch.rand(3, rows, 2, generator=gen) * 10 - 5
+        s[..., 2] = torch.rand(3, rows, generator=gen) * 6.28 - 3.14
+        s[..., 3:5] = torch.randn(3, rows, 2, generator=gen)
+        s[..., 5] = torch.rand(3, rows, generator=gen) * 2
+        s[..., 6] = s[..., 0] + 0.8 * torch.randn(3, rows, generator=gen)
+        return pvtol.state_to_obs(s)
+
+    def batch(rows):
+        o, o1 = obs(rows), obs(rows)
+        action = (torch.rand(3, rows, 2, generator=gen) * 2 - 1) * \
+            torch.tensor([3.5, 15.0])
+        return {"obs": o, "action": action,
+                "reward": torch.randn(3, rows, generator=gen),
+                "constraint": torch.rand(3, rows, generator=gen),
+                "lyap_t": o, "lyap_t1": o1,
+                "barrier_signal": -0.1 * (torch.rand(
+                    3, rows, generator=gen) < 0.2).float(),
+                "next_obs": o1,
+                "mask": (torch.rand(3, rows, generator=gen) > 0.1).float(),
+                "t": torch.zeros(3, rows),
+                "next_t": torch.full((3, rows), 0.02)}
+
+    b, nb = batch(n), batch(cfg.node.max_batch)
+    noise = {k: torch.randn(3, n, 2, generator=gen)
+             for k in ("next", "pi", "backup")}
+    # a resample draw per chain step, the seeds stacked inside each
+    resamples = 2 if preset == "pvtol" else 1
+    noise.update({k: torch.randn(resamples, 3, n, 2, generator=gen)
+                  for k in ("resample", "backup_resample")})
+    seeds = [True, True, False]
+
+    def run(device):
+        ts = stack_states(cfg, [_to_device(s, cfg, device) for s in states])
+        moved = {k: {name: v.to(device) for name, v in d.items()}
+                 for k, d in (("b", b), ("nb", nb))}
+        fits = []
+        ts, m = make_agent(cfg, device).update_core(
+            ts, moved["b"], lambda fit: fits.append(fit) or moved["nb"],
+            None, 0, noise={k: v.to(device) for k, v in noise.items()},
+            seeds=seeds)
+        assert fits == [[True, False, False]] and ts.updates == [1, 4, 5]
+        return ts, {k: v.cpu() for k, v in m.items()}
+
+    before = nk.launch_counts["node_euler"]
+    by_rows = dict(nk.launches_by_rows)
+    ts_dev, m_dev = run("cuda")
+    chain = 6 if preset == "pvtol" else 1  # with the backup branch
+    assert nk.launch_counts["node_euler"] == before + chain + 1
+    assert nk.launches_by_rows[3 * n] == by_rows.get(3 * n, 0) + chain
+    assert nk.launches_by_rows[3 * 32768] == by_rows.get(3 * 32768, 0) + 1
+    ts_cpu, m_cpu = run("cpu")
+    for k, v in m_cpu.items():
+        torch.testing.assert_close(m_dev[k], v, rtol=1e-3, atol=1e-4,
+                                   msg=k)
+    for group in ts_cpu.opt:
+        for a, bb in zip(ts_dev.opt[group].moments(),
+                         ts_cpu.opt[group].moments()):
+            for x, y in zip(a, bb):
+                gap = (x.cpu() - y).norm() / y.norm().clamp_min(1e-30)
+                assert gap <= 2e-3, (group, float(gap))
+    start = state_arrays(states[2])
+    for ts in (ts_dev, ts_cpu):
+        got = state_arrays(unstack_state(cfg, ts, 2))
+        for key, want in start.items():
+            if key == "updates":
+                assert got[key] == want == 5
+            else:
+                assert len(got[key]) == len(want), key
+                for g, w in zip(got[key], want):
+                    assert (torch.as_tensor(g) == torch.as_tensor(w)).all(
+                    ), key

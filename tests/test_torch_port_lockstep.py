@@ -53,6 +53,8 @@ from nlbac_tpu_torch.agent import create_train_state as t_create
 from nlbac_tpu_torch.agent import make_agent as t_make_agent
 from nlbac_tpu_torch.agent.state import stack_states, unstack_state
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
+from nlbac_tpu_torch.constraints import register_builder
+from nlbac_tpu_torch.constraints import unicycle as t_unicycle_builder
 from nlbac_tpu_torch.envs import register_env
 from nlbac_tpu_torch.envs import unicycle as t_unicycle
 from nlbac_tpu_torch.experimental import stack_twin_q_state
@@ -517,25 +519,52 @@ def _node(cfg, **kw):
     return dataclasses.replace(cfg, node=dataclasses.replace(cfg.node, **kw))
 
 
+def _builder(cfg, kind, module):
+    register_builder(kind, module)
+    return dataclasses.replace(cfg, constraint=dataclasses.replace(
+        cfg.constraint, kind=kind))
+
+
+# unicycle's builder registered again, without and with SEED_AXIS: one
+# written for (B, .) rows only may index the seed axis as its rows
+FIRST_AXIS_BUILDER = types.SimpleNamespace(
+    terms=t_unicycle_builder.terms, NUM_PRIMARY=t_unicycle_builder.NUM_PRIMARY,
+    NUM_BACKUP=t_unicycle_builder.NUM_BACKUP)
+SEED_AXIS_BUILDER = types.SimpleNamespace(**vars(FIRST_AXIS_BUILDER),
+                                          SEED_AXIS=True)
+
 REFUSED = {
-    "cars": lambda: tconfig.get_config("cars"),
-    "pvtol": lambda: tconfig.get_config("pvtol"),
-    "nbc_unicycle": lambda: tconfig.get_config("nbc_unicycle"),
-    "nbc_pvtol": lambda: tconfig.get_config("nbc_pvtol"),
-    "quadrotor": lambda: tconfig.get_config("quadrotor"),
     "dopri5": lambda: _node(tconfig.get_config("unicycle"),
                             solver="dopri5"),
-    "bf16_node": lambda: _node(tconfig.get_config("unicycle"),
-                               compute_dtype="bfloat16"),
-    "two_euler_steps": lambda: _node(tconfig.get_config("unicycle"),
-                                     solver_steps=2),
+    "dopri5_while": lambda: _node(tconfig.get_config("unicycle"),
+                                  solver="dopri5", adaptive_impl="while"),
+    "builder_without_seed_axis": lambda: _builder(
+        tconfig.get_config("unicycle"), "unicycle_first_axis",
+        FIRST_AXIS_BUILDER),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_uncovered_configs_are_refused(name):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 22"):
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 25"):
         parallel.make_seed_parallel_runner(REFUSED[name](), 2, "cpu")
+
+
+def test_registered_builder_with_seed_axis_is_taken():
+    """A registered builder that declares SEED_AXIS trains in the runner:
+    unicycle's builder under another kind, one episode of S seeds, bit
+    for bit as the built-in kind's."""
+    cfg = runner_cfg()
+    want, want_ts, *_ = run_lockstep(cfg, 5, episodes=1)
+    got, got_ts, *_ = run_lockstep(_builder(cfg, "unicycle_seed_axis",
+                                            SEED_AXIS_BUILDER), 5,
+                                   episodes=1)
+    assert got_ts.updates == want_ts.updates and min(got_ts.updates) > 0
+    np.testing.assert_equal(got, want)
+    for i in range(S):
+        np.testing.assert_equal(
+            parallel.state_arrays(unstack_state(cfg, got_ts, i)),
+            parallel.state_arrays(unstack_state(cfg, want_ts, i)))
 
 
 def test_several_devices_are_refused():
@@ -548,7 +577,7 @@ def test_stacked_twin_q_state_is_refused():
     gen = torch.Generator().manual_seed(0)
     states = [stack_twin_q_state(cfg, t_create(cfg, gen, "cpu"))
               for _ in range(2)]
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 22"):
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 25"):
         stack_states(cfg, states)
 
 
@@ -623,17 +652,26 @@ def test_stack_and_unstack_states_round_trip():
 
 
 def test_lockstep_modules_import_no_jax():
-    """A fresh process that imports the lockstep runner and the seed Adam
-    holds no JAX and nothing of the JAX package."""
+    """A fresh process that imports the lockstep runner and every module
+    it puts on the seed axis (the seed Adam, the fields, K1's wrapper, the
+    update and the state, the replay, the supervisor, the driver's
+    helpers, the constraint builders and the envs) holds no JAX and
+    nothing of the JAX package."""
     import os
     import subprocess
     import sys
     from pathlib import Path
 
+    modules = ("parallel.lockstep", "nn.adam", "nn.node", "nn.mlp",
+               "ops.node_kernel", "agent.update", "agent.state", "interop",
+               "replay.buffer", "train.supervisor", "train.driver",
+               "constraints.cars", "constraints.pvtol",
+               "constraints.learned_barrier", "constraints.common",
+               "envs.cars", "envs.pvtol", "envs.quadrotor")
     repo = Path(__file__).resolve().parent.parent
     code = ("import sys\n"
-            "import nlbac_tpu_torch.parallel.lockstep, nlbac_tpu_torch.nn.adam\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'optax',"
+            + "".join(f"import nlbac_tpu_torch.{m}\n" for m in modules)
+            + "bad = sorted(m for m in sys.modules if m in ('jax', 'optax',"
             " 'nlbac_tpu') or m.startswith(('jax.', 'nlbac_tpu.')))\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
