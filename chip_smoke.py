@@ -138,14 +138,34 @@ Phases, one line each (any failure raises and exits nonzero):
    launches against its count per lockstep update, the aggregate
    env-steps/s beside one seed's run of the same episodes, and
    ``lockstep_update_check`` on the trained seeds;
-23. a JSON line of the kernel's numbers (and the tanh, lever, start-up
+23. the lockstep seed runner under ``--node_solver dopri5`` and with a
+   constraint builder that does not declare ``SEED_AXIS``: (a) the
+   adaptive solver with a seed axis on SEEDS x LOCKSTEP_DOPRI5_ROWS rows
+   of the unicycle NODE at full width, each seed's weights at its
+   LOCKSTEP_DOPRI5_SCALES entry so that the seeds take different trial
+   counts, in both forms, against each seed's one-seed solve on the card
+   (trials per seed equal, values within LOCKSTEP_DOPRI5_RTOL/ATOL, the
+   gradients of the parameters and y0 within LOCKSTEP_DOPRI5_GRAD_FRAC of
+   each leaf's largest entry: the adjoint's under ``while`` within phase
+   8's ADJOINT_FRAC, the scan form's within its float32 noise, with a
+   one-ulp floor beside them), timed against the one-seed solves; (b)
+   SEEDS unicycle seeds under each form in the runner for one episode of
+   LOCKSTEP_DOPRI5_STEPS steps (every seed updates, the first update
+   fits), then ``lockstep_update_check``
+   with each seed's short integrations beside its one-seed update's, and
+   ms per lockstep update against one seed's (a fit update and
+   LOCKSTEP_DOPRI5_TIMED others, in turns); (c) unicycle's builder
+   registered again without ``SEED_AXIS``, one Euler episode of
+   LOCKSTEP_DOPRI5_STEPS steps: K1's launches against SEEDS a rollout
+   call plus the seed-batched fit, and ``lockstep_update_check``;
+24. a JSON line of the kernel's numbers (and the tanh, lever, start-up
    and lockstep phases'), the script's total time, then the result line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
 QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN, GANG_STEPS,
-DOPRI5_GANG_STEPS, STARTUP_STEPS, LOCKSTEP_PRESETS below; phase 21's
-lockstep runs take the main path's EPISODES x EPISODE_STEPS); the widths
-are the presets'.
+DOPRI5_GANG_STEPS, STARTUP_STEPS, LOCKSTEP_PRESETS, LOCKSTEP_DOPRI5_STEPS
+below; phase 21's lockstep runs take the main path's EPISODES x
+EPISODE_STEPS); the widths are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
@@ -166,6 +186,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -233,7 +254,8 @@ QUAD_MIN_STEPS, QUAD_MIN_UPDATES = 600, 300
 QUAD_FLAGS = ["--spawn_curriculum_episodes", "4", "--spawn_curriculum_mode",
               "mix", "--pretanh_reg", "0.001", "--probe_pretanh_reg", "0.01"]
 # The resampled controls each constraint chain draws per loss.
-RESAMPLES = {"unicycle": 0, "cars": 1, "pvtol": 2, "learned_barrier": 1}
+RESAMPLES = {"unicycle": 0, "cars": 1, "pvtol": 2, "learned_barrier": 1,
+             "unicycle_per_seed": 0}
 # The learned barrier's single K1 call: (n_s, n_u) and rows.
 NBC_CALLS = {"nbc_unicycle": ((3, 2), 128), "nbc_pvtol": ((6, 2), 256)}
 PVTOL_ROWS = 256
@@ -388,6 +410,37 @@ LOCKSTEP_QUAD_UPDATES, LOCKSTEP_QUAD_EPISODES = 30, 12
 # and the backup branch's (PVTOL: every backup_update_interval-th update)
 K1_CHAIN_CALLS = {"cars": 0, "pvtol": 3, "nbc_unicycle": 1, "nbc_pvtol": 1,
                   "quadrotor": 0}
+# The lockstep under dopri5 (phase 23), unicycle at full width and SEEDS
+# seeds. (a) The solver on SEEDS x LOCKSTEP_DOPRI5_ROWS rows, seed i's
+# NODE weights scaled by LOCKSTEP_DOPRI5_SCALES[i] (5, 6, 9 and 11 trials
+# at 128 rows on the CPU, every error at least 0.44 from the accept
+# threshold), against each seed's one-seed solve on the card: values
+# within LOCKSTEP_DOPRI5_RTOL/ATOL (a batched product need not round as
+# the one-seed product does), trial counts equal, gradients within
+# LOCKSTEP_DOPRI5_GRAD_FRAC of each leaf's largest entry: the adjoint's
+# (``while``) within phase 8's ADJOINT_FRAC; autograd's through the scan
+# form within its float32 noise, DOPRI5_GANG_NODE_FRAC's (that gradient
+# runs through the step sizes, which a batched product's rounding moves;
+# the 2.5-scaled seed's stood 7.88e-2 off its one-seed gradient in one
+# run), with the worst seed's one-ulp floor printed beside it. (b) The
+# runner for one
+# episode of LOCKSTEP_DOPRI5_STEPS steps (preset: 1200), just past the
+# batch (128 rows), so that every seed makes 6 updates and the first fits
+# the NODE on SEEDS x 32768 rows; the policy acts in the second half. Its
+# update check holds the NODE's parameters and Adam moments, which carry
+# the fit's gradient through the adaptive solve, as phase 17 holds a
+# gang's: within the larger of DOPRI5_GANG_NODE_FRAC and NOISE_FACTOR
+# times the one-ulp NODE floor, of each leaf's largest entry. Then a fit
+# update and LOCKSTEP_DOPRI5_TIMED others of the lockstep and of one seed,
+# in turns, each timed alone. (c) The per-seed builder: one Euler episode
+# of the same length.
+LOCKSTEP_DOPRI5_ROWS = 128
+LOCKSTEP_DOPRI5_SCALES = (1.0, 1.5, 2.0, 2.5)
+LOCKSTEP_DOPRI5_RTOL, LOCKSTEP_DOPRI5_ATOL = 1e-5, 1e-6
+LOCKSTEP_DOPRI5_GRAD_FRAC = {"while": ADJOINT_FRAC,
+                             "scan": DOPRI5_GANG_NODE_FRAC["scan"]}
+LOCKSTEP_DOPRI5_STEPS = 131
+LOCKSTEP_DOPRI5_TIMED = 2
 
 
 def phase(msg: str) -> None:
@@ -1735,7 +1788,7 @@ class TrialCounter:
         inner = solvers._trial
 
         def counted(field, params, t, y, dt, *rest):
-            self.n += dt != 0
+            self.n += (dt != 0).sum()  # (S,) steps under a seed axis
             return inner(field, params, t, y, dt, *rest)
 
         solvers._trial = counted
@@ -2324,13 +2377,21 @@ def lockstep_update_check(cfg, dev, state):
     updating, against each updating seed's one-seed update on the same
     device from the same batches (sampled from each seed's rings) and
     draws: every metric, parameter, target, Adam moment and multiplier
-    within UPDATE_RTOL/UPDATE_ATOL; a seed that sits out keeps its whole
-    state bit for bit. Then two noise floors on the seed with the
-    largest gap: its one-seed update from the same state with every NODE
-    weight, then every network weight (targets included), one ulp up,
-    against its one-seed update, as a share of the same tolerance.
-    Returns ((the largest gap as a share of its tolerance, where), {the
-    floor's name: (its share, where)}, the seeds that fit)."""
+    within UPDATE_RTOL/UPDATE_ATOL, each seed's short integrations equal
+    to its one-seed update's; a seed that sits out keeps its whole state
+    bit for bit. Then two noise floors on the seed with the largest gap:
+    its one-seed update from the same state with every NODE weight, then
+    every network weight (targets included), one ulp up, against its
+    one-seed update, as a share of the same tolerance. Under dopri5 the
+    NODE's parameters and Adam moments (the fit's gradient through the
+    adaptive solve) are held apart, as a fraction of each leaf's largest
+    entry, within the larger of DOPRI5_GANG_NODE_FRAC and NOISE_FACTOR
+    times the same fraction of the one-ulp NODE floor on the seed with the
+    largest such gap. Returns ((the largest gap as a share of its
+    tolerance, where), {the floor's name: (its share, where)}, the seeds
+    that fit, {"shorts": each seed's short integrations, lockstep and one
+    seed, "node": (the NODE's largest fraction, where, its limit, the
+    floor's fraction, where) under dopri5, else None})."""
     from nlbac_tpu_torch.agent.state import (
         PARAM_FIELDS,
         stack_states,
@@ -2402,9 +2463,13 @@ def lockstep_update_check(cfg, dev, state):
                     yield (f"{key}[{j}]{'.' if name else ''}{name} "
                            f"{tuple(np.shape(a))}", a)
 
+    dopri5 = cfg.node.solver == "dopri5"
+
     def gaps(got_state, got_m, want_state, want_m, label):
-        """The largest gap, leaf or metric, as a share of the tolerance."""
-        worst = (0.0, None)
+        """(the largest gap, leaf or metric, as a share of the tolerance;
+        under dopri5 the NODE leaves' largest gap as a fraction of the
+        leaf's largest entry), each with where it is."""
+        worst, node = (0.0, None), (0.0, "no gap")
         got, want = map(parallel.state_arrays, (got_state, want_state))
         pairs = [(name, a, b) for (name, a), (_, b) in
                  zip(named_leaves(got), named_leaves(want))]
@@ -2415,13 +2480,22 @@ def lockstep_update_check(cfg, dev, state):
             if not np.all(np.isfinite(a)):
                 raise RuntimeError(f"lockstep update: {label} {name} is "
                                    f"not finite")
+            if dopri5 and name.startswith(("node[", "adam/node[")):
+                scale = float(np.max(np.abs(b), initial=0.0))
+                diff = float(np.max(np.abs(a - b), initial=0.0))
+                node = max(node, (diff / scale if scale else diff,
+                                  f"{label} {name}"), key=lambda w: w[0])
+                continue
             share = float(np.max(np.abs(a - b) / (UPDATE_ATOL + UPDATE_RTOL
                                                   * np.abs(b)), initial=0.0))
             worst = max(worst, (share, f"{label} {name}"),
                         key=lambda w: w[0])
-        return worst
+        return worst, node
 
+    shorts = m["short_integrations"].tolist()
+    one_shorts = [0] * SEEDS
     worst, worst_seed, results = (0.0, None), None, {}
+    node_worst, node_seed = (0.0, "no gap"), None
     for i in range(SEEDS):
         got_state = unstack_state(cfg, stacked, i)
         if not on[i]:
@@ -2431,6 +2505,9 @@ def lockstep_update_check(cfg, dev, state):
                 if not bit_equal(got[key], want[key]):
                     raise RuntimeError(f"lockstep update: seed {i} sat out"
                                        f" but its {key} changed")
+            if shorts[i]:
+                raise RuntimeError(f"lockstep update: seed {i} sat out but "
+                                   f"counts {shorts[i]} short integrations")
             continue
         one, m1 = one_seed_update(ones[i], i)
         results[i] = (one, m1)
@@ -2438,13 +2515,20 @@ def lockstep_update_check(cfg, dev, state):
             raise RuntimeError(f"lockstep update: seed {i} at "
                                f"{got_state.updates} updates, one seed's at "
                                f"{one.updates}")
-        gap = gaps(got_state, {k: v[i] for k, v in m.items()}, one, m1,
-                   f"seed {i}")
+        one_shorts[i] = int(m1["short_integrations"])
+        if shorts[i] != one_shorts[i]:
+            raise RuntimeError(f"lockstep update: seed {i} counts "
+                               f"{shorts[i]} short integrations, its "
+                               f"one-seed update {one_shorts[i]}")
+        gap, node_gap = gaps(got_state, {k: v[i] for k, v in m.items()},
+                             one, m1, f"seed {i}")
         if gap[0] > 1:
             raise RuntimeError(f"lockstep update: {gap[1]} off by "
                                f"{gap[0]:.3f} of its tolerance")
         if worst_seed is None or gap[0] > worst[0]:
             worst, worst_seed = gap, i
+        if node_seed is None or node_gap[0] > node_worst[0]:
+            node_worst, node_seed = node_gap, i
 
     # the noise floors: one ulp of some weights in the one-seed update
     floors = {}
@@ -2458,8 +2542,25 @@ def lockstep_update_check(cfg, dev, state):
                                                                math.inf)))
         floors[name] = gaps(*one_seed_update(nudged, worst_seed),
                             *results[worst_seed],
-                            f"seed {worst_seed} {name} one ulp")
-    return worst, floors, fits
+                            f"seed {worst_seed} {name} one ulp")[0]
+    node = None
+    if dopri5:
+        # the NODE's floor on the seed with its largest gap (one that fits)
+        nudged = seed_state(node_seed)
+        with torch.no_grad():
+            for p in tree_leaves(nudged.node):
+                p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+        floor = gaps(*one_seed_update(nudged, node_seed),
+                     *results[node_seed], f"seed {node_seed} node one ulp")[1]
+        limit = max(DOPRI5_GANG_NODE_FRAC[cfg.node.adaptive_impl],
+                    NOISE_FACTOR * floor[0])
+        node = (node_worst[0], node_worst[1], limit, floor[0], floor[1])
+        if node_worst[0] > limit:
+            raise RuntimeError(f"lockstep update: {node_worst[1]} off by "
+                               f"{node_worst[0]:.3e} of the leaf's largest "
+                               f"entry (limit {limit:.3e})")
+    return worst, floors, fits, {"shorts": shorts, "one_seed_shorts":
+                                 one_shorts, "node": node}
 
 
 def floors_text(floors):
@@ -2488,7 +2589,7 @@ def lockstep_runs(dev, card, one_seed, seeds_info):
     state, eps4, secs4, launches4, rows4 = lockstep_episodes(run_fn, state)
     calls4, fits4 = lockstep_launches(SEEDS, eps4, launches4, rows4,
                                       f"lockstep {SEEDS} seeds")
-    (update_share, update_worst), update_floors, update_fits = \
+    (update_share, update_worst), update_floors, update_fits, _ = \
         lockstep_update_check(cfg, dev, state)
     phase(f"lockstep update: {SEEDS} trained seeds at update counts "
           f"{list(LOCKSTEP_COUNTERS)}, updating {list(LOCKSTEP_UPDATE_ON)} "
@@ -2770,6 +2871,18 @@ class CountedAgent:
         return self.agent.select_action(*args, **kwargs)
 
 
+def counted_runner(cfg, dev, calls):
+    """``make_seed_parallel_runner(cfg, SEEDS, dev)`` whose agent records
+    each update call in ``calls`` (``CountedAgent``)."""
+    real = parallel.lockstep.make_agent
+    parallel.lockstep.make_agent = lambda c, d: CountedAgent(real(c, d),
+                                                             calls)
+    try:
+        return parallel.make_seed_parallel_runner(cfg, SEEDS, dev)
+    finally:
+        parallel.lockstep.make_agent = real
+
+
 def expected_k1(preset, cfg, calls):
     """K1's launches by rows for the lockstep update ``calls`` (episode,
     counters, seeds): K1_CHAIN_CALLS at SEEDS x batch rows an update, the
@@ -2816,14 +2929,7 @@ def lockstep_preset_run(preset, dev, card):
     Returns (its numbers, its K1 launches)."""
     cfg = lockstep_preset_cfg(preset)
     calls = []
-    real = parallel.lockstep.make_agent
-    parallel.lockstep.make_agent = lambda c, d: CountedAgent(real(c, d),
-                                                             calls)
-    try:
-        init_fn, run_fn = parallel.make_seed_parallel_runner(cfg, SEEDS,
-                                                             dev)
-    finally:
-        parallel.lockstep.make_agent = real
+    init_fn, run_fn = counted_runner(cfg, dev, calls)
     ts, rl, node, gens, total = init_fn(SEED)
     episodes = []
     node_kernel.reset_launch_counts()
@@ -2872,7 +2978,7 @@ def lockstep_preset_run(preset, dev, card):
     seconds1 = time.perf_counter() - t1
     del one, rl1, node1
 
-    (share, where), floors, fits = lockstep_update_check(
+    (share, where), floors, fits, _ = lockstep_update_check(
         cfg, dev, (ts, rl, node, gens, total))
     rate, rate1 = sum(steps) / seconds, steps1 / seconds1
     rewards = [round(sum(ep[i]["reward"] for ep in episodes), 3)
@@ -2912,6 +3018,337 @@ def lockstep_presets(dev, card):
     for preset in LOCKSTEP_PRESETS:
         numbers[preset], by_path[f"{preset}_lockstep_{SEEDS}"] = \
             lockstep_preset_run(preset, dev, card)
+    return numbers, by_path
+
+
+def lockstep_dopri5_solver(dev, gen, card):
+    """Phase 23 (a): ``solve_adaptive`` with a seed axis on SEEDS x
+    LOCKSTEP_DOPRI5_ROWS rows of the unicycle NODE at full width (seed i's
+    weights scaled by LOCKSTEP_DOPRI5_SCALES[i]), in both forms, against
+    each seed's one-seed solve on the card: the trials per seed, the
+    values, the gradients of the parameters and y0 (through the adjoint
+    under ``while``, autograd under ``scan``); the forward's device ms
+    against SEEDS one-seed solves. Returns the numbers by form."""
+    cfg = get_config("unicycle")
+    ncfg, dt = cfg.node, cfg.env.dt
+    field = make_field(ncfg)
+    params = stacked_node_params(SEEDS, gen, dev)
+    scales = torch.tensor(LOCKSTEP_DOPRI5_SCALES, device=dev)
+    with torch.no_grad():
+        for p in tree_leaves(params):
+            p.mul_(scales.view((-1,) + (1,) * (p.dim() - 1)))
+    ones = [tree_map(lambda p: p[i].detach(), params) for i in range(SEEDS)]
+    rows = LOCKSTEP_DOPRI5_ROWS
+    high = torch.tensor(get_env("unicycle").SPEC.action_high, device=dev)
+    x = torch.randn(SEEDS, rows, 3, device=dev, generator=gen)
+    u = (torch.rand(SEEDS, rows, 2, device=dev, generator=gen) * 2 - 1) * high
+    s0 = pack_input(ncfg, x, u)
+    # a batch mean's cotangent, as the fit's loss sends it: with randn's
+    # the adjoint's backward solve takes hundreds of trials at these scales
+    # (g_theta in its error norm), each seconds of the phase's budget
+    cot = torch.randn(SEEDS, rows, 5, device=dev, generator=gen) / (rows * 3)
+    out = {}
+    for impl, max_steps in (("while", 512),
+                            ("scan", ncfg.adaptive_scan_steps)):
+        kw = dict(impl=impl, max_steps=max_steps)
+
+        def solve(p, y, seeds, trace=None):
+            return solve_adaptive(field, p, y, 0.0, dt, seed_axis=seeds,
+                                  return_final_t=True, trace=trace, **kw)
+
+        def grads(p, y, c, seeds):
+            """(the gradients of the parameters and y0, host ms)."""
+            p = tree_map(lambda v: v.detach().requires_grad_(True), p)
+            y = y.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y1 = (odeint_adjoint(field, p, y, 0.0, dt, method="dopri5",
+                                 seed_axis=seeds) if impl == "while"
+                  else solve_adaptive(field, p, y, 0.0, dt, seed_axis=seeds,
+                                      **kw))
+            g = torch.autograd.grad((y1 * c).sum(), tree_leaves(p) + [y])
+            torch.cuda.synchronize()
+            return g, (time.perf_counter() - t0) * 1e3
+
+        with torch.no_grad():
+            trace = []
+            y_s, t_s = solve(params, s0, True, trace)
+            trials = [sum(int(a[i]) for _, _, a in trace)
+                      for i in range(SEEDS)]
+        g_s, _ = grads(params, s0, cot, True)  # the first call: warm-up
+        errs, fracs, one_trials, one_grads, one_grad_ms = [], [], [], [], 0.0
+        for i in range(SEEDS):
+            with torch.no_grad():
+                tr = []
+                y_1, t_1 = solve(ones[i], s0[i], False, tr)
+                one_trials.append(sum(int(a) for _, _, a in tr))
+            torch.testing.assert_close(y_s[i], y_1, rtol=LOCKSTEP_DOPRI5_RTOL,
+                                       atol=LOCKSTEP_DOPRI5_ATOL)
+            errs.append((y_s[i] - y_1).abs().max().item())
+            if min(float(t_s[i]), float(t_1)) < float(np.float32(dt)):
+                raise RuntimeError(f"lockstep dopri5 {impl}: seed {i} "
+                                   f"reached t {float(t_s[i])} (one seed "
+                                   f"{float(t_1)}) of {dt}")
+            g_1, ms_1 = grads(ones[i], s0[i], cot[i], False)
+            one_grad_ms += ms_1
+            one_grads.append(g_1)
+            fracs.append(largest_frac([a[i] for a in g_s], g_1))
+        # the float32 noise floor: the worst seed's one-seed gradient with
+        # its weights one ulp up, against its one-seed gradient
+        w = int(np.argmax(fracs))
+        with torch.no_grad():
+            nudged = tree_map(lambda p: torch.nextafter(
+                p, torch.full_like(p, math.inf)), ones[w])
+        floor = largest_frac(grads(nudged, s0[w], cot[w], False)[0],
+                             one_grads[w])
+        limit = LOCKSTEP_DOPRI5_GRAD_FRAC[impl]
+        if trials != one_trials or len(set(trials)) < 2 or \
+                max(fracs) > limit:
+            raise RuntimeError(f"lockstep dopri5 {impl}: trials {trials} "
+                               f"(one seed {one_trials}), gradients off by "
+                               f"{fracs} of a leaf's largest entry (limit "
+                               f"{limit}; one-ulp floor {floor:.3e})")
+        _, grad_ms = grads(params, s0, cot, True)
+        with torch.no_grad():
+            ms = events_ms(lambda: solve(params, s0, True), calls=3)
+            one_ms = events_ms(lambda: [solve(ones[i], s0[i], False)
+                                        for i in range(SEEDS)], calls=3)
+        out[impl] = {"trials": trials, "max_abs_err": max(errs),
+                     "grad_frac": max(fracs), "grad_floor": floor,
+                     "ms": ms, "one_seed_ms": one_ms,
+                     "grad_ms": grad_ms, "one_seed_grad_ms": one_grad_ms}
+        phase(f"lockstep dopri5 solver {impl}: {SEEDS} seeds x {rows} rows "
+              f"(width 100, weights scaled {list(LOCKSTEP_DOPRI5_SCALES)}): "
+              f"trials per seed {trials}, each its one-seed solve's; values "
+              f"within {max(errs):.3e} of the one-seed solves (rtol "
+              f"{LOCKSTEP_DOPRI5_RTOL} atol {LOCKSTEP_DOPRI5_ATOL}); the "
+              f"{'adjoint' if impl == 'while' else 'autograd'} gradients of "
+              f"the parameters and y0 within {max(fracs):.3e} of a leaf's "
+              f"largest entry (limit {limit}; seed {w}'s one-ulp floor "
+              f"{floor:.3e}); forward {ms:.3f} ms "
+              f"against {one_ms:.3f} ms for {SEEDS} one-seed solves "
+              f"({one_ms / ms:.2f} times), with the gradient {grad_ms:.1f} "
+              f"ms against {one_grad_ms:.1f} ms (host clock, one warm call "
+              f"each) on {card}")
+    return out
+
+
+def largest_frac(got, want):
+    """The largest gap of ``got``'s leaves from ``want``'s, as a fraction of
+    the leaf's largest entry."""
+    return max(((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(got, want))
+
+
+def lockstep_dopri5_cfg(impl=None, kind=None):
+    """Unicycle at full width for one episode of LOCKSTEP_DOPRI5_STEPS
+    steps, the policy acting in its second half, under dopri5 with
+    ``impl`` (None: Euler) and with the constraint ``kind`` if given."""
+    steps = LOCKSTEP_DOPRI5_STEPS
+    argv = ["--preset", "unicycle", "--quiet", "--seed", str(SEED),
+            "--max_episode_steps", str(steps), "--start_steps",
+            str(steps // 2)]
+    if impl is not None:
+        argv += ["--node_solver", "dopri5", "--node_adaptive_impl", impl]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    if kind is not None:
+        cfg = dataclasses.replace(cfg, constraint=dataclasses.replace(
+            cfg.constraint, kind=kind))
+    return cfg
+
+
+def lockstep_episode(cfg, dev, trials):
+    """One episode of SEEDS seeds of ``cfg`` in the lockstep runner (K1's
+    counts and ``trials`` set to 0 just before, read just after). Returns
+    (the state, each seed's host metrics, the update calls, seconds, K1's
+    launches and its launches by rows)."""
+    calls = []
+    init_fn, run_fn = counted_runner(cfg, dev, calls)
+    ts, rl, node, gens, total = init_fn(SEED)
+    node_kernel.reset_launch_counts()
+    trials.n.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, rl, node, gens, m, total = run_fn(ts, rl, node, gens, 0, total)
+    host = parallel.episode_to_host_seeds(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    bad = [i for i in range(SEEDS) for v in ep_values([host], i)
+           if not math.isfinite(v)]
+    if bad or min(ts.updates) <= 0:
+        raise RuntimeError(f"lockstep {cfg.run.exp_name}: updates "
+                           f"{ts.updates}, non-finite metrics of seeds "
+                           f"{sorted(set(bad))}")
+    return ((ts, rl, node, gens, total), host, calls, seconds,
+            node_kernel.launch_counts["node_euler"],
+            dict(node_kernel.launches_by_rows))
+
+
+def dopri5_update_times(cfg, dev, state):
+    """Host ms of a fit update and LOCKSTEP_DOPRI5_TIMED others of the
+    lockstep state (every seed updating) and of its seed 0 alone (on its
+    rings), in turns, each between two synchronizes, with the counters set
+    so that the gates are those of a fit update and of others. Returns
+    {path: (fit ms, the others' mean ms, ms per update over a fit
+    cycle)}."""
+    from nlbac_tpu_torch.agent.state import unstack_state
+    from nlbac_tpu_torch.replay import unstack_replay
+
+    agent = make_agent(cfg, dev)
+    ts, rl, node, gens, _ = state
+    one = unstack_state(cfg, ts, 0)
+    rl1, node1 = unstack_replay(rl, 0), unstack_replay(node, 0)
+    gen1 = torch.Generator(dev).manual_seed(SEED + 200)
+    on = [True] * SEEDS
+
+    def lockstep(n):
+        ts.updates = [n] * SEEDS
+        agent.update(ts, rl, node, gens, 1, seeds=on)
+
+    def single(n):
+        one.updates = n
+        agent.update(one, rl1, node1, gen1, 1)
+
+    interval = cfg.node.update_interval
+    plan = [interval * k + 1 for k in range(LOCKSTEP_DOPRI5_TIMED)] + \
+        [interval * 100]
+    times = {"lockstep": ([], []), "one seed": ([], [])}
+    paths = (("lockstep", lockstep), ("one seed", single))
+    for turn, n in enumerate(plan):
+        for name, fn in (paths if turn % 2 == 0 else paths[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(n)
+            torch.cuda.synchronize()
+            times[name][n % interval == 0].append(
+                (time.perf_counter() - t0) * 1e3)
+    out = {}
+    for name, (rest, fit) in times.items():
+        other = float(np.mean(rest))
+        out[name] = (fit[0], other, (fit[0] + (interval - 1) * other)
+                     / interval)
+    return out
+
+
+def lockstep_dopri5_run(impl, dev, card, trials):
+    """Phase 23 (b): SEEDS unicycle seeds under dopri5 ``impl`` for one
+    episode, then ``lockstep_update_check`` and the update times. Returns
+    (its numbers, K1's launches)."""
+    cfg = lockstep_dopri5_cfg(impl)
+    state, host, calls, seconds, launches, _ = lockstep_episode(cfg, dev,
+                                                                trials)
+    fits = sum(1 for _, counters, on in calls
+               if any(o and n % cfg.node.update_interval == 0
+                      for n, o in zip(counters, on)))
+    steps = [h["steps"] for h in host]
+    shorts = [h["short_integrations"] for h in host]
+    if launches or not fits:
+        raise RuntimeError(f"lockstep dopri5 {impl}: {launches} K1 "
+                           f"launches, {fits} fit updates")
+    n_trials = int(trials.n)
+    updates = list(state[0].updates)
+    (share, where), floors, fit_seeds, extra = lockstep_update_check(
+        cfg, dev, state)
+    node_frac, node_where, node_limit, node_floor, floor_where = \
+        extra["node"]
+    times = dopri5_update_times(cfg, dev, state)
+    lock, one = times["lockstep"], times["one seed"]
+    phase(f"lockstep dopri5 {impl}: {SEEDS} seeds x 1 episode of "
+          f"{cfg.env.max_episode_steps} steps: steps {steps}, updates "
+          f"{updates} ({len(calls)} lockstep updates, {fits} "
+          f"fitting {SEEDS} x {cfg.node.max_batch} rows), {n_trials} trial "
+          f"steps over all seeds, short integrations per seed {shorts}, K1 "
+          f"0 launches; {sum(steps) / seconds:.2f} env-steps/s in all; "
+          f"update check at counters {list(LOCKSTEP_COUNTERS)}, updating "
+          f"{list(LOCKSTEP_UPDATE_ON)} (fitting {fit_seeds[0]}): worst at "
+          f"{share:.4f} of rtol {UPDATE_RTOL} atol {UPDATE_ATOL} ({where}), "
+          f"the NODE's leaves within {node_frac:.3e} of a leaf's largest "
+          f"entry ({node_where}; limit {node_limit:.3e}, its one-ulp floor "
+          f"{node_floor:.3e} at {floor_where}); {floors_text(floors)}; "
+          f"short integrations per seed "
+          f"{extra['shorts']} (one seed {extra['one_seed_shorts']}); ms per "
+          f"update: lockstep fit {lock[0]:.2f}, others {lock[1]:.2f}, over "
+          f"a fit cycle {lock[2]:.2f}; one seed fit {one[0]:.2f}, others "
+          f"{one[1]:.2f}, over a fit cycle {one[2]:.2f} "
+          f"({lock[2] / one[2]:.3f} times one seed's for {SEEDS} seeds) on "
+          f"{card}")
+    return {"steps": steps, "updates": updates,
+            "lockstep_updates": len(calls), "fits": fits,
+            "trial_steps": n_trials, "short_integrations": shorts,
+            "seconds": seconds, "update_check_share": share,
+            "update_check_worst": where, "update_check_floors": floors,
+            "node_frac": node_frac, "node_limit": node_limit,
+            "node_floor": node_floor,
+            "update_check_shorts": extra["shorts"],
+            "one_seed_shorts": extra["one_seed_shorts"],
+            "ms_per_update": {k: {"fit": v[0], "other": v[1], "cycle": v[2]}
+                              for k, v in times.items()}}, launches
+
+
+def lockstep_per_seed_builder(dev, card, trials):
+    """Phase 23 (c): unicycle's builder registered again without SEED_AXIS,
+    one Euler episode of SEEDS seeds: K1's launches against SEEDS a
+    rollout call (the primary's, and the backup branch's when an updating
+    seed takes it) plus one seed-batched launch a fit; then
+    ``lockstep_update_check``. Returns (its numbers, K1's launches)."""
+    from nlbac_tpu_torch.constraints import register_builder
+    from nlbac_tpu_torch.constraints import unicycle as builder
+
+    kind = "unicycle_per_seed"
+    register_builder(kind, types.SimpleNamespace(
+        terms=builder.terms, NUM_PRIMARY=builder.NUM_PRIMARY,
+        NUM_BACKUP=builder.NUM_BACKUP))
+    cfg = lockstep_dopri5_cfg(kind=kind)
+    state, host, calls, seconds, launches, by_rows = lockstep_episode(
+        cfg, dev, trials)
+    ccfg, ncfg = cfg.constraint, cfg.node
+    rollouts = fits = 0
+    for _, counters, on in calls:
+        live = [n for n, o in zip(counters, on) if o]
+        rollouts += 1 + int(ccfg.use_backup and any(
+            ccfg.backup_update_interval <= 1
+            or n % ccfg.backup_update_interval == 0 for n in live))
+        fits += int(any(n % ncfg.update_interval == 0 for n in live))
+    want = {k: v for k, v in ((cfg.sac.batch_size, SEEDS * rollouts),
+                              (SEEDS * ncfg.max_batch, fits)) if v}
+    if by_rows != want or launches != sum(want.values()):
+        raise RuntimeError(f"lockstep per-seed builder: K1 launches by rows "
+                           f"{by_rows}, expected {want} for {len(calls)} "
+                           f"lockstep updates")
+    (share, where), floors, fit_seeds, _ = lockstep_update_check(cfg, dev,
+                                                                 state)
+    steps = [h["steps"] for h in host]
+    phase(f"lockstep per-seed builder ({kind}, no SEED_AXIS, Euler): "
+          f"{SEEDS} seeds x 1 episode of {cfg.env.max_episode_steps} steps: "
+          f"steps {steps}, updates {state[0].updates}; K1 {launches} "
+          f"launches by rows {by_rows} for {len(calls)} lockstep updates "
+          f"({rollouts} rollout calls, {SEEDS} launches each; {fits} "
+          f"seed-batched fits), as expected; {sum(steps) / seconds:.2f} "
+          f"env-steps/s in all; update check (fitting {fit_seeds[0]}): "
+          f"worst at {share:.4f} of rtol {UPDATE_RTOL} atol {UPDATE_ATOL} "
+          f"({where}; {floors_text(floors)}), the seed that sat out bit "
+          f"for bit, ok on {card}")
+    return {"steps": steps, "updates": list(state[0].updates),
+            "lockstep_updates": len(calls), "rollout_calls": rollouts,
+            "fits": fits, "k1_launches": launches,
+            "k1_by_rows": {str(k): v for k, v in by_rows.items()},
+            "seconds": seconds, "update_check_share": share,
+            "update_check_worst": where,
+            "update_check_floors": floors}, launches
+
+
+def lockstep_dopri5(dev, gen, card):
+    """Phase 23: (a) the seed-axis solver, (b) the runner under each
+    dopri5 form, (c) a builder without SEED_AXIS. Returns (the numbers,
+    K1's launches by path)."""
+    trials = TrialCounter(dev)
+    numbers = {"solver": lockstep_dopri5_solver(dev, gen, card)}
+    by_path = {}
+    for impl in DOPRI5_IMPLS:
+        numbers[impl], by_path[f"unicycle_lockstep_dopri5_{impl}"] = \
+            lockstep_dopri5_run(impl, dev, card, trials)
+    numbers["per_seed_builder"], by_path["unicycle_lockstep_per_seed"] = \
+        lockstep_per_seed_builder(dev, card, trials)
     return numbers, by_path
 
 
@@ -3010,6 +3447,9 @@ def main() -> int:
     lockstep["presets"], presets_by_path = lockstep_presets(dev, card)
     by_path.update(presets_by_path)
     mark("lockstep presets (22)")
+    lockstep["dopri5"], dopri5_by_path = lockstep_dopri5(dev, gen, card)
+    by_path.update(dopri5_by_path)
+    mark("lockstep dopri5, per-seed builder (23)")
 
     big = times[32768]
     print(json.dumps({"kernels": [{

@@ -70,8 +70,16 @@ the host gates:
 - the metrics are (S,) tensors.
 
 The probe regularizer's batch is one for every seed, each seed's policy
-taking its own term. Data parallelism and the decoupled variant take no
-stacked state (ROADMAP.md Queue 1 item 25).
+taking its own term. Under dopri5 each seed takes its own adaptive steps
+(``nn.predict_next_state``), and ``short_integrations`` counts, per seed,
+the integrations that ended short among the calls whose gate the seed
+had on (the rollouts of the updating seeds, the fit of the fitting ones,
+the backup branch's of the seeds that take it). A constraint builder that
+does not declare ``SEED_AXIS`` is called once per seed on that seed's
+slices (``seed_terms``), and its (B, K) terms are stacked. Data
+parallelism and the decoupled variant take no stacked state: JAX's
+lockstep runner (``nlbac_tpu/parallel/mesh.py``'s
+``make_seed_parallel_runner``) builds neither.
 """
 
 from __future__ import annotations
@@ -109,6 +117,7 @@ from nlbac_tpu_torch.tree import (
     detach,
     snapshot,
     tree_leaves,
+    tree_map,
     where_seeds,
 )
 
@@ -469,12 +478,14 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         ``node_batch_thunk(fit)`` takes the list of the seeds that fit."""
         noise = noise or {}
         shorts = []  # predict_next_state's ended-short flags
+        counted = []  # the flags counted so far, each masked to its gate
         n_seeds = ts.seeds
         if n_seeds is not None and (dp_group is not None or
                                     _decoupled_updates):
             raise ValueError(
                 "a state stacked over seeds takes no data parallelism or "
-                "decoupled updates (ROADMAP.md Queue 1 item 25)")
+                "decoupled updates (JAX's lockstep runner has neither; not "
+                "queued)")
         obs, action = batch["obs"], batch["action"]
         if obs.shape[-2] * n_dp != scfg.batch_size:
             raise ValueError(
@@ -499,6 +510,14 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         def any_on(g):
             return any(g) if isinstance(g, list) else g
 
+        def tally(g):
+            """Count the ended-short flags the calls since the last tally
+            appended, for the seeds of the gate ``g`` (one seed: each)."""
+            m = mask_of(g) if isinstance(g, list) else None
+            counted.extend(f.to(torch.int64) if m is None
+                           else f.to(torch.int64) * m for f in shorts)
+            shorts.clear()
+
         if _decoupled_updates:
             # copies: the steps below update the parameters in place
             pre = {name: snapshot(getattr(ts, name))
@@ -514,6 +533,7 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
             node_fit_loss = select(do_node, node_fit_batch(
                 ts.node, ts.opt["node"], node_batch, shorts, do_node),
                 zero(n_seeds))
+            tally(do_node)
         else:
             node_fit_loss = zero(n_seeds)
 
@@ -594,14 +614,67 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
                 return a
             return resample
 
+        def seed_resampler(policy, draws, on_k, i):
+            """Seed i's ``make_resampler`` for a one-seed call: its policy
+            slice, draws and generator; zeros for a seed whose gate is off,
+            as ``draw_normal`` gives it."""
+            def resample(obs_k, k):
+                d = None if draws is None else draws[k][i]
+                if d is None and not on_k[i]:
+                    d = torch.zeros(obs_k.shape[:-1] + (cfg.action_dim,),
+                                    device=device)
+                with torch.no_grad():
+                    a, _, _ = sample_fn(policy, obs_k,
+                                        None if gen is None else gen[i], d)
+                return a
+            return resample
+
+        def constraint_terms(obs_, action_, include_clf, policy, draws, on_k):
+            """``builder.terms``: one call, seed-batched for a builder that
+            declares ``SEED_AXIS`` (or for one seed), else ``seed_terms``."""
+            if n_seeds is None or getattr(builder, "SEED_AXIS", False):
+                return builder.terms(
+                    obs=obs_, action=action_, include_clf=include_clf,
+                    resample=make_resampler(policy, draws, on_k),
+                    **term_kwargs)
+            return seed_terms(obs_, action_, include_clf, policy, draws,
+                              on_k)
+
+        def seed_terms(obs_, action_, include_clf, policy, draws, on_k):
+            """A builder written for one seed's (B, .) rows, called once per
+            seed on that seed's slices (obs, action, the networks, the
+            times, its generator and resampler), its (B, K) terms stacked
+            to (S, B, K), as ``jax.vmap`` computes them; each seed's
+            ended-short flags are summed into one (S,) count."""
+            out, flags = [], []
+            for i in range(n_seeds):
+                own = []
+                kw = dict(term_kwargs, gen=None if gen is None else gen[i],
+                          shorts=own)
+                for k in ("node_params", "lyap_params", "barrier_params",
+                          "lyap_t", "t", "next_t"):
+                    if kw[k] is not None:
+                        kw[k] = tree_map(lambda v: v[i], kw[k])
+                out.append(builder.terms(
+                    obs=obs_[i], action=action_[i], include_clf=include_clf,
+                    resample=seed_resampler(
+                        tree_map(lambda v: v[i], policy), draws, on_k, i),
+                    **kw))
+                flags.append(own)
+            if any(flags):
+                shorts.append(torch.stack([
+                    torch.stack(f).sum() if f else
+                    torch.zeros((), dtype=torch.int64, device=device)
+                    for f in flags]))
+            return torch.stack(out)
+
         pi, logp, _ = batch_sample_fn(ts.policy, obs, gen, noise.get("pi"),
                                       on)
         pq1, pq2 = twin_q_apply(pg_critic, obs, pi)
         policy_loss_1 = mean(alpha * logp - torch.minimum(pq1, pq2))
-        terms = builder.terms(
-            obs=obs, action=pi, include_clf=True,
-            resample=make_resampler(ts.policy, noise.get("resample"), on),
-            **term_kwargs)
+        terms = constraint_terms(obs, pi, True, ts.policy,
+                                 noise.get("resample"), on)
+        tally(on)
         policy_loss_2, lam_new, rho1 = lag_primary_loss(
             ccfg, terms, ts.lag.lam, ts.lag.rho, flag(do_lam),
             scfg.batch_size, do_rho_growth=lag_live, reduce=reduce_means)
@@ -645,12 +718,11 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
                 bq1, bq2 = twin_q_apply(pg_critic, obs, bpi)
                 bloss1 = mean(backup_alpha * blogp
                               - torch.minimum(bq1, bq2))
-                bterms = builder.terms(
-                    obs=obs, action=bpi, include_clf=False,
-                    resample=make_resampler(ts.backup_policy,
-                                            noise.get("backup_resample"),
-                                            do_backup),
-                    **term_kwargs)
+                bterms = constraint_terms(obs, bpi, False,
+                                          ts.backup_policy,
+                                          noise.get("backup_resample"),
+                                          do_backup)
+                tally(do_backup)
                 bloss2, new_lam, new_rho = lag_backup_loss(
                     ccfg, bterms, backup_lam, backup_rho_out, flag(do_lam),
                     scfg.batch_size, do_rho_growth=lag_live,
@@ -715,7 +787,7 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
             "lam_max": (torch.max(lam_new.detach()) if n_seeds is None else
                         torch.amax(lam_new.detach(), dim=-1)),
             "short_integrations": (
-                torch.stack(shorts).sum() if shorts else
+                torch.stack(counted).sum(0) if counted else
                 torch.zeros(() if n_seeds is None else (n_seeds,),
                             dtype=torch.int64, device=device)),
         }

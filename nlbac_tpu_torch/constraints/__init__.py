@@ -59,8 +59,9 @@ def register_builder(kind: str, module) -> None:
     ``SEED_AXIS = True`` declares that ``terms`` also takes a leading seed
     axis, (S, B, .) rows with (S, ...) parameters, indexing only the last
     axes (``x[..., k]``, ``dim=-1``) as the built-in builders do: the
-    lockstep seed runner (``parallel.make_seed_parallel_runner``) refuses
-    a builder that does not declare it.
+    lockstep seed runner (``parallel.make_seed_parallel_runner``) then
+    takes every seed in one call, and calls a builder that does not
+    declare it once per seed on that seed's slices.
 
     Same collision rule as ``register_env``: re-registering the same
     object is a no-op, shadowing a different one raises."""

@@ -25,7 +25,9 @@ Stacked over seeds (every leaf with a leading seed axis, x (S, B, n_s)),
 the control-affine Euler step is one seed-batched K1 launch, chained
 calls included; the plain fields (the ``mlp`` field with its time input
 or normalization, a bf16 or multi-step control-affine field) run each
-layer as one batched product; the loss is a per-seed mean.
+layer as one batched product; under dopri5 each seed takes its own
+adaptive steps (``solve_adaptive``'s and ``odeint_adjoint``'s
+``seed_axis``); the loss is a per-seed mean.
 """
 
 from __future__ import annotations
@@ -129,7 +131,9 @@ def predict_next_state(cfg: NodeConfig, params, x, u, dt, t=None,
     """Integrate the packed state over [0, dt] and return the predicted next
     physical state (the first ``state_dim`` slots). Under dopri5, when
     ``shorts`` is a list, append to it a 0-d bool device tensor: whether
-    the integration ended short of dt (``max_steps`` ran out); with a
+    the integration ended short of dt (``max_steps`` ran out; (S,), each
+    seed with its own step control, for parameters stacked over seeds);
+    with a
     ``dp_group`` (a ``parallel.mesh.Comm``), x and u are this rank's rows
     of the group's batch and the error norms span the whole batch."""
     if uses_euler_kernel(cfg) and not tp_sharded(params):
@@ -138,17 +142,20 @@ def predict_next_state(cfg: NodeConfig, params, x, u, dt, t=None,
         field = make_field(cfg)
     s0 = pack_input(cfg, x, u, t)
     if cfg.solver == "dopri5":
+        seeds = _stacked(params)
         if cfg.adaptive_impl == "scan":
             s1, t_reached = solvers.solve_adaptive(
                 field, params, s0, 0.0, dt, impl="scan",
                 max_steps=cfg.adaptive_scan_steps, return_final_t=True,
                 reduce=(None if dp_group is None
-                        else solvers.rows_reduce(dp_group)))
+                        else solvers.rows_reduce(dp_group)),
+                seed_axis=seeds)
         else:
             s1, t_reached = odeint_adjoint(field, params, s0, 0.0, dt,
                                            method="dopri5",
                                            return_final_t=True,
-                                           dp_group=dp_group)
+                                           dp_group=dp_group,
+                                           seed_axis=seeds)
         if shorts is not None:
             shorts.append(t_reached < dt)
     else:

@@ -28,6 +28,12 @@ the same steps as one device over the whole state:
   are the same on every rank; g_theta holds this rank's shards of the cut
   leaves (their squares are summed over the tp group) and the whole
   replicated ones (counted once); the count is the global numel.
+
+Stacked over seeds (``seed_axis=True``: every leaf of y0 and of the
+parameters with a leading seed axis S), g_theta is (S, P), one row per
+seed, and both solves take each seed's own steps (``solve_adaptive``'s
+``seed_axis``): each seed's norm covers its own y, a and g_theta row, as
+``jax.vmap`` of the adjoint computes it. A stacked state takes no gang.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ def _integrate(field, params, y, t0, t1, opts, reduce=None):
         return solvers.solve_adaptive(field, params, y, t0, t1,
                                       rtol=opts["rtol"], atol=opts["atol"],
                                       max_steps=opts["max_steps"],
-                                      return_final_t=True, reduce=reduce)
+                                      return_final_t=True, reduce=reduce,
+                                      seed_axis=opts["seed_axis"])
     return solvers.solve_fixed(field, params, y, t0, t1,
                                method=opts["method"],
                                num_steps=opts["num_steps"]), None
@@ -132,26 +139,31 @@ class _Adjoint(torch.autograd.Function):
             return (tree_unflatten(y, [-v.detach()
                                        for v in tree_leaves(f)]),
                     tree_unflatten(y, vjp[:n]),
-                    torch.cat([v.reshape(-1) for v in vjp[n:]]))
+                    torch.cat([v.reshape(lead + (-1,)) for v in vjp[n:]],
+                              dim=-1))
 
-        # g_theta as one flat tensor: the same elements in the error norm,
-        # a few launches a stage instead of a few per parameter leaf
-        sizes = [p.numel() for p in p_leaves]
-        aug0 = (y1, g, torch.zeros(sum(sizes), dtype=saved[0].dtype,
+        # g_theta as one flat tensor (a row per seed when stacked): the
+        # same elements in the error norm, a few launches a stage instead
+        # of a few per parameter leaf
+        lead = (saved[0].shape[0],) if opts["seed_axis"] else ()
+        sizes = [p[0].numel() if lead else p.numel() for p in p_leaves]
+        aug0 = (y1, g, torch.zeros(lead + (sum(sizes),),
+                                   dtype=saved[0].dtype,
                                    device=saved[0].device))
         with torch.no_grad():
             (_, a0, grad_p), _ = _integrate(
                 rev_field, None, aug0, t0, t1, opts,
                 _gang_reduce(opts["dp_group"], p_leaves))
         grad_p = [v.reshape(p.shape) for v, p in
-                  zip(torch.split(grad_p, sizes), p_leaves)]
+                  zip(torch.split(grad_p, sizes, dim=-1), p_leaves)]
         return (None, *tree_leaves(a0), *grad_p)
 
 
 def odeint_adjoint(field, params, y0, t0, t1, *, method: str = "euler",
                    num_steps: int = 1, rtol: float = 1e-5,
                    atol: float = 1e-7, max_steps: int = 512,
-                   return_final_t: bool = False, dp_group=None):
+                   return_final_t: bool = False, dp_group=None,
+                   seed_axis: bool = False):
     """Integration with adjoint (backsolve) gradients: the forward values
     of ``solvers.odeint`` (the forward integrates without a graph), and a
     backward that integrates the augmented system instead of storing the
@@ -163,12 +175,19 @@ def odeint_adjoint(field, params, y0, t0, t1, *, method: str = "euler",
     the forward solve reached, on the device. ``dp_group`` (a
     ``parallel.mesh.Comm``) holds the ranks over which ``y0``'s rows are
     split; tensor-parallel shards among ``params`` are read from their
-    marks (the module's note)."""
+    marks (the module's note). ``seed_axis=True`` takes ``y0`` and
+    ``params`` stacked over seeds, each seed with its own adaptive steps
+    forward and backward; ``return_final_t`` then gives (S,) times."""
     if method != "dopri5" and method not in solvers.FIXED_STEPS:
         raise ValueError(f"unknown method {method!r}")
     opts = {"method": method, "num_steps": num_steps, "rtol": rtol,
-            "atol": atol, "max_steps": max_steps, "dp_group": dp_group}
+            "atol": atol, "max_steps": max_steps, "dp_group": dp_group,
+            "seed_axis": seed_axis}
     p_leaves = tree_leaves(params)
+    if seed_axis and (dp_group is not None or any(
+            getattr(p, "tp_shard", None) is not None for p in p_leaves)):
+        raise ValueError("odeint_adjoint takes a seed axis or a gang, not "
+                         "both")
     spec = (field, params, y0, t0, t1, opts)
     y1 = tree_unflatten(y0, _Adjoint.apply(spec, *tree_leaves(y0),
                                            *p_leaves))

@@ -32,9 +32,18 @@ from nlbac_tpu_torch.tree import (
 Field = Callable  # field(params, t, y) -> dy/dt
 
 
+def _per_seed(a, x):
+    """``a`` shaped to scale the leaf ``x``: a (S,) tensor (one value per
+    seed) as (S, 1, ..., 1) along x's leading seed axis; a scalar or a 0-d
+    tensor as it is."""
+    if isinstance(a, torch.Tensor) and a.dim() == 1 and x.dim() > 1:
+        return a.reshape(a.shape + (1,) * (x.dim() - 1))
+    return a
+
+
 def _axpy(a, x, y):
-    """Tree y + a * x."""
-    return tree_map(lambda xi, yi: yi + a * xi, x, y)
+    """Tree y + a * x (``a`` per seed where it is (S,))."""
+    return tree_map(lambda xi, yi: yi + _per_seed(a, xi) * xi, x, y)
 
 
 def _comb(y, dt, pairs):
@@ -149,25 +158,34 @@ def _dopri5_step(field: Field, params, t, y, dt):
     return y5, y4
 
 
-def local_sq(triples, rtol, atol):
+def local_sq(triples, rtol, atol, seed_axis=False):
     """(sum of squares, element count) of the scaled error over the
-    leaves' ``(y5, y4, y)`` triples held here."""
+    leaves' ``(y5, y4, y)`` triples held here; with ``seed_axis``, each
+    seed's: (S,) sums over every axis but the leading one, and the count
+    of one seed's elements."""
     total = 0
     for a5, a4, a in triples:
         scale = atol + rtol * torch.maximum(torch.abs(a), torch.abs(a5))
-        total = total + torch.sum(torch.square((a5 - a4) / scale))
-    return total, sum(a.numel() for _, _, a in triples)
+        sq = torch.square((a5 - a4) / scale)
+        total = total + (sq.reshape(sq.shape[0], -1).sum(1) if seed_axis
+                         else torch.sum(sq))
+    n = sum(a.numel() for _, _, a in triples)
+    return total, (n // triples[0][2].shape[0] if seed_axis else n)
 
 
-def _err_norm(y5, y4, y, rtol, atol, reduce=None):
-    """RMS over every leaf element of the scaled error, floored so that
-    its square root stays differentiable at 0. ``reduce(triples, rtol,
-    atol) -> (sum of squares, count)`` takes the leaves' ``(y5, y4, y)``
-    triples in place of ``local_sq`` when the state is spread over a gang
-    (``rows_reduce``, and the adjoint's): the sums are then the gang's,
-    and the norm the one a single device computes over the whole state."""
+def _err_norm(y5, y4, y, rtol, atol, reduce=None, seed_axis=False):
+    """RMS over every leaf element of the scaled error (each seed's, (S,),
+    with ``seed_axis``), floored so that its square root stays
+    differentiable at 0. ``reduce(triples, rtol, atol) -> (sum of squares,
+    count)`` takes the leaves' ``(y5, y4, y)`` triples in place of
+    ``local_sq`` when the state is spread over a gang (``rows_reduce``,
+    and the adjoint's): the sums are then the gang's, and the norm the one
+    a single device computes over the whole state."""
     triples = list(zip(tree_leaves(y5), tree_leaves(y4), tree_leaves(y)))
-    total, n = (local_sq if reduce is None else reduce)(triples, rtol, atol)
+    if reduce is None:
+        total, n = local_sq(triples, rtol, atol, seed_axis)
+    else:
+        total, n = reduce(triples, rtol, atol)
     return torch.sqrt(torch.clamp(total / n, min=1e-24))
 
 
@@ -186,9 +204,10 @@ def rows_reduce(comm):
     return reduce
 
 
-def _trial(field, params, t, y, dt, rtol, atol, reduce=None):
+def _trial(field, params, t, y, dt, rtol, atol, reduce=None,
+           seed_axis=False):
     y5, y4 = _dopri5_step(field, params, t, y, dt)
-    return y5, _err_norm(y5, y4, y, rtol, atol, reduce)
+    return y5, _err_norm(y5, y4, y, rtol, atol, reduce, seed_axis)
 
 
 class _GuardedTrial(torch.autograd.Function):
@@ -201,7 +220,12 @@ class _GuardedTrial(torch.autograd.Function):
     NaN) and the NaN would reach every gradient. Here the trial's graph is
     built inside ``forward`` and differentiated in ``backward``; a trial
     with a finite error passes its gradient through unchanged, one with a
-    non-finite error contributes none. The values are the plain trial's."""
+    non-finite error contributes none. The values are the plain trial's.
+
+    Stacked over seeds the error is (S,), and a seed whose error is not
+    finite loses only its own slice (axis 0) of each input's gradient: a
+    seed's stages read only its own slices of the time, the step, the
+    state and the (stacked) parameters."""
 
     @staticmethod
     def forward(ctx, run, *inputs):
@@ -225,13 +249,14 @@ class _GuardedTrial(torch.autograd.Function):
         for x in inner:
             g = next(got) if x.requires_grad else None
             if g is not None:
-                g = torch.where(ctx.ok, g, 0.0)
+                g = torch.where(_per_seed(ctx.ok, g), g, 0.0)
             result.append(g)
         ctx.graph = None
         return (None, *result)
 
 
-def _guarded_trial(field, params, t, y, dt, rtol, atol, reduce=None):
+def _guarded_trial(field, params, t, y, dt, rtol, atol, reduce=None,
+                   seed_axis=False):
     """``_trial``, through ``_GuardedTrial`` when a gradient is taken."""
     y_leaves = tree_leaves(y)
     all_p = tree_leaves(params)
@@ -240,7 +265,12 @@ def _guarded_trial(field, params, t, y, dt, rtol, atol, reduce=None):
     inputs = [t, dt, *y_leaves, *(all_p[i] for i in slots)]
     if not (torch.is_grad_enabled()
             and any(x.requires_grad for x in inputs)):
-        return _trial(field, params, t, y, dt, rtol, atol, reduce)
+        return _trial(field, params, t, y, dt, rtol, atol, reduce, seed_axis)
+    if seed_axis and any(x.dim() == 0 or x.shape[0] != t.shape[0]
+                         for x in inputs):
+        raise ValueError("solve_adaptive(seed_axis=True) differentiates a "
+                         "state and parameters that all carry the leading "
+                         f"seed axis ({t.shape[0]} seeds)")
     n_y = len(y_leaves)
 
     def run(t_, dt_, *rest):
@@ -248,7 +278,8 @@ def _guarded_trial(field, params, t, y, dt, rtol, atol, reduce=None):
         for i, p in zip(slots, rest[n_y:]):
             p_leaves[i] = p
         return _trial(field, tree_unflatten(params, p_leaves), t_,
-                      tree_unflatten(y, rest[:n_y]), dt_, rtol, atol, reduce)
+                      tree_unflatten(y, rest[:n_y]), dt_, rtol, atol, reduce,
+                      seed_axis)
 
     outs = _GuardedTrial.apply(run, *inputs)
     return tree_unflatten(y, outs[:n_y]), outs[n_y]
@@ -259,7 +290,8 @@ def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
                    safety: float = 0.9, min_factor: float = 0.2,
                    max_factor: float = 10.0, return_final_t: bool = False,
                    impl: str = "while", trace: Optional[list] = None,
-                   reduce: Optional[Callable] = None):
+                   reduce: Optional[Callable] = None,
+                   seed_axis: bool = False):
     """Adaptive dopri5 with a PI step-size controller, as the JAX package
     computes it: first trial step 0.1 * |t1 - t0|, each step cut to the
     span left, the factor ``0.9 * err^(-0.7/5) * err_prev^(0.4/5)``
@@ -291,9 +323,26 @@ def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
     of that group gives every rank the whole batch's norm, as JAX's
     single-device math does. A state that every rank holds whole (a
     tensor-parallel rank's rows) takes none: its norm is the same on
-    every rank already."""
+    every rank already.
+
+    ``seed_axis=True``: every leaf of ``y0`` and of ``params`` carries a
+    leading seed axis S, and each seed takes its own steps, as ``jax.vmap``
+    of the solver does: the error norm covers each seed's elements alone,
+    and ``t``, the step, the controller's ``err_prev``, each trial's
+    error, accept and active flags are (S,); every seed's first trial
+    step is 0.1 * |t1 - t0|. A seed whose span is covered is frozen as the
+    scan form freezes a finished trial (its step forced to 0, its carry
+    kept). The ``while`` form then loops while any seed is short of the
+    span (one host read a trial, of ``(t < span).any()``), as JAX's
+    batched ``while_loop`` runs until every seed is done; ``max_steps``
+    bounds every seed's trials, as JAX's ``n_steps`` does. The field sees
+    the (S,) times. ``return_final_t`` returns each seed's time reached,
+    and ``trace`` gets (S,) triples. It takes no ``reduce``."""
     if impl not in ("while", "scan"):
         raise ValueError(f"unknown adaptive impl {impl!r}")
+    if seed_axis and reduce is not None:
+        raise ValueError("solve_adaptive takes a seed axis or a gang's "
+                         "reduce, not both")
     dev = _device(y0)
     t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
     t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
@@ -304,10 +353,16 @@ def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
         return tree_map(lambda v: direction * v,
                         field(p, t0 + direction * s, y))
 
+    def keep(mask, new, old):
+        """``new`` where ``mask`` holds (per seed along axis 0 of each
+        leaf), else ``old``."""
+        return tree_map(lambda a, b: torch.where(_per_seed(mask, a), a, b),
+                        new, old)
+
     def body(t, y, dt, err_prev):
         dt = torch.minimum(dt, span - t)
         y5, err = _guarded_trial(sigma_field, params, t, y, dt, rtol, atol,
-                                 reduce)
+                                 reduce, seed_axis)
         accept = err <= 1.0
         err_c = torch.clamp(err, min=1e-10)
         # a NaN error (a trial that overflowed, or one after it) leaves
@@ -320,14 +375,14 @@ def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
         factor = torch.clamp(factor, min_factor, max_factor)
         new_dt = torch.where(valid, dt_s * factor,
                              torch.full_like(dt, float("nan")))
-        return (torch.where(accept, t + dt, t),
-                tree_map(lambda a, b: torch.where(accept, a, b), y5, y),
+        return (torch.where(accept, t + dt, t), keep(accept, y5, y),
                 new_dt, torch.where(accept, err_c, err_prev), err, accept)
 
-    t = torch.zeros((), dtype=torch.float32, device=dev)
-    err_prev = torch.ones((), dtype=torch.float32, device=dev)
-    dt, y = span * 0.1, y0
-    if impl == "while":
+    shape = (tree_leaves(y0)[0].shape[0],) if seed_axis else ()
+    t = torch.zeros(shape, dtype=torch.float32, device=dev)
+    err_prev = torch.ones(shape, dtype=torch.float32, device=dev)
+    dt, y = (span * 0.1).expand(shape), y0
+    if impl == "while" and not seed_axis:
         for _ in range(max_steps):
             if not bool(t < span):  # the per-trial host read
                 break
@@ -337,13 +392,15 @@ def solve_adaptive(field: Field, params, y0, t0, t1, *, rtol: float = 1e-5,
     else:
         for _ in range(max_steps):
             active = t < span
+            if impl == "while" and not bool(active.any()):  # the host read
+                break
             # a frozen trial steps by exactly 0 (span - t may be a hair
             # below 0), so y5 = y4 = y and its discarded values stay finite
             t2, y2, dt2, ep2, err, accept = body(
                 torch.where(active, t, span), y,
                 torch.where(active, dt, torch.zeros_like(dt)), err_prev)
             t = torch.where(active, t2, t)
-            y = tree_map(lambda a, b: torch.where(active, a, b), y2, y)
+            y = keep(active, y2, y)
             dt = torch.where(active, dt2, dt)
             err_prev = torch.where(active, ep2, err_prev)
             if trace is not None:

@@ -40,14 +40,22 @@ the env step one ``torch.func.vmap`` of the env's one-seed step.
   keys with ``split(PRNGKey(base_seed), n)`` instead; threefry and
   Philox never match anyway (ROADMAP.md Queue 3).
 
-It trains every preset (and envs registered with their builders, or with
-a registered builder that declares ``SEED_AXIS``) under the fixed-step
-NODE solvers: K1 where ``nn.uses_euler_kernel`` routes the field to it,
-the plain field on stacked weights otherwise (the ``mlp`` field of cars
-and the quadrotor, a bf16 or multi-step Euler NODE). What ``_refuse`` and
-the state's stacking refuse (dopri5, a builder without ``SEED_AXIS``, a
-stacked twin-Q state, a seed-stacked state in a dp gang) and several
-devices raise, naming the ROADMAP item that queues them.
+It trains every preset, and envs registered with their builders, under
+every NODE solver: K1 where ``nn.uses_euler_kernel`` routes the field to
+it, the plain field on stacked weights otherwise (the ``mlp`` field of
+cars and the quadrotor, a bf16 or multi-step Euler NODE), and under
+``--node_solver dopri5`` (either ``adaptive_impl``) the adaptive solver
+with each seed's own step control: its own error norm, step, accept
+decisions and trial count, the adjoint's backward solve included, as
+``jax.vmap`` gives each seed its own solve (``ode.solve_adaptive``'s
+``seed_axis``). A registered constraint builder that declares
+``SEED_AXIS`` takes every seed in one call; one that does not is called
+once per seed on that seed's slices (``agent/update.py``'s
+``seed_terms``; K1 then launches once per seed and call). Several
+devices raise, naming the ROADMAP item that queues them, and so do a
+stacked twin-Q state (``agent/state.py``); a seed-stacked state in a dp
+gang or under the decoupled agent raises too, by decision, as JAX's
+runner has neither. The runner has no ``--host_loop`` form.
 """
 
 from __future__ import annotations
@@ -62,7 +70,6 @@ from nlbac_tpu_torch.agent import create_train_state, make_agent
 from nlbac_tpu_torch.agent.state import stack_states
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.config import NLBACConfig
-from nlbac_tpu_torch.constraints import get_builder
 from nlbac_tpu_torch.envs import get_env
 from nlbac_tpu_torch.train.aot import _LOADERS, episode_kernels
 from nlbac_tpu_torch.train.driver import (
@@ -79,27 +86,8 @@ from nlbac_tpu_torch.train.supervisor import (
 )
 from nlbac_tpu_torch.tree import SeedMasks, where_seeds
 
-# The ROADMAP.md items that queue what the runner refuses
-LEFTOVERS_ITEM = "ROADMAP.md Queue 1 item 25"
+# The ROADMAP.md item that queues the lockstep over several devices
 DEVICES_ITEM = "ROADMAP.md Queue 1 item 23"
-
-
-def _refuse(cfg: NLBACConfig) -> None:
-    """Raise a ValueError for a config the lockstep runner does not cover,
-    naming its ROADMAP item: the adaptive dopri5 NODE, which needs each
-    seed's own step control, and a constraint builder that does not
-    declare ``SEED_AXIS`` (``constraints.register_builder``): one written
-    for (B, .) rows may index their first axis, which here is the seeds."""
-    if not getattr(get_builder(cfg.constraint.kind), "SEED_AXIS", False):
-        raise ValueError(
-            f"make_seed_parallel_runner takes constraint builders that "
-            f"declare SEED_AXIS = True; {cfg.constraint.kind!r} does not "
-            f"(a lockstep form of it is queued as {LEFTOVERS_ITEM})")
-    if cfg.node.solver == "dopri5":
-        raise ValueError(
-            f"make_seed_parallel_runner takes the fixed-step NODE solvers; "
-            f"--node_solver dopri5 (per-seed adaptive step control) is "
-            f"queued as {LEFTOVERS_ITEM}")
 
 
 def _reset_seeds(env, device, gens, max_steps, i_episode, curriculum):
@@ -189,7 +177,6 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
         device = device[0]
     if n_seeds < 1:
         raise ValueError(f"n_seeds must be at least 1, got {n_seeds}")
-    _refuse(cfg)
     device = resolve_device(device)
     env = get_env(cfg.env.name)
     agent = make_agent(cfg, device)
