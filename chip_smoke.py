@@ -158,13 +158,26 @@ Phases, one line each (any failure raises and exits nonzero):
    registered again without ``SEED_AXIS``, one Euler episode of
    LOCKSTEP_DOPRI5_STEPS steps: K1's launches against SEEDS a rollout
    call plus the seed-batched fit, and ``lockstep_update_check``;
-24. a JSON line of the kernel's numbers (and the tanh, lever, start-up
+24. the lockstep seed runner in shards (``make_seed_parallel_runner``
+   with a list of devices): LOCKSTEP_SHARDS x SEEDS unicycle seeds at
+   full width as LOCKSTEP_SHARDS worker processes on this one card, at
+   phase 21's depth and base seed: the workers' start-up seconds, each
+   shard's K1 launches against the count per lockstep update, shard 0
+   against phase 21's SEEDS-seed run of the same seeds (its largest gap
+   over the episodes and the fetched states; bit for bit expected, else
+   held as phase 21 holds its seeds), each seed's first episode against
+   phase 21's LOCKSTEP_BIG-seed run where that run holds the seed, the
+   aggregate env-steps/s beside phase 21's in-process and one-seed
+   rates; then one lockstep update of phase 21's trained seeds with the
+   critic in the stacked twin-Q layout against the plain layout
+   (UPDATE_RTOL/UPDATE_ATOL);
+25. a JSON line of the kernel's numbers (and the tanh, lever, start-up
    and lockstep phases'), the script's total time, then the result line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
 QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN, GANG_STEPS,
 DOPRI5_GANG_STEPS, STARTUP_STEPS, LOCKSTEP_PRESETS, LOCKSTEP_DOPRI5_STEPS
-below; phase 21's lockstep runs take the main path's EPISODES x
+below; phase 21's and 24's lockstep runs take the main path's EPISODES x
 EPISODE_STEPS); the widths are the presets'.
 
 Needs a CUDA device; it exits nonzero without printing a result when there
@@ -388,6 +401,9 @@ LOCKSTEP_LATER_RTOL = 1e-3
 LOCKSTEP_PROFILE_STEPS = 10
 LOCKSTEP_COUNTERS = (960, 961, 965, 968)
 LOCKSTEP_UPDATE_ON = (True, True, False, True)
+# The lockstep in shards (phase 24): LOCKSTEP_SHARDS worker processes of
+# SEEDS seeds each on the one card, at phase 21's depth and base seed.
+LOCKSTEP_SHARDS = 2
 # The lockstep phase over the other presets (22), at full width and SEEDS
 # seeds: K1 seed-batched where their constraints call it (PVTOL's chain of
 # 3 calls at SEEDS x 256 rows (6, 2), the learned barrier's one call at
@@ -2335,19 +2351,24 @@ def lockstep_cfg():
     return cli.config_from_args(cli.build_parser().parse_args(argv))
 
 
-def lockstep_episodes(run_fn, state):
+def lockstep_episodes(run_fn, state, episode_seconds=None):
     """EPISODES episodes of ``run_fn`` from ``state`` (K1's counts set to
     0 just before, read just after): the new state, each episode's
     per-seed host metrics, the seconds of the run_fn calls, the launches
-    and the launches by rows."""
+    and the launches by rows; each episode's seconds are appended to
+    ``episode_seconds`` where given."""
     ts, rl, node, gens, total = state
     node_kernel.reset_launch_counts()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = t_ep = time.perf_counter()
     episodes = []
     for ep in range(EPISODES):
         ts, rl, node, gens, m, total = run_fn(ts, rl, node, gens, ep, total)
         episodes.append(parallel.episode_to_host_seeds(m))
+        if episode_seconds is not None:
+            now = time.perf_counter()
+            episode_seconds.append(now - t_ep)
+            t_ep = now
     seconds = time.perf_counter() - t0
     return ((ts, rl, node, gens, total), episodes, seconds,
             node_kernel.launch_counts["node_euler"],
@@ -2577,7 +2598,7 @@ def lockstep_runs(dev, card, one_seed, seeds_info):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from nlbac_tpu_torch.agent.state import stack_states
+    from nlbac_tpu_torch.agent.state import stack_states, unstack_state
     from nlbac_tpu_torch.replay import stack_replays
 
     cfg = lockstep_cfg()
@@ -2586,9 +2607,17 @@ def lockstep_runs(dev, card, one_seed, seeds_info):
     state = init_fn(SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    state, eps4, secs4, launches4, rows4 = lockstep_episodes(run_fn, state)
+    ep_secs4, ep_secs8 = [], []
+    state, eps4, secs4, launches4, rows4 = lockstep_episodes(run_fn, state,
+                                                             ep_secs4)
     calls4, fits4 = lockstep_launches(SEEDS, eps4, launches4, rows4,
                                       f"lockstep {SEEDS} seeds")
+    # the SEEDS seeds as the runner left them, for phase 24's shard 0
+    ref = {"episodes": eps4, "launches": launches4,
+           "fetched": [parallel.lockstep.seed_on_host(cfg, state, i)
+                       for i in range(SEEDS)],
+           "states": [unstack_state(cfg, state[0], i)
+                      for i in range(SEEDS)]}
     (update_share, update_worst), update_floors, update_fits, _ = \
         lockstep_update_check(cfg, dev, state)
     phase(f"lockstep update: {SEEDS} trained seeds at update counts "
@@ -2624,13 +2653,15 @@ def lockstep_runs(dev, card, one_seed, seeds_info):
               [0] * LOCKSTEP_BIG)
     del states8, rings
     _, run8 = parallel.make_seed_parallel_runner(cfg, LOCKSTEP_BIG, dev)
-    state8, eps8, secs8, launches8, rows8 = lockstep_episodes(run8, state8)
+    state8, eps8, secs8, launches8, rows8 = lockstep_episodes(run8, state8,
+                                                              ep_secs8)
     calls8, fits8 = lockstep_launches(LOCKSTEP_BIG, eps8, launches8, rows8,
                                       f"lockstep {LOCKSTEP_BIG} seeds")
 
     def rel(a, b):
         return abs(a - b) / max(abs(b), 1e-30)
 
+    ref.update(big_episodes=eps8, episode_seconds=[ep_secs4, ep_secs8])
     later = [(ep, k) for ep in range(EPISODES)
              for k in (("reward", "node_loss") if ep else ("node_loss",))]
 
@@ -2764,8 +2795,9 @@ def lockstep_runs(dev, card, one_seed, seeds_info):
         "update_check_worst": update_worst,
         "update_check_floors": update_floors,
         "busy_share": busy / wall if busy > 0 else None}
+    ref.update(state=state, numbers=numbers)
     return numbers, {f"unicycle_lockstep_{SEEDS}": launches4,
-                     f"unicycle_lockstep_{LOCKSTEP_BIG}": launches8}
+                     f"unicycle_lockstep_{LOCKSTEP_BIG}": launches8}, ref
 
 
 def k1_against_plain(run, inputs, cot):
@@ -3352,6 +3384,292 @@ def lockstep_dopri5(dev, gen, card):
     return numbers, by_path
 
 
+def host_leaves(x):
+    """The arrays of a seed on the host (``ShardedSeedRunner.fetch``'s
+    form), flattened in a fixed order, as float64."""
+    if isinstance(x, dict):
+        return [a for k in sorted(x) for a in host_leaves(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [a for v in x for a in host_leaves(v)]
+    return [np.asarray(x, np.float64)]
+
+
+def host_gap(a, b) -> float:
+    """The largest absolute gap between two seeds on the host (states,
+    Adam moments, rings, totals and generator states)."""
+    xs, ys = host_leaves(a), host_leaves(b)
+    if len(xs) != len(ys) or any(x.shape != y.shape for x, y in
+                                 zip(xs, ys)):
+        raise RuntimeError("lockstep shards: two seeds' host states differ "
+                           "in their shapes")
+    return max((float(np.max(np.abs(x - y), initial=0.0))
+                for x, y in zip(xs, ys)), default=0.0)
+
+
+def plain_layout_arrays(one):
+    """A one-seed state's parameters, targets, Adam moments and
+    multipliers as named arrays, its critic's leaves and their moments in
+    the plain twin-Q layout whichever layout it holds."""
+    from nlbac_tpu_torch.agent.state import OPT_GROUPS, PARAM_FIELDS
+    from nlbac_tpu_torch.tree import tree_unflatten
+
+    def plain(field, tree):
+        return twin_q_unstack(tree) if field in ("critic", "critic_target") \
+            else tree
+
+    out = {}
+    for field in PARAM_FIELDS:
+        for j, p in enumerate(tree_leaves(plain(field, getattr(one, field)))):
+            out[f"{field}[{j}]"] = p
+    for group, field in OPT_GROUPS.items():
+        tree, state = getattr(one, field), one.opt[group].state
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments = tree_unflatten(tree, [
+                state[p][key] if p in state else torch.zeros_like(p)
+                for p in tree_leaves(tree)])
+            for j, t in enumerate(tree_leaves(plain(field, moments))):
+                out[f"adam/{group}[{j}].{key}"] = t
+    for j, t in enumerate(one.lag):
+        out[f"lag[{j}]"] = t
+    return {k: v.detach().cpu().numpy().astype(np.float64)
+            for k, v in out.items()}
+
+
+def stacked_twin_q_check(cfg, dev, ones, rl, node):
+    """One lockstep update of the SEEDS seeds ``ones`` (one-seed states, as
+    phase 21's runner left them) with the critic in the stacked twin-Q
+    layout (``experimental.stack_twin_q_state`` of the seed-stacked state)
+    against the same update in the plain layout, every seed updating, from
+    the same batches and draws, the critic's Adam fresh in both (the
+    stacked layout makes it anew): every metric, parameter, target, Adam
+    moment and multiplier within UPDATE_RTOL/UPDATE_ATOL. Returns (the
+    largest gap as a share of its tolerance, where)."""
+    from nlbac_tpu_torch.agent.state import (
+        make_optimizer,
+        stack_states,
+        unstack_state,
+    )
+    from nlbac_tpu_torch.agent.update import METRIC_NAMES
+
+    plain = stack_states(cfg, [dataclasses.replace(one, opt={
+        **one.opt, "critic": make_optimizer(cfg, "critic", one.critic)})
+        for one in ones])
+    stacked = experimental.stack_twin_q_state(cfg, stack_states(cfg, ones))
+    if "q1" in stacked.critic or stacked.critic["w"][0].shape[:2] != (
+            SEEDS, 2):
+        raise RuntimeError("stacked twin-Q check: the critic is not in the "
+                           "stacked layout with a seed axis")
+    draws = [torch.Generator(dev).manual_seed(SEED + 200 + i)
+             for i in range(SEEDS)]
+    every = [True] * SEEDS
+    batch = replay_buffer.sample_seeds(rl, draws, cfg.sac.batch_size, every)
+    node_batch = replay_buffer.sample_seeds(node, draws, cfg.node.max_batch,
+                                            every)
+    noise = {k: torch.randn(batch["action"].shape, device=dev,
+                            generator=draws[0])
+             for k in ("next", "pi", "backup")}
+    agent = make_agent(cfg, dev)
+    out = {}
+    for name, ts in (("plain", plain), ("stacked", stacked)):
+        out[name] = agent.update_core(ts, batch, lambda fit: node_batch,
+                                      None, EPISODES, noise=noise,
+                                      seeds=every)
+    (ts_p, m_p), (ts_s, m_s) = out["plain"], out["stacked"]
+    if ts_p.updates != ts_s.updates:
+        raise RuntimeError(f"stacked twin-Q check: counters {ts_s.updates}"
+                           f" against {ts_p.updates}")
+    worst = (0.0, "no gap")
+    for i in range(SEEDS):
+        got = plain_layout_arrays(unstack_state(cfg, ts_s, i))
+        want = plain_layout_arrays(unstack_state(cfg, ts_p, i))
+        got.update({k: m_s[k][i].item() for k in METRIC_NAMES})
+        want.update({k: m_p[k][i].item() for k in METRIC_NAMES})
+        for k, b in want.items():
+            a, b = np.asarray(got[k], np.float64), np.asarray(b, np.float64)
+            if a.shape != b.shape or not np.all(np.isfinite(a)):
+                raise RuntimeError(f"stacked twin-Q check: seed {i} {k} is "
+                                   f"not finite or not shaped {b.shape}")
+            share = float(np.max(np.abs(a - b) / (UPDATE_ATOL + UPDATE_RTOL
+                                                  * np.abs(b)), initial=0.0))
+            worst = max(worst, (share, f"seed {i} {k}"), key=lambda w: w[0])
+    if worst[0] > 1:
+        raise RuntimeError(f"stacked twin-Q check: {worst[1]} off by "
+                           f"{worst[0]:.3f} of its tolerance")
+    return worst
+
+
+def lockstep_cards(dev, card, ref):
+    """Phase 24: LOCKSTEP_SHARDS x SEEDS unicycle seeds at full width in
+    the sharded lockstep runner, every shard a worker process on this
+    card, at phase 21's depth and base seed: the workers' start-up, each
+    shard's K1 launches against the count per lockstep update, shard 0
+    (seeds SEED..SEED+3) against phase 21's SEEDS-seed run of the same
+    seeds (expected bit for bit: the same code on the same shapes), every
+    seed's first episode against phase 21's LOCKSTEP_BIG-seed run where
+    that run holds the seed, the aggregate env-steps/s beside phase 21's
+    in-process and one-seed rates; then ``stacked_twin_q_check``. Returns
+    (its numbers, K1's launches by path)."""
+    cfg = lockstep_cfg()
+    n_seeds = LOCKSTEP_SHARDS * SEEDS
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    devices = [str(dev)] * LOCKSTEP_SHARDS
+    t0 = time.perf_counter()
+    init_fn, run_fn = parallel.make_seed_parallel_runner(cfg, n_seeds,
+                                                         devices)
+    try:
+        init_fn(SEED)
+        start_s = time.perf_counter() - t0
+        t1 = t_ep = time.perf_counter()
+        episodes, ep_secs = [], []
+        for ep in range(EPISODES):
+            metrics, total = run_fn(ep)
+            episodes.append(metrics)
+            now = time.perf_counter()
+            ep_secs.append(now - t_ep)
+            t_ep = now
+        secs = time.perf_counter() - t1
+        fetched = [run_fn.fetch(i) for i in range(SEEDS)]
+        worker_s = run_fn.start_seconds
+        shards = run_fn.shards
+    finally:
+        run_fn.close()
+
+    failed = []
+    launches, by_path = [], {}
+    for d, seeds in enumerate(shards):
+        # K1 in the shard's worker: 2 at SEEDS x 128 rows a lockstep
+        # update, one SEEDS x 32768 fit whenever a seed of it fits
+        n = sum(ep[seeds[0]]["kernel_launches"] for ep in episodes)
+        calls = sum(max(ep[i]["updates_done"] for i in seeds)
+                    for ep in episodes)
+        fits = n - 2 * calls
+        launches.append({"launches": n, "updates": calls, "fits": fits})
+        by_path[f"unicycle_lockstep_{LOCKSTEP_SHARDS}x{SEEDS}_shard{d}"] = n
+        if not 1 <= fits <= calls:
+            failed.append(f"shard {d}: {n} K1 launches for {calls} lockstep "
+                          f"updates")
+    if launches[0]["launches"] != ref["launches"]:
+        failed.append(f"shard 0: {launches[0]['launches']} K1 launches, "
+                      f"phase 21's {SEEDS} seeds {ref['launches']}")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    # shard 0 against phase 21's run of the same seeds
+    same_steps = all(episodes[ep][i][k] == ref["episodes"][ep][i][k]
+                     for ep in range(EPISODES) for i in range(SEEDS)
+                     for k in ("steps", "updates_done"))
+    episode_gap = max(abs(a - b) for i in range(SEEDS) for a, b in
+                      zip(ep_values(episodes, i),
+                          ep_values(ref["episodes"], i)))
+    state_gap = max(host_gap(fetched[i], ref["fetched"][i])
+                    for i in range(SEEDS))
+    bitwise = same_steps and episode_gap == 0 and state_gap == 0
+    limits = ref["numbers"]["later_limit"]
+    if not bitwise:
+        # as phase 21 holds its seeds against phase 16's: the first
+        # episode closely, the later ones within the float32 noise floor
+        for i in range(SEEDS):
+            gaps = {f"episode {ep} {k}": rel(
+                episodes[ep][i]["reward"] if k == "reward" else
+                episodes[ep][i]["train"][k],
+                ref["episodes"][ep][i]["reward"] if k == "reward" else
+                ref["episodes"][ep][i]["train"][k])
+                for ep in range(EPISODES) for k in ("reward", "node_loss")}
+            first = gaps.pop("episode 0 reward")
+            if first > LOCKSTEP_FIRST_RTOL or any(
+                    v > limits[k] for k, v in gaps.items()):
+                failed.append(f"shard 0 seed {SEED + i} against phase 21: "
+                              f"first {first:.3e}, later {gaps}")
+    # every seed's first episode (warm-up actions) against phase 21's
+    # LOCKSTEP_BIG-seed run, which holds seeds SEED..SEED+SEEDS-1 (its
+    # others are their one-ulp twins, drawing from the same generators)
+    firsts = {}
+    for i in range(n_seeds):
+        got = episodes[0][i]["reward"]
+        if i < SEEDS:
+            firsts[SEED + i] = rel(got, ref["big_episodes"][0][i]["reward"])
+            if firsts[SEED + i] > LOCKSTEP_FIRST_RTOL:
+                failed.append(f"seed {SEED + i}'s first episode "
+                              f"{firsts[SEED + i]:.3e} off phase 21's")
+        bad = [v for v in ep_values(episodes, i) if not math.isfinite(v)]
+        if bad:
+            failed.append(f"seed {SEED + i}: non-finite {bad}")
+
+    steps = sum(ep[i]["steps"] for ep in episodes for i in range(n_seeds))
+    rate = steps / secs
+    rate4, rate8 = ref["numbers"]["env_steps_per_s"]
+    rate1 = ref["numbers"]["one_seed_env_steps_per_s"]
+
+    def last_rate(eps, ep_seconds):
+        """The last episode's env-steps/s (a fresh worker's first episode
+        holds its lazy set-up, a warm process's does not)."""
+        return sum(s["steps"] for s in eps[-1]) / ep_seconds[-1]
+
+    last = last_rate(episodes, ep_secs)
+    last4, last8 = (last_rate(ref[k], t) for k, t in zip(
+        ("episodes", "big_episodes"), ref["episode_seconds"]))
+    for d, seeds in enumerate(shards):
+        phase(f"lockstep shards: shard {d} (seeds {SEED + seeds[0]}.."
+              f"{SEED + seeds[-1]}, a worker on {devices[d]}): steps "
+              f"{[[ep[i]['steps'] for i in seeds] for ep in episodes]}, "
+              f"updates {[episodes[-1][i]['updates'] for i in seeds]}, K1 "
+              f"{launches[d]['launches']} launches for "
+              f"{launches[d]['updates']} lockstep updates (2 at {SEEDS} x "
+              f"128 rows each, {launches[d]['fits']} fits of {SEEDS} x "
+              f"32768), rewards "
+              f"{[[round(ep[i]['reward'], 3) for i in seeds] for ep in episodes]}"
+              f"; worker set-up {worker_s[d]:.2f} s")
+    phase(f"lockstep shards: shard 0 against phase 21's {SEEDS} seeds: "
+          + ("bit for bit" if bitwise else
+             f"largest gap {episode_gap:.3e} in the episodes' metrics, "
+             f"{state_gap:.3e} in the states (steps and updates "
+             f"{'equal' if same_steps else 'differ'})")
+          + f" (episodes, whole states, Adam moments, rings, generators); "
+          f"first episodes against phase 21's {LOCKSTEP_BIG} seeds: "
+          + ", ".join(f"seed {k} {v:.3e}" for k, v in firsts.items())
+          + f" (limit {LOCKSTEP_FIRST_RTOL}; phase 21 holds no seed "
+          f"{SEED + SEEDS}..{SEED + n_seeds - 1}: those are held to finite "
+          f"values and their shard's launch count)")
+    phase(f"lockstep shards: {LOCKSTEP_SHARDS} x {SEEDS} seeds ({EPISODES} "
+          f"x {EPISODE_STEPS} steps, {LOCKSTEP_SHARDS} worker processes on "
+          f"one card): {steps} env steps in {secs:.2f} s of run_fn calls, "
+          f"{rate:.2f} env-steps/s in all, {rate / rate8:.3f} times phase "
+          f"21's {LOCKSTEP_BIG} seeds in one process ({rate8:.2f}), "
+          f"{rate / rate4:.3f} times its {SEEDS} ({rate4:.2f}), "
+          f"{rate / rate1:.3f} times one seed's ({rate1:.2f}); episodes "
+          f"{[round(t, 2) for t in ep_secs]} s, the last at {last:.2f} "
+          f"env-steps/s, {last / last8:.3f} / {last / last4:.3f} times phase "
+          f"21's last at {LOCKSTEP_BIG} / {SEEDS} seeds ({last8:.2f} / "
+          f"{last4:.2f}); start-up {start_s:.2f} s from the runner's call "
+          f"to every worker ready (the workers' own set-up "
+          f"{[round(w, 2) for w in worker_s]} s) on {card}")
+    if failed:
+        raise RuntimeError(f"lockstep shards: {'; '.join(failed)}")
+
+    share, where = stacked_twin_q_check(cfg, dev, ref["states"],
+                                        ref["state"][1], ref["state"][2])
+    phase(f"lockstep stacked twin-Q: one lockstep update of {SEEDS} trained "
+          f"seeds with the critic stacked (S, 2, in, out) against the plain "
+          f"layout: every metric, parameter, target, Adam moment and "
+          f"multiplier within rtol {UPDATE_RTOL} atol {UPDATE_ATOL} (worst "
+          f"at {share:.4f} of it, {where}) on {card}")
+    return {"shards": LOCKSTEP_SHARDS, "seeds": n_seeds, "steps": steps,
+            "seconds": secs, "env_steps_per_s": rate,
+            "ratio_to_in_process": [rate / rate4, rate / rate8],
+            "ratio_to_one_seed": rate / rate1, "episode_seconds": ep_secs,
+            "last_episode_env_steps_per_s": last,
+            "last_episode_ratio_to_in_process": [last / last4, last / last8],
+            "start_seconds": start_s,
+            "worker_setup_seconds": worker_s, "launches": launches,
+            "shard0_bit_for_bit": bitwise,
+            "shard0_gaps": [episode_gap, state_gap],
+            "first_episode_gaps": firsts,
+            "stacked_twin_q_share": share, "stacked_twin_q_worst": where}, \
+        by_path
+
+
 def ep_values(episodes, i):
     """Seed i's rewards and last-update metrics over the episodes."""
     return [v for ep in episodes
@@ -3439,8 +3757,8 @@ def main() -> int:
                     for k, v in startup.items()})
     mark("levers, bf16, start-up (18-20)")
     seed_batched = lockstep_kernel(dev, gen, card)
-    lockstep, lockstep_by_path = lockstep_runs(dev, card, one_seed,
-                                               seeds_info)
+    lockstep, lockstep_by_path, lockstep_ref = lockstep_runs(
+        dev, card, one_seed, seeds_info)
     by_path.update(lockstep_by_path)
     mark("lockstep unicycle (21)")
     lockstep_calls = lockstep_k1_calls(dev, gen, card)
@@ -3450,6 +3768,10 @@ def main() -> int:
     lockstep["dopri5"], dopri5_by_path = lockstep_dopri5(dev, gen, card)
     by_path.update(dopri5_by_path)
     mark("lockstep dopri5, per-seed builder (23)")
+    lockstep["cards"], cards_by_path = lockstep_cards(dev, card,
+                                                      lockstep_ref)
+    by_path.update(cards_by_path)
+    mark("lockstep in shards, stacked twin-Q (24)")
 
     big = times[32768]
     print(json.dumps({"kernels": [{

@@ -10,7 +10,8 @@ A state stacked over seeds (``stack_states``; the lockstep seed runner,
 ``parallel/lockstep.py``) is the same ``TrainState`` with a leading (S,)
 axis on every tensor, a ``SeedAdam`` per optimizer group (per-seed step
 counts and a mask) and ``updates`` a list of per-seed host integers;
-``unstack_state`` gives one seed's plain ``TrainState`` back.
+``unstack_state`` gives one seed's ``TrainState`` back. The critic may be
+in either twin-Q layout (``nn.critics``), the same for every seed.
 """
 
 from __future__ import annotations
@@ -162,14 +163,15 @@ def stack_states(cfg: NLBACConfig, states: Sequence[TrainState]
     """One state stacked over seeds from one-seed states (copies), seed i
     from ``states[i]``: every tensor on a leading seed axis, each
     optimizer group a ``SeedAdam`` holding each seed's moments and step
-    count. The plain twin-Q layout only."""
+    count. The critic may be in either twin-Q layout (``nn.critics``),
+    the same for every seed: a stacked layout's leaves become (S, 2, in,
+    out) and (S, 2, out)."""
     if any(ts.seeds is not None for ts in states):
         raise ValueError("stack_states takes one-seed states")
-    if any("q1" not in ts.critic for ts in states):
+    if len({"q1" in ts.critic for ts in states}) > 1:
         raise ValueError(
-            "a stacked twin-Q state cannot be stacked over seeds (the "
-            "lockstep seed runner takes the plain layout; ROADMAP.md "
-            "Queue 1 item 25)")
+            "the seeds' critics are in different twin-Q layouts (plain "
+            "and stacked); stack_states takes one layout for every seed")
     fields = {}
     for name in PARAM_FIELDS:
         trained = any(name == f for f in OPT_GROUPS.values())
@@ -198,9 +200,11 @@ def stack_states(cfg: NLBACConfig, states: Sequence[TrainState]
 
 def unstack_state(cfg: NLBACConfig, ts: TrainState, i: int) -> TrainState:
     """Seed i of a stacked state as a plain one-seed ``TrainState``
-    (copies), with ``torch.optim.Adam`` groups holding its moments and
-    step count: evaluation, export and ``save_model_weights`` take it as
-    they take any state."""
+    (copies), its critic in the twin-Q layout it was stacked in, with
+    ``torch.optim.Adam`` groups (``make_optimizer`` over its leaves, as
+    ``experimental.stack_twin_q_state`` makes the stacked layout's)
+    holding its moments and step count: evaluation, export and
+    ``save_model_weights`` take it as they take any state."""
     fields = {}
     for name in PARAM_FIELDS:
         trained = any(name == f for f in OPT_GROUPS.values())

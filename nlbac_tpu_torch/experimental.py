@@ -44,12 +44,18 @@ import dataclasses
 
 import torch
 
-from nlbac_tpu_torch.agent.state import TrainState, make_optimizer, trainable
+from nlbac_tpu_torch.agent.state import (
+    TrainState,
+    learning_rates,
+    make_optimizer,
+    trainable,
+)
 from nlbac_tpu_torch.agent.update import make_agent
 from nlbac_tpu_torch.config import NLBACConfig
-from nlbac_tpu_torch.nn import twin_q_stack
+from nlbac_tpu_torch.nn import SeedAdam, twin_q_stack
 from nlbac_tpu_torch.replay import buffer as replay_buffer
 from nlbac_tpu_torch.train.driver import make_episode_runner
+from nlbac_tpu_torch.tree import tree_leaves
 
 
 def stack_twin_q_state(cfg: NLBACConfig, ts: TrainState) -> TrainState:
@@ -59,13 +65,23 @@ def stack_twin_q_state(cfg: NLBACConfig, ts: TrainState) -> TrainState:
     anew over the new leaves, so call this on a fresh state (as the A/B
     does), not mid-run. ``twin_q_apply`` dispatches on the layout; the
     weight files hold the reference's ``{'q1','q2'}`` layout
-    (``train.checkpoint.save_model_weights``)."""
+    (``train.checkpoint.save_model_weights``).
+
+    A state stacked over seeds (``agent.state.stack_states``) takes the
+    layout seed by seed, as ``jax.vmap`` of the reference's function
+    does: its critic's leaves become (S, 2, in, out) and (S, 2, out), and
+    its critic's ``SeedAdam`` is made anew (zero moments, every seed at
+    step 0)."""
     with torch.no_grad():
         critic = trainable(twin_q_stack(ts.critic))
         critic_target = twin_q_stack(ts.critic_target)
-    return dataclasses.replace(
-        ts, critic=critic, critic_target=critic_target,
-        opt={**ts.opt, "critic": make_optimizer(cfg, "critic", critic)})
+    if ts.seeds is None:
+        opt = make_optimizer(cfg, "critic", critic)
+    else:
+        opt = SeedAdam(tree_leaves(critic), learning_rates(cfg)["critic"])
+    return dataclasses.replace(ts, critic=critic,
+                               critic_target=critic_target,
+                               opt={**ts.opt, "critic": opt})
 
 
 def make_decoupled_agent(cfg: NLBACConfig, device="cuda",

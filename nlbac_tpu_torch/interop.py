@@ -20,7 +20,10 @@ For the lockstep seed runner, ``from_reference_stacked`` takes a
 reference state with a leading seed axis on every leaf (as
 ``jax.vmap(create_train_state)`` makes it, or a vmapped update leaves
 it) and returns the port's state stacked over seeds
-(``agent.state.stack_states``); ``to_reference_stacked`` goes back.
+(``agent.state.stack_states``); ``to_reference_stacked`` goes back. The
+critic may be in either twin-Q layout, Adam moments included: the
+stacked one with a seed axis is what ``jax.vmap`` of the reference's
+``experimental.stack_twin_q_state`` gives.
 """
 
 from __future__ import annotations

@@ -6,7 +6,14 @@ mlp}``, is the reference's. The stacked one (``twin_q_stack``; the
 experimental lever ``experimental.stack_twin_q_state``) holds both nets
 as one leaf per layer with a leading k=2 axis, ``{"w": [(2, in, out)],
 "b": [(2, out)]}``, and ``twin_q_apply`` runs it as one batched product
-per layer."""
+per layer.
+
+Stacked over S seeds (the lockstep seed runner, ``parallel/lockstep.py``)
+the seed axis comes first in either layout: the plain layout's layers are
+(S, in, out) and (S, out) (``nn.mlp``), the stacked layout's (S, 2, in,
+out) and (S, 2, out), and ``twin_q_apply`` takes (S, B, .) inputs, as
+``jax.vmap`` of the reference's ``twin_q_apply`` does. ``twin_q_stack``
+and ``twin_q_unstack`` keep the seed axis in front."""
 
 from __future__ import annotations
 
@@ -29,6 +36,17 @@ def twin_q_apply(params, obs, action):
     if "q1" in params:
         return mlp_apply(params["q1"], xu), mlp_apply(params["q2"], xu)
     ws, bs = params["w"], params["b"]
+    if ws[0].dim() == 4:
+        # stacked over seeds: each seed's (B, in) input shared across its
+        # k=2 axis, then one batched product over the S * 2 nets a layer
+        x = torch.einsum("sbi,skio->skbo", xu, ws[0]) + bs[0][:, :, None, :]
+        seeds_k = x.shape[:2]
+        x = x.flatten(0, 1)
+        for w, b in zip(ws[1:], bs[1:]):
+            x = torch.baddbmm(b.flatten(0, 1)[:, None, :], torch.relu(x),
+                              w.flatten(0, 1))
+        x = x.unflatten(0, seeds_k)
+        return x[:, 0], x[:, 1]
     # the first layer shares the (B, in) input across the k=2 axis
     # without materialising a broadcast copy of it
     x = torch.einsum("bi,kio->kbo", xu, ws[0]) + bs[0][:, None, :]
@@ -42,10 +60,11 @@ def twin_q_unstack(params):
     leaves; the plain layout is returned as it is)."""
     if "q1" in params:
         return params
-    return {"q1": {"w": [w[0] for w in params["w"]],
-                   "b": [b[0] for b in params["b"]]},
-            "q2": {"w": [w[1] for w in params["w"]],
-                   "b": [b[1] for b in params["b"]]}}
+    # the k=2 axis is a weight's third axis from the end and a bias's
+    # second, behind a seed axis where there is one
+    return {f"q{k + 1}": {"w": [w.select(-3, k) for w in params["w"]],
+                          "b": [b.select(-2, k) for b in params["b"]]}
+            for k in range(2)}
 
 
 def twin_q_stack(params):
@@ -54,8 +73,10 @@ def twin_q_stack(params):
     if "q1" not in params:
         return params
     q1, q2 = params["q1"], params["q2"]
-    return {"w": [torch.stack([w1, w2]) for w1, w2 in zip(q1["w"], q2["w"])],
-            "b": [torch.stack([b1, b2]) for b1, b2 in zip(q1["b"], q2["b"])]}
+    return {"w": [torch.stack([w1, w2], dim=-3)
+                  for w1, w2 in zip(q1["w"], q2["w"])],
+            "b": [torch.stack([b1, b2], dim=-2)
+                  for b1, b2 in zip(q1["b"], q2["b"])]}
 
 
 def value_init(gen, obs_dim: int, hidden: int, device=None):

@@ -4,10 +4,12 @@ out (``mesh``), Megatron layouts (``tp``), the dp/tp runners
 (``runners``; every NODE solver, dopri5 included, whose error norms span
 the gang), the seed runner in worker processes (``seeds``), the lockstep
 seed runner that trains N seeds in one seed-batched episode loop on one
-device (``lockstep``) and the local gang launcher (``launch``)."""
+device, or in shards over several (``lockstep``), and the local gang
+launcher (``launch``)."""
 
 from nlbac_tpu_torch.parallel.launch import run_gang  # noqa: F401
 from nlbac_tpu_torch.parallel.lockstep import (  # noqa: F401
+    ShardedSeedRunner,
     episode_to_host_seeds,
     make_seed_parallel_runner,
 )

@@ -51,26 +51,57 @@ decisions and trial count, the adjoint's backward solve included, as
 ``seed_axis``). A registered constraint builder that declares
 ``SEED_AXIS`` takes every seed in one call; one that does not is called
 once per seed on that seed's slices (``agent/update.py``'s
-``seed_terms``; K1 then launches once per seed and call). Several
-devices raise, naming the ROADMAP item that queues them, and so do a
-stacked twin-Q state (``agent/state.py``); a seed-stacked state in a dp
-gang or under the decoupled agent raises too, by decision, as JAX's
-runner has neither. The runner has no ``--host_loop`` form.
+``seed_terms``; K1 then launches once per seed and call). The critic may
+be in either twin-Q layout (``nn.critics``; ``experimental.
+stack_twin_q_state`` takes a stacked state seed by seed). A seed-stacked
+state in a dp gang or under the decoupled agent raises, by decision, as
+JAX's runner has neither. The runner has no ``--host_loop`` form.
+
+Several devices. JAX's runner places the seed axis of every leaf on the
+mesh's ``seed`` axis: D devices hold contiguous blocks of S/D seeds, and
+S must divide evenly. Given a list of D > 1 devices, this runner shards
+the seeds the same way: shard d holds seeds d*S/D ... (d+1)*S/D - 1 and
+runs this module's one-device lockstep of them (from base seed
+``base_seed + d*S/D``, so seed i still draws from ``base_seed + i``) in
+its own spawned worker process on ``device[d]`` (``seeds._serve``'s
+workers: every host stream feeds a card of its own, where one process
+feeding D cards in turn would give each 1/D of one stream). Nothing
+couples the seeds, so a seed's run does not depend on its shard: each
+shard equals the one-device runner of its seed block. Devices may
+repeat (two shards on one card). The difference from the one-device
+form: the states stay in the workers, so ``init_fn`` and ``run_fn``
+hand back host values (``ShardedSeedRunner``), and ``fetch`` copies a
+seed's state out; an env or builder registered at run time is
+registered again in each worker (``setup``). The runner takes a flat
+list of devices, not a mesh of more than one axis: JAX's ``(seed, dp)``
+mesh replicates each seed block over the dp devices and computes it on
+each of them again, which gains nothing.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+import torch.multiprocessing as mp
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from nlbac_tpu_torch import replay as replay_lib
 from nlbac_tpu_torch import resolve_device
 from nlbac_tpu_torch.agent import create_train_state, make_agent
-from nlbac_tpu_torch.agent.state import stack_states
+from nlbac_tpu_torch.agent.state import stack_states, unstack_state
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.config import NLBACConfig
 from nlbac_tpu_torch.envs import get_env
+from nlbac_tpu_torch.ops import node_kernel
+from nlbac_tpu_torch.parallel.seeds import (
+    _cores,
+    _Process,
+    close_workers,
+    state_arrays,
+)
+from nlbac_tpu_torch.train.checkpoint import save_model_weights
 from nlbac_tpu_torch.train.aot import _LOADERS, episode_kernels
 from nlbac_tpu_torch.train.driver import (
     EpisodeMetrics,
@@ -85,9 +116,6 @@ from nlbac_tpu_torch.train.supervisor import (
     pre_action,
 )
 from nlbac_tpu_torch.tree import SeedMasks, where_seeds
-
-# The ROADMAP.md item that queues the lockstep over several devices
-DEVICES_ITEM = "ROADMAP.md Queue 1 item 23"
 
 
 def _reset_seeds(env, device, gens, max_steps, i_episode, curriculum):
@@ -148,9 +176,11 @@ def _seed_step(env, **kwargs):
 
 
 def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
-                              device="cuda"):
-    """Build ``(init_fn, run_fn)`` for N-seed lockstep training on one
-    device (the module's note).
+                              device="cuda", prepare=None, setup=None):
+    """Build ``(init_fn, run_fn)`` for N-seed lockstep training (the
+    module's note).
+
+    On one device (a device, or a list of one):
 
     ``init_fn(base_seed) -> (ts, rl, node, gens, total)``: the state
     stacked over seeds, both ``SeedReplay`` rings, the seeds' generators
@@ -162,19 +192,27 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
     ``EpisodeMetrics`` whose tensors carry a leading seed axis (the last
     update's ``train`` metrics per seed) and whose ``steps`` and
     ``updates_done`` are per-seed host lists; ``total`` is a host list.
-    ``unstack_state(cfg, ts, i)`` gives seed i's plain state.
+    ``unstack_state(cfg, ts, i)`` gives seed i's state.
 
-    ``device`` is one device: a list of several raises (the lockstep over
-    several cards is queued; ``make_async_seed_runner`` spreads seeds over
-    cards)."""
+    On a list of D > 1 devices, ``n_seeds`` a multiple of D, the seeds
+    run in D shards, each in a worker process: ``(runner.init, runner)``
+    of a ``ShardedSeedRunner``.
+
+    ``prepare(cfg, ts) -> ts``, where given, is applied to the stacked
+    state ``init_fn`` makes (for example
+    ``experimental.stack_twin_q_state``). ``setup()``, where given, is
+    called before anything else, in every worker of a sharded run: where
+    an env or a constraint builder registered at run time is registered
+    (a registry holds what its own process registered). A sharded run
+    pickles both to its workers, so they must be module-level
+    functions."""
     if isinstance(device, (list, tuple)):
-        if len(device) != 1:
-            raise ValueError(
-                f"make_seed_parallel_runner runs on one device; "
-                f"{len(device)} devices are queued as {DEVICES_ITEM} "
-                f"(make_async_seed_runner, --n_seeds, spreads seeds over "
-                f"cards)")
+        if len(device) > 1:
+            runner = ShardedSeedRunner(cfg, n_seeds, device, prepare, setup)
+            return runner.init, runner
         device = device[0]
+    if setup is not None:
+        setup()
     if n_seeds < 1:
         raise ValueError(f"n_seeds must be at least 1, got {n_seeds}")
     device = resolve_device(device)
@@ -211,6 +249,8 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
             states.append(create_train_state(cfg, gen, device))
         ts = stack_states(cfg, states)
         del states
+        if prepare is not None:
+            ts = prepare(cfg, ts)
         rings = [create_replays(cfg, device) for _ in range(n_seeds)]
         rl = replay_lib.stack_replays([r[0] for r in rings])
         node = replay_lib.stack_replays([r[1] for r in rings])
@@ -314,6 +354,149 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
         return ts, rl, node, gens, metrics, total
 
     return init_fn, run_fn
+
+
+class _Shard:
+    """One shard of a sharded run, held in a worker process
+    (``seeds._serve``): the one-device lockstep of ``n_seeds`` seeds from
+    ``base_seed``."""
+
+    def __init__(self, cfg, n_seeds, base_seed, prepare, setup):
+        self.cfg, self.n_seeds, self.base_seed = cfg, n_seeds, base_seed
+        self.prepare, self.setup = prepare, setup
+
+    def start(self, dev) -> float:
+        """Make the runner and the seeds; the seconds it took."""
+        t0 = time.perf_counter()
+        init_fn, self.run = make_seed_parallel_runner(
+            self.cfg, self.n_seeds, dev, self.prepare, self.setup)
+        self.carry = init_fn(self.base_seed)
+        return time.perf_counter() - t0
+
+    def episode(self, i_episode: int):
+        """One episode of the shard's seeds: each seed's host metrics
+        (``episode_to_host_seeds``, with its ``updates`` and the shard's
+        K1 launches in the episode, ``kernel_launches``) and the step
+        totals."""
+        node_kernel.reset_launch_counts()  # the worker's own counts
+        ts, rl, node, gens, total = self.carry
+        ts, rl, node, gens, m, total = self.run(ts, rl, node, gens,
+                                                i_episode, total)
+        self.carry = (ts, rl, node, gens, total)
+        launches = node_kernel.launch_counts["node_euler"]
+        host = episode_to_host_seeds(m)
+        for h, updates in zip(host, ts.updates):
+            h["updates"], h["kernel_launches"] = updates, launches
+        return host, total
+
+    def save(self, j, path, include_barrier) -> None:
+        save_model_weights(path, unstack_state(self.cfg, self.carry[0], j),
+                           include_barrier)
+
+    def state(self, j):
+        return seed_on_host(self.cfg, self.carry, j)
+
+
+def seed_on_host(cfg: NLBACConfig, carry, i: int):
+    """Seed i of the one-device runner's ``(ts, rl, node, gens, total)`` on
+    the host, as ``ShardedSeedRunner.fetch`` gives it."""
+    ts, rl, node, gens, total = carry
+
+    def ring(r):  # its valid rows (those before its size) only
+        return (r.data[i, :r.size[i]].cpu().numpy(), r.position[i],
+                r.size[i], r.total[i])
+
+    return (state_arrays(unstack_state(cfg, ts, i)), ring(rl), ring(node),
+            total[i], gens[i].get_state().numpy())
+
+
+class ShardedSeedRunner:
+    """The lockstep over D > 1 devices (the module's note): shard d, in a
+    spawned worker process on ``devices[d]``, holds seeds d*S/D ...
+    (d+1)*S/D - 1.
+
+    ``init(base_seed) -> total`` starts every worker (all at once) and
+    makes every shard's seeds (seed i from ``base_seed + i``); ``total``
+    is the per-seed step totals, a host list. ``runner(i_episode) ->
+    (metrics, total)`` runs one episode of every seed: ``metrics`` is
+    each seed's host metrics in seed order (``episode_to_host_seeds``'
+    form, with ``updates`` and its shard's K1 launches in the episode,
+    ``kernel_launches``). ``fetch(i)`` copies seed i's state out,
+    ``save_weights(i, path, include_barrier)`` writes its weight files as
+    ``train()`` does, ``close()`` ends the workers. A worker that fails
+    ends every worker and raises its traceback in the parent."""
+
+    def __init__(self, cfg: NLBACConfig, n_seeds: int, devices,
+                 prepare=None, setup=None):
+        n_dev = len(devices)
+        if n_seeds < 1 or n_seeds % n_dev:
+            raise ValueError(
+                f"{n_seeds} seeds do not split evenly over {n_dev} "
+                f"devices (each device holds a block of n_seeds / "
+                f"{n_dev} seeds)")
+        self.cfg, self.n_seeds = cfg, n_seeds
+        self.prepare, self.setup = prepare, setup
+        self.devices = [torch.device(d) for d in devices]
+        self.per_shard = n_seeds // n_dev
+        # the seeds of each shard, as JAX's NamedSharding places them
+        self.shards = [list(range(d * self.per_shard,
+                                  (d + 1) * self.per_shard))
+                       for d in range(n_dev)]
+        self.start_seconds = None  # each worker's, from init
+        self._procs = []
+
+    def _wait(self, replies):
+        try:
+            return [r.result() for r in replies]
+        except BaseException:
+            self.close()
+            raise
+
+    def init(self, base_seed: int):
+        self.close()
+        ctx = mp.get_context("spawn")
+        threads = max(1, _cores() // len(self.devices))
+        for dev, seeds in zip(self.devices, self.shards):
+            shard = _Shard(self.cfg, self.per_shard, base_seed + seeds[0],
+                           self.prepare, self.setup)
+            self._procs.append(_Process(ctx, shard, dev, threads))
+        self.start_seconds = self._wait([p.pending[0] for p in self._procs])
+        return [0] * self.n_seeds
+
+    def _workers(self):
+        if not self._procs:
+            raise RuntimeError("the sharded runner has no workers (init "
+                               "was not called, or it was closed)")
+        return self._procs
+
+    def _shard(self, i: int):
+        """Seed i's worker and its index in that shard."""
+        if not 0 <= i < self.n_seeds:
+            raise IndexError(f"seed {i} of {self.n_seeds}")
+        return self._workers()[i // self.per_shard], i % self.per_shard
+
+    def __call__(self, i_episode: int):
+        replies = self._wait([p.request("episode", i_episode)
+                              for p in self._workers()])
+        metrics = [h for host, _ in replies for h in host]
+        total = [t for _, tot in replies for t in tot]
+        return metrics, total
+
+    def fetch(self, i: int):
+        """Seed i's ``(state_arrays(ts), rl ring, node ring, total,
+        generator state)`` on the host, each ring ``(rows, position,
+        size, pushes)`` with its valid rows (the first ``size``) and the
+        generator's state a numpy array."""
+        proc, j = self._shard(i)
+        return self._wait([proc.request("state", j)])[0]
+
+    def save_weights(self, i: int, path, include_barrier: bool) -> None:
+        proc, j = self._shard(i)
+        self._wait([proc.request("save", j, path, include_barrier)])
+
+    def close(self) -> None:
+        close_workers(self._procs)
+        self._procs = []
 
 
 def episode_to_host_seeds(m: EpisodeMetrics) -> list:

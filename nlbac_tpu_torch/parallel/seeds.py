@@ -13,6 +13,10 @@ the Python of every step holds.)
 
 With ``dp``/``tp`` each seed trains on a group of ranks (``grids``), the
 group's seeds one after another.
+
+A worker (``_serve``) holds an object it starts and asks by request
+name: here a worker's seeds (``_Seeds``), in ``parallel/lockstep.py`` a
+lockstep shard.
 """
 
 from __future__ import annotations
@@ -111,39 +115,55 @@ class SeedStepper:
 # Worker processes
 # ---------------------------------------------------------------------------
 
-def _serve(conn, cfg, device: str, seeds, threads: int) -> None:
-    """A worker process: makes its seeds, then answers the parent's
-    requests (``episode``, ``save``, ``state``, ``close``) in order."""
+class _Seeds:
+    """A worker's seeds of ``--n_seeds`` (pairs ``(i, seed)``), made as a
+    single-seed ``train()`` makes them and run one after another: what
+    ``_serve`` holds and asks."""
+
+    def __init__(self, cfg, seeds):
+        self.cfg, self.seeds = cfg, seeds
+
+    def start(self, dev) -> None:
+        self.states = {i: _new_seed(self.cfg, seed, dev)
+                       for i, seed in self.seeds}
+        ts, rl, node, gen, total = next(iter(self.states.values()))
+        self.run = cached_episode_runner(self.cfg,
+                                         (ts, rl, node, gen, 0, total))
+
+    def episode(self, i_episode: int) -> dict:
+        return {i: _run_episode(self.run, st, i_episode)
+                for i, st in self.states.items()}
+
+    def save(self, i, path, include_barrier) -> None:
+        save_model_weights(path, self.states[i][0], include_barrier)
+
+    def state(self, i):
+        ts, rl, node, _, total = self.states[i]
+        return (state_arrays(ts), rl.data.cpu().numpy(),
+                node.data.cpu().numpy(), total)
+
+
+def _serve(conn, holder, device: str, threads: int) -> None:
+    """A worker process: starts ``holder`` on ``device`` (its seeds; the
+    reply holds what ``holder.start`` returns), then answers the parent's
+    requests in order: ``close``, or the name of one of ``holder``'s
+    methods (``episode``, ``save``, ``state``) with its arguments."""
     try:
         torch.set_num_threads(threads)
-        dev = torch.device(device)
+        dev = resolve_device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        states = {i: _new_seed(cfg, seed, dev) for i, seed in seeds}
-        ts, rl, node, gen, total = next(iter(states.values()))
-        run = cached_episode_runner(cfg, (ts, rl, node, gen, 0, total))
-        conn.send(("ok", None))
+        conn.send(("ok", holder.start(dev)))
     except Exception:  # the worker's boundary: the parent raises it
         conn.send(("error", traceback.format_exc()))
         return
     while True:
         request, *args = conn.recv()
+        if request == "close":
+            conn.send(("ok", None))
+            return
         try:
-            if request == "episode":
-                reply = {i: _run_episode(run, st, args[0])
-                         for i, st in states.items()}
-            elif request == "save":
-                i, path, include_barrier = args
-                save_model_weights(path, states[i][0], include_barrier)
-                reply = None
-            elif request == "state":
-                ts, rl, node, _, total = states[args[0]]
-                reply = (state_arrays(ts), rl.data.cpu().numpy(),
-                         node.data.cpu().numpy(), total)
-            else:
-                conn.send(("ok", None))
-                return
-            conn.send(("ok", reply))
+            conn.send(("ok", getattr(holder, request)(*args)))
         except Exception:  # the worker's boundary: the parent raises it
             conn.send(("error", traceback.format_exc()))
 
@@ -172,11 +192,12 @@ class _SeedReply:
 
 
 class _Process:
-    def __init__(self, ctx, cfg, device, seeds, threads):
+    """A spawned worker serving ``holder`` (``_serve``) on ``device``."""
+
+    def __init__(self, ctx, holder, device, threads):
         self.conn, child = ctx.Pipe()
         self.proc = ctx.Process(target=_serve, daemon=True,
-                                args=(child, cfg, str(device), seeds,
-                                      threads))
+                                args=(child, holder, str(device), threads))
         self.proc.start()
         child.close()
         self.pending = deque([_Reply(self)])  # the start-up reply
@@ -212,8 +233,8 @@ class _ProcessStepper(SeedStepper):
             seeds = [(i, base_seed + i)
                      for i in range(w, self._n_seeds, self._n_workers)]
             device = self._devices[w % len(self._devices)]
-            self._procs.append(_Process(ctx, self._cfg, device, seeds,
-                                        threads))
+            self._procs.append(_Process(ctx, _Seeds(self._cfg, seeds),
+                                        device, threads))
         for p in self._procs:
             p.pending[0].result()
         return list(range(self._n_seeds))
@@ -234,16 +255,22 @@ class _ProcessStepper(SeedStepper):
         return self._worker(i).request("state", i).result()
 
     def close(self) -> None:
-        for p in self._procs:
-            if p.proc.is_alive():
-                try:
-                    p.request("close").result()
-                except (RuntimeError, OSError):
-                    pass
-            p.proc.join(timeout=30)
-            if p.proc.is_alive():
-                p.proc.kill()
+        close_workers(self._procs)
         self._procs = []
+
+
+def close_workers(procs: Sequence[_Process]) -> None:
+    """End the workers: a ``close`` request to each live one, then a join
+    (killed after 30 s)."""
+    for p in procs:
+        if p.proc.is_alive():
+            try:
+                p.request("close").result()
+            except (RuntimeError, OSError):
+                pass
+        p.proc.join(timeout=30)
+        if p.proc.is_alive():
+            p.proc.kill()
 
 
 def _cores() -> int:

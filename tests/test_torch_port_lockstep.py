@@ -14,8 +14,10 @@ port's own one-seed path:
 (d) masking: seeds whose episodes end at different steps, a finished
     seed's state, rings and generator bit-equal while the others run;
 (e) ``tests/test_parallel.py``'s assertions on JAX's runner;
-(f) the refusals (several devices, a stacked twin-Q state) and the configs
-    taken since (dopri5, a builder without ``SEED_AXIS``);
+(f) what the runner refused and takes since (dopri5, a builder without
+    ``SEED_AXIS``, several devices, a stacked twin-Q state) and the
+    refusals that stay (seeds that do not split evenly over the devices,
+    seeds in different twin-Q layouts);
 (g) ``SeedAdam`` against ``torch.optim.Adam`` seed by seed, masks
     included.
 
@@ -275,11 +277,14 @@ def runner_cfg(env_name="unicycle"):
         replay=tconfig.ReplayConfig(capacity=40, node_capacity=50))
 
 
-def standalone(cfg, seed, episodes):
-    """``train()``'s single-seed loop for ``seed``: each episode's host
+def standalone(cfg, seed, episodes, prepare=None):
+    """``train()``'s single-seed loop for ``seed`` (its state passed
+    through ``prepare(cfg, ts)`` where given): each episode's host
     metrics and the final state, rings, total and generator."""
     gen = torch.Generator().manual_seed(seed)
     ts = t_create(cfg, gen, "cpu")
+    if prepare is not None:
+        ts = prepare(cfg, ts)
     rl, node = create_replays(cfg, "cpu")
     run = make_episode_runner(cfg, "cpu")
     total, out = 0, []
@@ -302,16 +307,31 @@ def close_to_largest(a, b, frac, what):
 
 
 def check_seed_against_standalone(cfg, i, base, results, ts, rl, node, gens,
-                                  total, node_frac=None):
+                                  total, node_frac=None, prepare=None):
     """Seed i of a lockstep run against its standalone run. ``node_frac``
     holds the NODE's parameters and Adam moments within that fraction of
     each leaf's largest entry instead (a dopri5 fit's gradient through
     the adaptive solve is float32 noise at that scale; see
     tests/test_torch_port_ode.py's NODE_GRAD_FRAC)."""
-    want, ts1, rl1, node1, total1, gen1 = standalone(cfg, base + i,
-                                                     len(results))
-    for ep, (got_ep, want_ep) in enumerate(zip(results, want)):
-        got = got_ep[i]
+    rings = [parallel.lockstep.replay_lib.unstack_replay(r, i)
+             for r in (rl, node)]
+    check_fetched_against_standalone(
+        cfg, i, base, [ep[i] for ep in results],
+        (parallel.state_arrays(unstack_state(cfg, ts, i)),
+         *((r.data.numpy(), r.position, r.size, r.total) for r in rings),
+         total[i], gens[i].get_state().numpy()), node_frac, prepare)
+
+
+def check_fetched_against_standalone(cfg, i, base, episodes, fetched,
+                                     node_frac=None, prepare=None):
+    """Seed i's episodes (its host metrics, one per episode) and its state
+    on the host, ``fetched`` in ``ShardedSeedRunner.fetch``'s form
+    (``(state_arrays, rl ring, node ring, total, generator state)``),
+    against its standalone run (``check_seed_against_standalone``)."""
+    arrays, rl_ring, node_ring, total_i, gen_state = fetched
+    want, ts1, rl1, node1, total1, gen1 = standalone(
+        cfg, base + i, len(episodes), prepare)
+    for ep, (got, want_ep) in enumerate(zip(episodes, want)):
         assert got["steps"] == want_ep["steps"], (i, ep)
         assert got["updates_done"] == want_ep["updates_done"], (i, ep)
         assert got["short_integrations"] == \
@@ -322,10 +342,9 @@ def check_seed_against_standalone(cfg, i, base, results, ts, rl, node, gens,
         for k in METRIC_NAMES:
             close(got["train"][k], want_ep["train"][k],
                   f"seed {i} episode {ep} train {k}")
-    assert total[i] == total1
-    one = unstack_state(cfg, ts, i)
-    assert one.updates == ts1.updates
-    a, b = parallel.state_arrays(one), parallel.state_arrays(ts1)
+    assert total_i == total1
+    a, b = arrays, parallel.state_arrays(ts1)
+    assert a["updates"] == b["updates"]
     for key in b:
         if key == "updates":
             continue
@@ -338,13 +357,14 @@ def check_seed_against_standalone(cfg, i, base, results, ts, rl, node, gens,
                                      f"seed {i} {key}[{j}] {k}")
             else:
                 close(x, y, f"seed {i} {key}")
-    for stacked, plain in ((rl, rl1), (node, node1)):
-        ring = parallel.lockstep.replay_lib.unstack_replay(stacked, i)
-        assert (ring.position, ring.size, ring.total) == \
+    for (data, position, size, pushes), plain in ((rl_ring, rl1),
+                                                  (node_ring, node1)):
+        assert (position, size, pushes) == \
             (plain.position, plain.size, plain.total)
-        close(ring.data.numpy(), plain.data.numpy(), f"seed {i} ring")
+        # a fetched ring holds its valid rows, an unstacked one all
+        close(data, plain.data.numpy()[:len(data)], f"seed {i} ring")
     # the generator has made the standalone run's draws, no more
-    assert torch.equal(gens[i].get_state(), gen1.get_state())
+    assert np.array_equal(gen_state, gen1.get_state().numpy())
 
 
 def run_lockstep(cfg, base, episodes=EPISODES, new_episode=None):
@@ -591,17 +611,57 @@ def test_registered_builder_with_seed_axis_is_taken():
             parallel.state_arrays(unstack_state(cfg, want_ts, i)))
 
 
-def test_several_devices_are_refused():
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 23"):
-        parallel.make_seed_parallel_runner(runner_cfg(), 2, ["cpu", "cpu"])
+def test_several_devices_are_taken():
+    """A list of two devices makes the sharded runner: a seed a shard, each
+    in its own worker, seed i made from base seed + i
+    (tests/test_torch_port_lockstep_cards.py trains it against the
+    standalone runs)."""
+    cfg = runner_cfg()
+    init_fn, run_fn = parallel.make_seed_parallel_runner(cfg, 2,
+                                                         ["cpu", "cpu"])
+    assert isinstance(run_fn, parallel.ShardedSeedRunner)
+    assert run_fn.shards == [[0], [1]]
+    try:
+        assert init_fn(4) == [0, 0]
+        for i in range(2):
+            arrays, rl, node, total, gen_state = run_fn.fetch(i)
+            want = t_create(cfg, torch.Generator().manual_seed(4 + i),
+                            "cpu")
+            np.testing.assert_equal(arrays, parallel.state_arrays(want))
+            assert rl[1:] == node[1:] == (0, 0, 0) and total == 0
+    finally:
+        run_fn.close()
 
 
-def test_stacked_twin_q_state_is_refused():
+def test_stacked_twin_q_state_is_taken():
+    """Seeds in the stacked twin-Q layout stack to (S, 2, in, out) and
+    (S, 2, out) critic leaves with a SeedAdam over them
+    (tests/test_torch_port_lockstep_cards.py trains and updates them)."""
     cfg = runner_cfg()
     gen = torch.Generator().manual_seed(0)
     states = [stack_twin_q_state(cfg, t_create(cfg, gen, "cpu"))
               for _ in range(2)]
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 25"):
+    ts = stack_states(cfg, states)
+    assert ts.seeds == 2 and "q1" not in ts.critic
+    for stacked, plain in zip(tree_leaves(ts.critic),
+                              tree_leaves(states[0].critic)):
+        assert stacked.shape == (2,) + plain.shape and plain.shape[0] == 2
+    assert isinstance(ts.opt["critic"], SeedAdam)
+
+
+def test_uneven_seed_count_over_devices_is_refused():
+    """As JAX's device_put refuses a seed axis that does not split evenly
+    over the mesh."""
+    with pytest.raises(ValueError, match="do not split evenly"):
+        parallel.make_seed_parallel_runner(runner_cfg(), 3, ["cpu", "cpu"])
+
+
+def test_mixed_twin_q_layouts_are_refused():
+    cfg = runner_cfg()
+    gen = torch.Generator().manual_seed(0)
+    states = [t_create(cfg, gen, "cpu"),
+              stack_twin_q_state(cfg, t_create(cfg, gen, "cpu"))]
+    with pytest.raises(ValueError, match="different twin-Q layouts"):
         stack_states(cfg, states)
 
 
@@ -676,8 +736,10 @@ def test_stack_and_unstack_states_round_trip():
 
 
 def test_lockstep_modules_import_no_jax():
-    """A fresh process that imports the lockstep runner and every module
-    it puts on the seed axis (the seed Adam, the fields, the adaptive
+    """A fresh process that imports the lockstep runner, the module its
+    sharded workers start in (``parallel.seeds``, whose ``_serve`` a
+    spawned worker runs) and every module it puts on the seed axis (the
+    stacked twin-Q layout, the seed Adam, the fields, the adaptive
     solver and its adjoint, K1's wrapper, the update and the state, the
     replay, the supervisor, ``train.driver``'s helpers, the constraint builders
     and the envs) holds no JAX and nothing of the JAX package."""
@@ -686,7 +748,8 @@ def test_lockstep_modules_import_no_jax():
     import sys
     from pathlib import Path
 
-    modules = ("parallel.lockstep", "nn.adam", "nn.node", "nn.mlp",
+    modules = ("parallel", "parallel.lockstep", "parallel.seeds",
+               "experimental", "nn.critics", "nn.adam", "nn.node", "nn.mlp",
                "ode.solvers", "ode.adjoint",
                "ops.node_kernel", "agent.update", "agent.state", "interop",
                "replay.buffer", "train.supervisor", "train.driver",

@@ -2,7 +2,11 @@
 spawned by ``nlbac_tpu_torch.parallel.run_gang``. A spawned rank imports
 its function by module name, so this module imports torch and the port
 only (the test module imports JAX). Each rank joins a gloo gang on the
-CPU and writes what it computed to ``<out>/rank<r>.pkl``."""
+CPU and writes what it computed to ``<out>/rank<r>.pkl``. The sharded
+lockstep tests (``test_torch_port_lockstep_cards.py``) take their
+workers' ``prepare`` and ``setup`` hooks from here for the same reason."""
+
+import dataclasses
 
 import os
 import pickle
@@ -179,3 +183,18 @@ def nccl_on_one_card(rank, world, coordinator):
     """Join a gang with NCCL on card 0, as every rank of it does."""
     parallel.init_distributed(coordinator, world, rank, backend="nccl",
                               device="cuda:0")
+
+
+def drop_a_seed(cfg, ts):
+    """A sharded lockstep runner's ``prepare`` hook that leaves its shard's
+    state one seed short, so that the shard's first episode raises in its
+    worker."""
+    return dataclasses.replace(ts, updates=ts.updates[:-1])
+
+
+def register_unicycle_alias():
+    """A sharded lockstep runner's ``setup`` hook: the unicycle env
+    registered at run time under another name, in the worker."""
+    from nlbac_tpu_torch.envs import register_env, unicycle
+
+    register_env("unicycle_alias", unicycle)
