@@ -171,8 +171,18 @@ Phases, one line each (any failure raises and exits nonzero):
    rates; then one lockstep update of phase 21's trained seeds with the
    critic in the stacked twin-Q layout against the plain layout
    (UPDATE_RTOL/UPDATE_ATOL);
-25. a JSON line of the kernel's numbers (and the tanh, lever, start-up
-   and lockstep phases'), the script's total time, then the result line.
+25. the band's script (``scripts/band_torch.py run``, one CLI process
+   a seed, chunks that resume): BAND_SEEDS unicycle seeds at full width
+   in chunks of 1 episode of EPISODE_STEPS steps (``--start_steps``
+   EPISODE_STEPS) to BAND_EPISODES episodes, beside seed SEED's uncut
+   run of BAND_EPISODES episodes in a process of its own: seed SEED's
+   chunked progress.txt and final checkpoint against the uncut run's,
+   bit for bit; then ``band_torch.py judge`` on the chunked seeds (its
+   verdict is printed and does not gate: these are not the band's seeds
+   or budget);
+26. a JSON line of the kernel's numbers (and the tanh, lever, start-up,
+   lockstep and band phases'), the script's total time, then the result
+   line.
 
 The depth of each CLI run is cut (EPISODES, PRESET_RUNS, NBC_RUNS,
 QUAD_*, DOPRI5_RUN, HOST_RUNS, PROFILE_RUN, CUSTOM_RUN, GANG_STEPS,
@@ -314,6 +324,12 @@ EXPORT_BATCHES = (1, 7, 128)
 PROFILE_RUN = (2, 70)
 CUSTOM_RUN = (2, 150)
 OUT = Path("chiprun_out") / "chip_smoke"
+# The band's script (phase 25): seeds, episodes (one a chunk) and the CLI
+# flags of its processes (the main path's depth and warm-up).
+BAND = Path("chiprun_out") / "band_smoke"
+BAND_SEEDS, BAND_EPISODES = 2, 2
+BAND_CLI_ARGS = (f"--max_episode_steps {EPISODE_STEPS} --start_steps "
+                 f"{EPISODE_STEPS}")
 SEED = 0
 SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
 HOST_CALLS = 1000
@@ -3670,6 +3686,97 @@ def lockstep_cards(dev, card, ref):
         by_path
 
 
+def band_script(*args):
+    return [sys.executable, str(Path(__file__).resolve().parent / "scripts"
+                                / "band_torch.py")] + [str(a) for a in args]
+
+
+def band_runs(card):
+    """Phase 25: ``scripts/band_torch.py run`` for BAND_SEEDS seeds in
+    chunks of one episode, beside seed SEED uncut in one chunk (the two
+    runs side by side on the card); seed SEED's rows and final checkpoint
+    must be bit for bit the uncut run's; then ``judge`` on the chunked
+    seeds (printed, not a gate)."""
+    shutil.rmtree(BAND, ignore_errors=True)
+    common = ["--episodes", BAND_EPISODES, "--per_card", BAND_SEEDS + 1,
+              f"--cli_args={BAND_CLI_ARGS}"]
+    t0 = time.perf_counter()
+    uncut = subprocess.Popen(
+        band_script("run", "--seeds", SEED, "--chunk", BAND_EPISODES,
+                    "--out", BAND / "uncut", "--work", BAND / "uncut_work",
+                    *common),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        chunked = subprocess.run(
+            band_script("run", "--seeds",
+                        *range(SEED, SEED + BAND_SEEDS), "--chunk", 1,
+                        "--out", BAND / "chunked", "--work",
+                        BAND / "chunked_work", *common),
+            capture_output=True, text=True, timeout=600)
+        uncut_out, _ = uncut.communicate(timeout=600)
+    finally:
+        if uncut.poll() is None:
+            uncut.kill()
+            uncut.wait()
+    seconds = time.perf_counter() - t0
+    for name, rc, text in (("chunked", chunked.returncode,
+                            chunked.stdout + chunked.stderr),
+                           ("uncut", uncut.returncode, uncut_out)):
+        if rc != 0:
+            raise RuntimeError(f"band {name} run: exit code {rc}\n{text}")
+
+    def kept(name, seed):
+        work = BAND / f"{name}_work" / f"s{seed}"
+        state = json.loads((work / "state.json").read_text())
+        rows = (BAND / name / f"s{seed}" / "progress.txt").read_text()
+        info = json.loads((BAND / name / f"s{seed}" / "run.json").read_text())
+        return state, rows, work / state["checkpoint"], info
+
+    c_state, c_rows, c_ckpt, c_info = kept("chunked", SEED)
+    u_state, u_rows, u_ckpt, _ = kept("uncut", SEED)
+    with np.load(c_ckpt) as zc, np.load(u_ckpt) as zu:
+        differ = sorted(set(zc.files) ^ set(zu.files)) + [
+            k for k in sorted(set(zc.files) & set(zu.files))
+            if zc[k].shape != zu[k].shape
+            or zc[k].tobytes() != zu[k].tobytes()]
+    chunks = [c["episodes"] for c in c_state["chunks"]]
+    if (c_rows != u_rows or differ
+            or chunks != [[e, e] for e in range(BAND_EPISODES)]
+            or len(c_rows.splitlines()) != BAND_EPISODES + 1):
+        raise RuntimeError(f"band: seed {SEED} chunked {chunks} against "
+                           f"uncut: rows {'equal' if c_rows == u_rows else 'differ'}"
+                           f", checkpoint arrays that differ: {differ}")
+    rates = {}
+    for seed in range(SEED, SEED + BAND_SEEDS):
+        _, rows, _, info = kept("chunked", seed)
+        if len(rows.splitlines()) != BAND_EPISODES + 1:
+            raise RuntimeError(f"band: seed {seed} kept {rows!r}")
+        rates[seed] = info["env_steps_per_s"]
+    judged = subprocess.run(
+        band_script("judge", "--port", BAND / "chunked", "--episodes",
+                    BAND_EPISODES, "--json", BAND / "judge.json"),
+        capture_output=True, text=True, timeout=120)
+    if judged.returncode != 0:
+        raise RuntimeError(f"band judge: {judged.stdout + judged.stderr}")
+    verdict = judged.stdout.strip().splitlines()[-1]
+    phase(f"band: {BAND_SEEDS} seeds x {BAND_EPISODES} chunks of 1 episode "
+          f"({BAND_CLI_ARGS}) through scripts/band_torch.py run beside seed "
+          f"{SEED} uncut: seed {SEED}'s rows and final checkpoint bit for "
+          f"bit the uncut run's ({c_state['env_steps']} env steps); "
+          f"env-steps/s per seed over its processes' lives {rates}; "
+          f"{seconds:.2f} s for both runs; judge (not a gate): {verdict} "
+          f"on {card}")
+    for line in judged.stdout.splitlines():
+        if line.startswith("port:"):
+            phase(f"band judge {line}")
+    shutil.rmtree(BAND / "chunked_work", ignore_errors=True)
+    shutil.rmtree(BAND / "uncut_work", ignore_errors=True)
+    return {"seeds": BAND_SEEDS, "episodes": BAND_EPISODES,
+            "chunked_equals_uncut": True, "env_steps": c_state["env_steps"],
+            "env_steps_per_s": rates, "seconds": seconds,
+            "judge": verdict, "card": c_info["cards"]}
+
+
 def ep_values(episodes, i):
     """Seed i's rewards and last-update metrics over the episodes."""
     return [v for ep in episodes
@@ -3772,6 +3879,8 @@ def main() -> int:
                                                       lockstep_ref)
     by_path.update(cards_by_path)
     mark("lockstep in shards, stacked twin-Q (24)")
+    band = band_runs(card)
+    mark("band script (25)")
 
     big = times[32768]
     print(json.dumps({"kernels": [{
@@ -3790,7 +3899,7 @@ def main() -> int:
         "nbc_calls_max_abs_err": nbc_err, "seed_batched": seed_batched,
         "seed_batched_calls": lockstep_calls,
         "launches_by_path": by_path}], "tanh": tanh, "levers": levers,
-        "startup": startup, "lockstep": lockstep,
+        "startup": startup, "lockstep": lockstep, "band": band,
         "phase_end_seconds": dict(marks)}), flush=True)
     phase(f"total: {time.perf_counter() - start:.2f} s from the build to "
           f"the end on {card}; seconds since the start at each phase's "

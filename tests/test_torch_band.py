@@ -1,0 +1,331 @@
+"""``scripts/band_torch.py``, the port's band, on the CPU:
+
+(a) ``judge`` on the JAX package's own 16 recorded unicycle seeds
+    reproduces ``scripts/r9_analyze.py``'s figures (s12345 525.9 / 46 / 49,
+    s111 649.1 / 49) and counts 15 of 16 converged;
+(b) the reference's 12 r9 seeds, judged as if they were the port, pass;
+    the same set with 3 seeds replaced by s12345's rows fails, and so does
+    the set with every reward 20 lower;
+(c) ``run --cpu`` (tiny widths) gives the same ``progress.txt`` rows for
+    3 episodes in chunks of 1 + 2 as for 3 episodes uncut, and the same
+    final checkpoint;
+(d) a chunk cut after its first episode (SIGTERM to ``run``) keeps no row
+    past the checkpoint it resumed from, and continuing gives the uncut
+    rows;
+(e) a fresh process that imports the script holds no ``jax`` and no
+    ``nlbac_tpu*`` module, and ``run`` without a card raises unless given
+    ``--cpu``;
+(f) ``judge`` on the card's committed seeds (``results/torch_band/
+    unicycle/``) gives the verdict that ``PERF.md`` states.
+
+Tolerances: none; (a) compares at the printed precision (0.05), the rest
+bit for bit.
+"""
+
+import importlib.util
+import json
+import os
+import re
+import shutil
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+SCRIPT = ROOT / "scripts" / "band_torch.py"
+
+
+def _load():
+    spec = importlib.util.spec_from_file_location("band_torch", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+band = _load()
+PRESET = band.PRESETS["unicycle"]
+
+
+def ref_files():
+    return band.find_seeds([ROOT / d for d in PRESET["ref"]])
+
+
+def judge(port, tmp_path, *extra):
+    out = tmp_path / "judge.json"
+    assert band.main(["judge", "--port", str(port), "--json", str(out)]
+                     + list(extra)) == 0
+    return json.loads(out.read_text())
+
+
+def as_port(tmp_path, files, rewrite=None):
+    """A port directory of ``{seed: progress.txt}``, each file's rows
+    optionally passed through ``rewrite(header, lines)``."""
+    port = tmp_path / "port"
+    for seed, path in files.items():
+        (port / f"s{seed}").mkdir(parents=True)
+        header, lines, _ = band.read_progress(path)
+        if rewrite is not None:
+            lines = rewrite(header, lines)
+        (port / f"s{seed}" / "progress.txt").write_text(
+            "\n".join([header] + lines) + "\n")
+    return port
+
+
+def test_judge_reproduces_reference_figures(tmp_path):
+    files = ref_files()
+    assert sorted(files) == sorted(PRESET["seeds"] + PRESET["fallback"])
+    ref = judge(tmp_path / "empty", tmp_path)["reference"]
+    s = ref["s12345"]
+    assert round(s["last50_reward"], 1) == 525.9
+    assert (s["goals_last50"], s["violation_episodes_last100"]) == (46, 49)
+    assert not s["converged"]
+    s = ref["s111"]
+    assert round(s["last50_reward"], 1) == 649.1
+    assert s["goals_last50"] == 49 and s["converged"]
+    assert sum(v["converged"] for v in ref.values()) == 15
+    others = [v for k, v in ref.items() if k not in ("s12345", "s111")]
+    assert min(v["last50_reward"] for v in others) >= 681.15
+    assert max(v["last50_reward"] for v in others) <= 693.25
+    assert all(v["goals_last50"] == 50 for v in others)
+    assert all(v["violation_episodes_last100"] <= 5 for v in others)
+
+
+@pytest.mark.parametrize("case", ["reference", "three_low_modes",
+                                  "rewards_20_lower"])
+def test_judge_verdict_on_reference_seeds(tmp_path, case):
+    files = {s: p for s, p in ref_files().items() if s in PRESET["seeds"]}
+    assert len(files) == 12
+    rewrite = None
+    if case == "three_low_modes":
+        for seed in (100, 101, 102):
+            files[seed] = files[12345]
+    elif case == "rewards_20_lower":
+        def rewrite(header, lines):
+            i = header.split("\t").index("reward_train")
+            out = []
+            for ln in lines:
+                cells = ln.split("\t")
+                cells[i] = repr(float(cells[i]) - 20.0)
+                out.append("\t".join(cells))
+            return out
+    got = judge(as_port(tmp_path, files, rewrite), tmp_path)
+    if case == "reference":
+        assert got["verdict"] == "pass"
+        assert got["port_converged"] == 11
+    elif case == "three_low_modes":
+        assert got["port_converged"] == 8
+        assert got["verdict"] == "fail"
+    else:
+        assert got["port_converged"] == 11
+        assert got["port_median_last50_reward"] < band.PASS_MEDIAN
+        assert got["verdict"] == "fail"
+    assert got["mann_whitney_u"]["n_port"] == 12
+
+
+def test_judge_first_episodes(tmp_path):
+    """``--episodes N`` judges every seed's first N episodes, both
+    sides, and says that it is not the band."""
+    files = {s: p for s, p in ref_files().items() if s in PRESET["seeds"]}
+    port = as_port(tmp_path, files, lambda h, lines: lines[:120])
+    out = tmp_path / "at100.json"
+    assert band.main(["judge", "--port", str(port), "--episodes", "100",
+                      "--json", str(out)]) == 0
+    got = json.loads(out.read_text())
+    _, _, c = band.read_progress(files[12345])
+    for side in ("port", "reference"):
+        s = got[side]["s12345"]
+        assert s["episodes"] == 100 and s["complete"]
+        assert s["last50_reward"] == pytest.approx(
+            c["reward_train"][50:100].mean(), rel=1e-12)
+        assert s["env_steps"] == int(c["episode_steps"][:100].sum())
+    assert got["port"] == {k: v for k, v in got["reference"].items()
+                           if int(k[1:]) in PRESET["seeds"]}
+    # the band needs 200 episodes: 120 are incomplete
+    assert judge(port, tmp_path)["verdict"] == "incomplete"
+
+
+def test_judge_fallback_and_incomplete():
+    """The band rules' edges: exactly 3 seeds not converged calls seeds
+    108-111, whose 16 seeds then decide; a short seed is incomplete."""
+    ok = {"complete": True, "converged": True, "last50_reward": 690.0}
+    low = {"complete": True, "converged": False, "last50_reward": 520.0}
+    seeds, fallback = PRESET["seeds"], PRESET["fallback"]
+    stats = {s: dict(ok) for s in seeds}
+    for s in seeds[:3]:
+        stats[s] = dict(low)
+    assert band.verdict(stats, seeds, fallback) == "fallback"
+    stats.update({s: dict(ok) for s in fallback})
+    assert band.verdict(stats, seeds, fallback) == "pass"
+    stats[fallback[0]] = dict(low)
+    assert band.verdict(stats, seeds, fallback) == "fail"
+    stats = {s: dict(ok) for s in seeds}
+    stats[seeds[0]] = {**ok, "complete": False, "converged": False}
+    assert band.verdict(stats, seeds, fallback) == "incomplete"
+
+
+def run(tmp_path, name, *args, check=True):
+    out = subprocess.run(
+        [sys.executable, str(SCRIPT), "run", "--cpu", "--seeds", "7",
+         "--out", str(tmp_path / name / "out"),
+         "--work", str(tmp_path / name / "work")] + list(args),
+        capture_output=True, text=True, timeout=300)
+    if check:
+        assert out.returncode == 0, out.stdout + out.stderr
+    return out
+
+
+def kept(tmp_path, name):
+    seed = tmp_path / name / "work" / "s7"
+    state = json.loads((seed / "state.json").read_text())
+    progress = (tmp_path / name / "out" / "s7" / "progress.txt")
+    return state, progress.read_text(), seed / state["checkpoint"]
+
+
+def same_checkpoint(a, b):
+    with np.load(a) as za, np.load(b) as zb:
+        assert sorted(za.files) == sorted(zb.files)
+        for k in za.files:
+            np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def uncut(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("uncut")
+    run(tmp, "uncut", "--episodes", "3", "--chunk", "3")
+    return kept(tmp, "uncut") + (tmp / "uncut" / "out" / "s7",)
+
+
+def test_run_chunked_equals_uncut(tmp_path, uncut):
+    run(tmp_path, "chunked", "--episodes", "1", "--chunk", "1")
+    state, rows, _ = kept(tmp_path, "chunked")
+    assert len(state["rows"]) == 1
+    run(tmp_path, "chunked", "--episodes", "3", "--chunk", "2")
+    state, rows, ckpt = kept(tmp_path, "chunked")
+    assert [c["episodes"] for c in state["chunks"]] == [[0, 0], [1, 2]]
+    assert rows == uncut[1]
+    assert len(rows.splitlines()) == 4
+    same_checkpoint(ckpt, uncut[2])
+    info = json.loads((tmp_path / "chunked" / "out" / "s7" /
+                       "run.json").read_text())
+    assert info["episodes"] == 3 and info["cards"] == ["cpu"]
+    assert info["env_steps"] == uncut[0]["env_steps"]
+
+
+def test_run_cut_chunk_then_continued(tmp_path, uncut):
+    run(tmp_path, "cut", "--episodes", "1", "--chunk", "1")
+    chunk = tmp_path / "cut" / "work" / "s7" / "chunk"
+    proc = subprocess.Popen(
+        [sys.executable, str(SCRIPT), "run", "--cpu", "--seeds", "7",
+         "--episodes", "3", "--chunk", "2",
+         "--out", str(tmp_path / "cut" / "out"),
+         "--work", str(tmp_path / "cut" / "work")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.monotonic()
+    # the chunk of episodes 1-2 has written episode 1's row
+    while time.monotonic() - t0 < 240 and proc.poll() is None:
+        rows = [len(p.read_text().splitlines())
+                for p in chunk.glob("*-run*/*/*_s7/progress.txt")]
+        if rows and max(rows) >= 2:
+            break
+        time.sleep(0.005)
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=120)
+    assert proc.returncode == 3, out
+    state, rows, _ = kept(tmp_path, "cut")
+    # nothing past episode 0's checkpoint is kept
+    assert len(state["rows"]) == 1 and len(rows.splitlines()) == 2
+    assert not chunk.exists()
+    assert rows.splitlines() == uncut[1].splitlines()[:2]
+    run(tmp_path, "cut", "--episodes", "3", "--chunk", "2")
+    state, rows, ckpt = kept(tmp_path, "cut")
+    assert rows == uncut[1]
+    same_checkpoint(ckpt, uncut[2])
+    calls = json.loads((tmp_path / "cut" / "work" / "calls.json").read_text())
+    assert [len(c["cut"]) for c in calls] == [0, 1, 0]
+
+
+def test_seed_without_work_state(tmp_path, uncut):
+    """A seed whose work directory is gone (it is not committed) is done
+    when its kept files hold every episode, and otherwise starts from
+    episode 0, its partial files removed."""
+    out = tmp_path / "out"
+    shutil.copytree(uncut[3], out / "s7")
+    got = run(tmp_path, "", "--episodes", "3", "--out", str(out),
+              "--work", str(tmp_path / "work"))
+    assert "0 of 1 seeds to train" in got.stdout
+    assert (out / "s7" / "progress.txt").read_text() == uncut[1]
+    assert json.loads((out / "s7" / "run.json").read_text())["episodes"] == 3
+    seed = band.Seed(7, str(tmp_path / "work4"), str(out), 4)
+    assert seed.done == 0 and not (out / "s7").exists()
+
+
+def test_carry_keeps_what_fits(tmp_path):
+    """``--carry_mb``: finished seeds drop their checkpoints; unfinished
+    ones keep theirs, the furthest first, while they fit; the rest start
+    afresh, their kept rows removed."""
+    import argparse
+
+    work, out = str(tmp_path / "work"), str(tmp_path / "out")
+    seeds = []
+    for seed, done, steps, mib in ((1, 5, 500, 2.0), (2, 3, 300, 2.0),
+                                   (3, 5, 900, 0.5), (4, 8, 1000, 3.0)):
+        s = band.Seed(seed, work, out, 8)
+        s.state.update(header="Episode", rows=[str(i) for i in range(done)],
+                       env_steps=steps, checkpoint=f"checkpoint_ep{done}.npz")
+        Path(s.checkpoint()).write_bytes(b"\0" * int(mib * 2 ** 20))
+        s.save_state()
+        s.write_out()
+        seeds.append(s)
+    band.carry(seeds, argparse.Namespace(episodes=8, carry_mb=3))
+    again = {s: band.Seed(s, work, out, 8) for s in (1, 2, 3, 4)}
+    assert [again[s].done for s in (1, 2, 3, 4)] == [5, 0, 5, 8]
+    assert again[4].checkpoint() is None
+    assert all(Path(again[s].checkpoint()).exists() for s in (1, 3))
+    assert not (tmp_path / "out" / "s2").exists()
+    assert (tmp_path / "out" / "s4" / "progress.txt").exists()
+
+
+def test_script_imports_no_jax():
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('b', {str(SCRIPT)!r})\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            "bad = [k for k in sys.modules if k == 'jax' or "
+            "k.startswith(('jax.', 'jaxlib', 'nlbac_tpu'))]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_run_without_card_raises(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    out = subprocess.run(
+        [sys.executable, str(SCRIPT), "run", "--seeds", "7",
+         "--out", str(tmp_path / "out"), "--work", str(tmp_path / "work")],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not (tmp_path / "out").exists()
+    assert not (tmp_path / "work").exists()
+
+
+def test_committed_band_verdict_matches_perf(tmp_path):
+    port = ROOT / "results" / "torch_band" / "unicycle"
+    stated = re.findall(r"band verdict: \*\*(\w+)\*\*",
+                        (ROOT / "PERF.md").read_text())
+    assert stated, "PERF.md states no band verdict"
+    got = judge(port, tmp_path)
+    assert got["verdict"] == stated[-1]
+    committed = json.loads((port / "judge.json").read_text())
+    assert committed["verdict"] == got["verdict"]
+    assert committed["port"] == got["port"]
