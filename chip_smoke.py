@@ -173,8 +173,8 @@ Phases, one line each (any failure raises and exits nonzero):
    (UPDATE_RTOL/UPDATE_ATOL);
 25. the band's script (``scripts/band_torch.py run``, one CLI process
    a seed, chunks that resume): BAND_SEEDS unicycle seeds at full width
-   in chunks of 1 episode of EPISODE_STEPS steps (``--start_steps``
-   EPISODE_STEPS) to BAND_EPISODES episodes, beside seed SEED's uncut
+   in chunks of 1 episode of BAND_STEPS steps (``--start_steps``
+   BAND_STEPS) to BAND_EPISODES episodes, beside seed SEED's uncut
    run of BAND_EPISODES episodes in a process of its own: seed SEED's
    chunked progress.txt and final checkpoint against the uncut run's,
    bit for bit; then ``band_torch.py judge`` on the chunked seeds (its
@@ -325,11 +325,16 @@ PROFILE_RUN = (2, 70)
 CUSTOM_RUN = (2, 150)
 OUT = Path("chiprun_out") / "chip_smoke"
 # The band's script (phase 25): seeds, episodes (one a chunk) and the CLI
-# flags of its processes (the main path's depth and warm-up).
+# flags of its processes: episodes of BAND_STEPS steps, the first of them
+# warm-up, so that the resumed chunk updates from its 59th step (the
+# replay then holds a batch of 128 rows; its first update fits the
+# NODE). The phase's cost is its fresh CLI processes (15-25 s each),
+# so its depth is cut from 2 seeds of 300 steps an episode (about 110 s
+# alone) to 1 seed of 100 steps (about 62 s on an H100 with a slow host)
+# and then to 70 steps, to hold it within a minute; the widths stay the preset's.
 BAND = Path("chiprun_out") / "band_smoke"
-BAND_SEEDS, BAND_EPISODES = 2, 2
-BAND_CLI_ARGS = (f"--max_episode_steps {EPISODE_STEPS} --start_steps "
-                 f"{EPISODE_STEPS}")
+BAND_SEEDS, BAND_EPISODES, BAND_STEPS = 1, 2, 70
+BAND_CLI_ARGS = f"--max_episode_steps {BAND_STEPS} --start_steps {BAND_STEPS}"
 SEED = 0
 SWEEP_ROWS = (128, 512, 2048, 4096, 8448, 32768)
 HOST_CALLS = 1000
@@ -350,8 +355,10 @@ SEEDS = 4
 # moment leaf's relative gap (its 2-norm over one rank's) within the
 # state's rtol (a dp gradient off by a constant factor passes Adam's
 # normalised step, not its moments), and the last update's losses within
-# GANG_METRIC_RTOL.
-GANG_STEPS = 140
+# GANG_METRIC_RTOL. The episode is cut from 140 steps (22 updates, 3 NODE
+# fits) to 135 (12 updates, 2 fits: a fit after updates, whose Adam
+# moments the check reads, is still in it) to shorten phase 16.
+GANG_STEPS = 135
 GANG_TIMEOUT = 300
 GANG_REWARD_RTOL, GANG_REWARD_ATOL = 2e-4, 1e-4
 GANG_STATE_RTOL, GANG_STATE_ATOL = 2e-3, 5e-4
@@ -365,8 +372,10 @@ DP_ROWS = (64, 32, 16384, 8192)
 # The dopri5 gangs (dp=2 and tp=2 on one card over gloo): per form, one
 # unicycle episode of DOPRI5_GANG_STEPS steps from seed SEED's state, the
 # policy acting from the first update block (step 130), whose first
-# update fits the NODE on the full 32768 rows (16384 per dp rank): 4
-# updates in all, each timed alone. Against one rank: the reward and the
+# update fits the NODE on the full 32768 rows (16384 per dp rank): 2
+# updates in all (the fit and one other), each timed alone; cut from 131
+# steps (4 updates) to shorten phase 17: the updates after the fit leave
+# the NODE as the fit left it, so the NODE's check reads the same fit. Against one rank: the reward and the
 # state at the gangs' tolerances above, but the NODE's parameters and Adam
 # moments, which hold the fit's gradient through the adaptive solve:
 # within DOPRI5_GANG_NODE_FRAC of each leaf's largest entry (the float32
@@ -380,7 +389,7 @@ DP_ROWS = (64, 32, 16384, 8192)
 # from one rank's by more than a leaf's largest entry, as the one-ulp run
 # does. NOISE_FACTOR leaves room for the spread of a largest gap over the
 # NODE's leaves between two such draws.
-DOPRI5_GANG_STEPS = 131
+DOPRI5_GANG_STEPS = 130
 DOPRI5_IMPLS = ("while", "scan")
 DOPRI5_GANG_NODE_FRAC = {"while": 2e-2, "scan": 1.5e-1}
 NOISE_FACTOR = 4

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from nlbac_tpu_torch import resolve_device
+
 # How long a gang's rendezvous and each collective may wait for a peer.
 DEFAULT_TIMEOUT = timedelta(minutes=30)
 
@@ -274,14 +276,16 @@ def init_distributed(coordinator: Optional[str] = None,
                      timeout: timedelta = DEFAULT_TIMEOUT) -> None:
     """Join the gang of ``num_processes`` ranks at ``tcp://<coordinator>``
     (``host:port``) as rank ``process_id`` (a no-op for one process).
-    ``backend`` defaults to NCCL for a CUDA ``device`` and gloo for the
-    CPU; ranks that share a card must pass ``backend='gloo'``."""
+    ``device`` defaults to the card (raising without one); the CPU is
+    taken only when named. ``backend`` defaults to NCCL for a CUDA
+    ``device`` and gloo for the CPU; ranks that share a card must pass
+    ``backend='gloo'``."""
     if not num_processes or num_processes <= 1:
         return
     if coordinator is None or process_id is None:
         raise ValueError("a gang of more than one process needs the "
                          "coordinator's host:port and this process's id")
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device("cuda" if device is None else device)
     backend = backend or default_backend(device)
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend {backend!r} (nccl | gloo)")

@@ -3,12 +3,14 @@
 over the preset's whole budget, judged against the JAX package's recorded
 seeds.
 
-    python3 scripts/band_torch.py run [--per_card 3] [--chunk 25]
-        [--seeds S ...] [--time_limit SECONDS] [--cpu]
-    python3 scripts/band_torch.py judge [--port DIR] [--episodes N]
+    python3 scripts/band_torch.py run [--preset P] [--per_card 3]
+        [--chunk 25] [--seeds S ...] [--time_limit SECONDS] [--cpu]
+    python3 scripts/band_torch.py judge [--preset P] [--port DIR]
+        [--episodes N]
+    python3 scripts/band_torch.py rules
 
 ``run`` trains each seed as its own ``python -m nlbac_tpu_torch.train.cli
---preset unicycle --seed S --quiet`` process at the preset's defaults
+--preset P --seed S --quiet`` process at the preset's defaults
 (full widths, its episodes, steps and warm-up), at most ``--per_card``
 processes a card over every card present, each pinned to its card by
 ``CUDA_VISIBLE_DEVICES``. A seed trains in chunks of ``--chunk`` episodes:
@@ -23,7 +25,10 @@ that is cut (``--time_limit``, SIGTERM, a failed process) leaves no row,
 and a later ``run`` continues every seed from its last kept checkpoint,
 which lives under ``--work`` with the chunks' own run directories (a
 seed with no work state is done when its ``--out`` files hold every
-episode, and starts from episode 0 otherwise). Without
+episode, and starts from episode 0 otherwise: its partial rows are then
+read against the rerun's, and ``run.json``'s ``rerun`` gives the first
+episode whose row differs, or null). Under ``--time_limit`` each chunk is
+shortened to end before it. Without
 a card it raises unless ``--cpu`` is given; ``--cpu`` trains at tiny
 widths and only checks the script.
 
@@ -31,18 +36,50 @@ widths and only checks the script.
 prints a row per seed (last-50 reward, goals in the last 50, episodes with
 ``safety_cost_train > 0`` in the last 100, first episode with a goal, env
 steps; ``scripts/r9_analyze.py``'s definitions), the verdict of the band
-rules below and a two-sided Mann-Whitney U test of the last-50 rewards,
-port against reference (reported, not a gate), and writes ``judge.json``
-under ``--port``. ``--episodes N`` takes every seed's first N episodes,
-both sides, for a reading before the budget ends (not the band).
+rules below and two-sided Mann-Whitney U tests of the last-50 rewards
+and of the violation episodes in the last 100, port against reference
+(reported, not gates), and writes ``judge.json`` under ``--port`` (each
+seed's figures there also give its violation episodes in each 50, its
+safety cost over the last 100 and the multipliers ``rho`` and
+``lam_max`` there). ``--episodes N`` takes every seed's first N
+episodes, both sides, for a reading before the budget ends (not the
+band).
 
-Band rules, from the reference's 16 unicycle seeds: a seed is converged
-with a last-50 reward >= 640, >= 49/50 goals in the last 50 and <= 5
-violation episodes in the last 100 (15 of the 16 are; s12345 is not). The
-port passes with >= 10 of its 12 seeds converged and a median last-50
-reward >= 684. With exactly 3 seeds not converged, seeds 108-111 are run
-too, and the port then passes with >= 13 of 16 converged and a median
->= 684.
+Band rules (``PRESETS[p]["rules"]``), each from the preset's 16 recorded
+reference seeds (12345-12348 and 100-111). A seed is converged when it
+meets the preset's limits; a statistic on which converged reference seeds
+reach 100 violation episodes is left out, and cars has no goal. Each
+limit sits at the lowest converged reference seed's figure, its reward
+rounded down to a multiple of 10 (as unicycle's 640 sits under s111's
+649.1):
+
+- unicycle: last-50 reward >= 640, >= 49/50 goals in the last 50 and <= 5
+  violation episodes in the last 100 (15 of 16; s12345 is not);
+- cars: last-50 reward >= 80 (16 of 16, the lowest s12348's 81.3; stable
+  seeds spread over 0-83 violation episodes, so no count is held);
+- pvtol: last-50 reward >= 1490 and 50/50 goals (15 of 16, the lowest
+  1496.8; s105, which never took off, is not);
+- nbc_unicycle: last-50 reward >= 490 and >= 49/50 goals (16 of 16, the
+  lowest 499.4 and 49);
+- nbc_pvtol: last-50 reward >= 1390 and >= 47/50 goals (15 of 16, the
+  lowest s103's 1395.6 and 47; s104 is not).
+
+The port passes with >= 10 of its 12 seeds converged and a median last-50
+reward >= the preset's floor: unicycle 684, cars 130, pvtol 1498.1,
+nbc_unicycle 659, nbc_pvtol 1497. With exactly 3 seeds not converged,
+seeds 108-111 are run too, and the port then passes with >= 13 of 16
+converged and the same median floor. Each floor other than unicycle's
+(kept as first set) is the highest at which 12 seeds drawn with replacement
+from the reference's 16 (and 4 more for the fallback) miss the pass
+under 4.5% of the time (the next step up of the median of 12 draws
+misses 4.9-5.0%); ``rules`` (20000 draws, seed 0) gives unicycle 1.785%,
+cars 4.025%, pvtol 2.775%, nbc_unicycle 3.335%, nbc_pvtol 2.810%. Cars'
+last-50 rewards have two modes (about 150 and about 230) and a low tail
+of four seeds at 81-117; a median of 12 draws under 130 needs about half
+of them from that tail. The reference's own 12 band seeds, every last-50 reward lowered by
+the same amount, stop passing at a drop of: unicycle 8.01, cars 19.41,
+pvtol 0.45, nbc_unicycle 22.83, nbc_pvtol 1.56 (``rules``; the median
+floor binds first in each).
 
 This script imports neither JAX nor the JAX package; it reaches the port
 only through the CLI's processes.
@@ -66,31 +103,85 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# preset -> its budget, the band's seeds (the r9 seed numbers; the port's
-# Philox streams differ from the reference's threefry ones, so the numbers
-# match only by convention), the fallback seeds and the reference's
-# recorded seed directories (each holds s<seed>/progress.txt)
+BAND_SEEDS = (12345, 12346, 12347, 12348) + tuple(range(100, 108))
+FALLBACK_SEEDS = (108, 109, 110, 111)
+
+# r9_analyze.py's windows: last-50 reward and goals, violation episodes
+# (safety_cost_train > 0) in the last 100
+LAST_REWARD, LAST_GOALS, LAST_VIOLATIONS = 50, 50, 100
+# a converged seed's statistics and the way each is held to its limit
+CONVERGED_CHECKS = {"last50_reward": ">=", "goals_last50": ">=",
+                    "violation_episodes_last100": "<="}
+# the bootstrap of the pass rules: draws of 16 seeds and the draws' seed
+DRAWS, DRAW_SEED = 20000, 0
+# the resolution of the smallest uniform reward drop that fails a band
+DROP_STEP = 0.01
+# the episodes of a window of judge.json's violation episodes by window;
+# the multipliers' columns (the JAX CLI's later runs write them)
+WINDOW = 50
+MULTIPLIERS = ("rho", "lam_max")
+
+
+def _rules(converged, pass_median, pass_converged=10, fallback_at=3,
+           fallback_converged=13):
+    """A preset's band rules: ``converged`` maps statistics of
+    CONVERGED_CHECKS to their limits (a statistic left out is not held);
+    the port passes with >= ``pass_converged`` of its 12 seeds converged
+    and a median last-50 reward >= ``pass_median``; with exactly
+    ``fallback_at`` seeds not converged the fallback seeds are run too,
+    and then >= ``fallback_converged`` of 16 and the median decide."""
+    return {"converged": converged, "pass_median": pass_median,
+            "pass_converged": pass_converged, "fallback_at": fallback_at,
+            "fallback_converged": fallback_converged}
+
+
+def _ref(preset, run):
+    return (f"results/r9/seeds/{preset}/{run}-run1",
+            f"results/r9/{preset}_8seed/{run}-run1",
+            f"results/r10/{preset}_seeds")
+
+
+# preset -> its budget (nlbac_tpu_torch/config.py), the band's seeds (the
+# r9 seed numbers; the port's Philox streams differ from the reference's
+# threefry ones, so the numbers match only by convention), the fallback
+# seeds, the reference's recorded seed directories (each holds
+# s<seed>/progress.txt) and the band rules (see the module docstring)
 PRESETS = {
     "unicycle": {
-        "episodes": 200,
-        "seeds": (12345, 12346, 12347, 12348) + tuple(range(100, 108)),
-        "fallback": (108, 109, 110, 111),
-        "ref": ("results/r9/seeds/unicycle/unicycle-run1",
-                "results/r9/unicycle_8seed/unicycle-run1",
-                "results/r10/unicycle_seeds"),
+        "episodes": 200, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "ref": _ref("unicycle", "unicycle"),
+        "rules": _rules({"last50_reward": 640.0, "goals_last50": 49,
+                         "violation_episodes_last100": 5}, 684.0),
+    },
+    "cars": {
+        "episodes": 200, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "ref": _ref("cars", "cars"),
+        "rules": _rules({"last50_reward": 80.0}, 130.0),
+    },
+    "pvtol": {
+        "episodes": 400, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "ref": _ref("pvtol", "pvtol"),
+        "rules": _rules({"last50_reward": 1490.0, "goals_last50": 50},
+                        1498.1),
+    },
+    "nbc_unicycle": {
+        "episodes": 200, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "ref": _ref("nbc_unicycle", "unicycle"),
+        "rules": _rules({"last50_reward": 490.0, "goals_last50": 49},
+                        659.0),
+    },
+    "nbc_pvtol": {
+        "episodes": 210, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "ref": _ref("nbc_pvtol", "pvtol"),
+        "rules": _rules({"last50_reward": 1390.0, "goals_last50": 47},
+                        1497.0),
     },
 }
+# the default preset's pass median (unicycle's)
+PASS_MEDIAN = PRESETS["unicycle"]["rules"]["pass_median"]
 # --cpu: tiny widths, a check of the script and not a band
 CPU_ARGS = ("--cpu", "--hidden_size", "16", "--max_episode_steps", "40",
             "--batch_size", "8", "--start_steps", "10")
-
-# the band rules (see the module docstring)
-LAST_REWARD, LAST_GOALS, LAST_VIOLATIONS = 50, 50, 100
-CONVERGED_REWARD, CONVERGED_GOALS, CONVERGED_VIOLATIONS = 640.0, 49, 5
-PASS_MEDIAN = 684.0
-PASS_CONVERGED = 10          # of the 12 seeds
-FALLBACK_AT = 3              # seeds not converged that call the fallback
-FALLBACK_CONVERGED = 13      # of the 16 seeds
 
 # OMP_NUM_THREADS of each CLI process: its card's work is issued by one
 # Python thread, and several processes share the host's cores, which
@@ -119,6 +210,19 @@ def _write_atomic(path, text):
     with open(tmp, "w") as f:
         f.write(text)
     os.replace(tmp, path)
+
+
+def cards_present():
+    """The indices of the cards ``nvidia-smi`` lists (none without a card
+    or a driver); the parent process needs no CUDA context of its own."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=index",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    return [int(i) for i in out.stdout.split()] if out.returncode == 0 \
+        else []
 
 
 def card_line(index):
@@ -167,6 +271,12 @@ class Seed:
             return
         header, rows, cols = read_progress(kept)
         if len(rows) < episodes:
+            # a rerun from episode 0: its rows are read against these
+            self.state["earlier"] = {"header": header, "rows": rows}
+            self.state["rerun"] = {"earlier_episodes": len(rows),
+                                   "compared_episodes": 0,
+                                   "first_differing_episode": None}
+            self.save_state()
             shutil.rmtree(self.out)
             return
         with open(os.path.join(self.out, "run.json")) as f:
@@ -214,6 +324,7 @@ class Seed:
                "train_env_steps_per_s": (
                    round(self.state["env_steps"] / train_s, 3)
                    if train_s else None),
+               "rerun": self.state.get("rerun"),
                "cards": sorted({c["card"] for c in chunks}),
                "processes_per_card": sorted({c["processes_per_card"]
                                              for c in chunks}),
@@ -222,12 +333,20 @@ class Seed:
                       json.dumps(run, indent=1) + "\n")
 
     def commit(self, header, rows, checkpoint, steps, record):
-        """Keep a completed chunk: its checkpoint, then the state (the
-        commit point), then the files under ``--out``."""
+        """Keep a completed chunk: its checkpoint (deflated: its replay
+        rows shrink to about 57%, so that more unfinished seeds fit what a
+        later call is handed; ``np.load`` and ``--resume`` read it as
+        before), then the state (the commit point), then the files under
+        ``--out``."""
         name = f"checkpoint_ep{self.done + len(rows)}.npz"
-        os.replace(checkpoint, os.path.join(self.work, name))
+        tmp = os.path.join(self.work, f"tmp{os.getpid()}_{name}")
+        with np.load(checkpoint, allow_pickle=False) as z:
+            np.savez_compressed(tmp, **{k: z[k] for k in z.files})
+        os.replace(tmp, os.path.join(self.work, name))
+        os.remove(checkpoint)
         old = self.checkpoint()
         self.state["header"] = self.state["header"] or header
+        self.compare_earlier(header, rows)
         self.state["rows"] += rows
         self.state["checkpoint"] = name
         self.state["env_steps"] += steps
@@ -236,6 +355,27 @@ class Seed:
         if old is not None and os.path.exists(old):
             os.remove(old)
         self.write_out()
+
+    def compare_earlier(self, header, rows):
+        """Read a rerun's new rows against the earlier run's rows of the
+        same episodes (the same ``%.6g`` text fields) and keep the first
+        episode where they differ (None while they agree)."""
+        earlier, rerun = self.state.get("earlier"), self.state.get("rerun")
+        if earlier is None:
+            return
+        old = earlier["rows"][self.done:self.done + len(rows)]
+        if earlier["header"] != header:
+            first = self.done if old else None
+        else:
+            first = next((self.done + i for i, (a, b) in
+                          enumerate(zip(rows, old))
+                          if a.split("\t") != b.split("\t")), None)
+        known = rerun["first_differing_episode"]
+        if first is not None and (known is None or first < known):
+            rerun["first_differing_episode"] = first
+        if old:
+            rerun["compared_episodes"] = max(rerun["compared_episodes"],
+                                             self.done + len(old))
 
     def save_state(self):
         _write_atomic(self.state_path, json.dumps(self.state) + "\n")
@@ -268,6 +408,19 @@ class Runner:
         return self.stop.is_set() or (
             self.deadline is not None and time.monotonic() > self.deadline)
 
+    def fit(self, seed, start, end):
+        """Under a time limit, shorten the chunk so that it ends before
+        the deadline at the seed's last chunk's seconds an episode (with
+        a quarter to spare) and its start-up; at least one episode."""
+        last = seed.state["chunks"][-1] if seed.state["chunks"] else None
+        if self.deadline is None or not last or last["train_seconds"] <= 0:
+            return end
+        n = last["episodes"][1] - last["episodes"][0] + 1
+        per_episode = 1.25 * last["train_seconds"] / n
+        left = (self.deadline - time.monotonic()
+                - (last["seconds"] - last["train_seconds"]))
+        return start + max(1, min(end - start, int(left / per_episode)))
+
     def command(self, seed, end):
         cmd = [sys.executable, "-m", "nlbac_tpu_torch.train.cli",
                "--preset", self.args.preset, "--seed", str(seed.seed),
@@ -284,6 +437,7 @@ class Runner:
         when the chunk was kept."""
         start, end = seed.done, min(seed.done + self.args.chunk,
                                     self.args.episodes)
+        end = self.fit(seed, start, end)
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
             OMP_NUM_THREADS=str(THREADS))
@@ -385,19 +539,20 @@ class Runner:
 def cmd_run(args):
     preset = PRESETS[args.preset]
     args.episodes = args.episodes or preset["episodes"]
+    args.out = args.out or results_dir(args.preset)
+    args.work = args.work or os.path.join(ROOT, "band_work", args.preset)
     seeds = args.seeds or list(preset["seeds"])
     if args.cpu:
         cards = [None]
         names = {None: "cpu"}
     else:
-        import torch  # the card check only; the CLI processes train
-
-        if not torch.cuda.is_available():
+        present = cards_present()
+        if not present:
             raise SystemExit("band_torch.py run: no CUDA device (pass --cpu "
                              "to check the script at tiny widths)")
         visible = os.environ.get("CUDA_VISIBLE_DEVICES")
         cards = ([int(c) for c in visible.split(",") if c.strip()]
-                 if visible else list(range(torch.cuda.device_count())))
+                 if visible else present)
         names = {c: card_line(c) for c in cards}
     args.out, args.work = os.path.abspath(args.out), os.path.abspath(
         args.work)
@@ -456,19 +611,32 @@ def cmd_run(args):
     return 3 if left else 0
 
 
+def tree_bytes(path, skip=()):
+    """The bytes of the files under ``path``, those in ``skip`` left out."""
+    skip = {os.path.abspath(p) for p in skip}
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files
+               if os.path.abspath(os.path.join(d, f)) not in skip)
+
+
 def carry(band, args):
     """Drop finished seeds' checkpoints; keep the checkpoints of unfinished
-    seeds, the furthest first, while they sum to at most ``--carry_mb``,
-    and start the others afresh (their work and kept rows removed), so
-    that what a later call must be handed stays within that size."""
+    seeds, those with the fewest episodes left first (a dropped seed
+    starts again from episode 0, whatever it has spent), while they and
+    every other file under ``--carry_dir`` (if given; measured now) sum to
+    at most ``--carry_mb``, and start the others afresh (their work and
+    kept rows removed), so that what a later call must be handed stays
+    within that size."""
     for seed in band:
         if seed.done >= args.episodes and seed.checkpoint() is not None:
             os.remove(seed.checkpoint())
             seed.state["checkpoint"] = None
             seed.save_state()
-    budget = args.carry_mb * 2 ** 20
     short = sorted((s for s in band if 0 < s.done < args.episodes),
-                   key=lambda s: -s.state["env_steps"])
+                   key=lambda s: (-s.done, -s.state["env_steps"]))
+    budget = args.carry_mb * 2 ** 20
+    if getattr(args, "carry_dir", None):
+        budget -= tree_bytes(args.carry_dir, [s.checkpoint() for s in short])
     for seed in short:
         size = os.path.getsize(seed.checkpoint())
         if size <= budget:
@@ -479,37 +647,59 @@ def carry(band, args):
               flush=True)
         shutil.rmtree(seed.work)
         shutil.rmtree(seed.out, ignore_errors=True)
+        os.makedirs(seed.work)
+        # the next rerun is read against the same earlier rows, and the
+        # reading so far is kept
         seed.state = {"seed": seed.seed, "header": None, "rows": [],
-                      "checkpoint": None, "env_steps": 0, "chunks": []}
+                      "checkpoint": None, "env_steps": 0, "chunks": [],
+                      **{k: seed.state[k] for k in ("earlier", "rerun")
+                         if k in seed.state}}
+        seed.save_state()
 
 
 # ---------------------------------------------------------------- judge
 
 
-def seed_stats(path, episodes):
+def seed_stats(path, episodes, rules=None):
     """r9_analyze.py's figures of one seed's progress.txt over its first
-    ``episodes`` episodes."""
+    ``episodes`` episodes, and whether it is converged under ``rules``
+    (default: unicycle's); beside them, not in the rules: the violation
+    episodes in each WINDOW episodes, the safety cost summed over the last
+    100 and the multipliers' means over the last 100 (None where the file
+    has no such column)."""
     _, _, c = read_progress(path)
     c = {k: v[:episodes] for k, v in c.items()}
     goals = c["goal_met"]
     hit = np.nonzero(goals > 0)[0]
+    violated = c["safety_cost_train"] > 0
     stats = {
         "episodes": int(len(c["Episode"])),
         "last50_reward": float(c["reward_train"][-LAST_REWARD:].mean()),
         "goals_last50": int(goals[-LAST_GOALS:].sum()),
         "violation_episodes_last100": int(
-            (c["safety_cost_train"][-LAST_VIOLATIONS:] > 0).sum()),
+            violated[-LAST_VIOLATIONS:].sum()),
         "first_goal_episode": (int(c["Episode"][hit[0]]) if len(hit)
                                else None),
         "env_steps": int(c["episode_steps"].sum()),
+        "violation_episodes_by_window": [
+            int(violated[i:i + WINDOW].sum())
+            for i in range(0, len(violated), WINDOW)],
+        "safety_cost_last100": float(
+            c["safety_cost_train"][-LAST_VIOLATIONS:].sum()),
+        "multipliers_last100": {
+            k: (float(c[k][-LAST_VIOLATIONS:].mean()) if k in c else None)
+            for k in MULTIPLIERS},
     }
     stats["complete"] = stats["episodes"] >= episodes
-    stats["converged"] = bool(
-        stats["complete"]
-        and stats["last50_reward"] >= CONVERGED_REWARD
-        and stats["goals_last50"] >= CONVERGED_GOALS
-        and stats["violation_episodes_last100"] <= CONVERGED_VIOLATIONS)
+    stats["converged"] = stats["complete"] and converged(stats, rules)
     return stats
+
+
+def converged(stats, rules=None):
+    """Whether a seed's statistics meet ``rules``' converged limits."""
+    limits = (rules or PRESETS["unicycle"]["rules"])["converged"]
+    return all(stats[k] >= v if CONVERGED_CHECKS[k] == ">=" else
+               stats[k] <= v for k, v in limits.items())
 
 
 def find_seeds(dirs):
@@ -523,35 +713,98 @@ def find_seeds(dirs):
     return found
 
 
-def verdict(stats, seeds, fallback):
-    """The band rules over the port's seeds: ``pass``, ``fail``,
-    ``incomplete`` (a band seed short of its episodes) or ``fallback``
-    (exactly FALLBACK_AT seeds not converged and seeds 108-111 not yet
-    complete)."""
+def verdict(stats, seeds, fallback, rules=None):
+    """The band rules (default: unicycle's) over the port's seeds:
+    ``pass``, ``fail``, ``incomplete`` (a band seed short of its episodes)
+    or ``fallback`` (exactly ``fallback_at`` seeds not converged and the
+    fallback seeds not yet complete)."""
+    rules = rules or PRESETS["unicycle"]["rules"]
     main = [stats.get(s) for s in seeds]
     if any(s is None or not s["complete"] for s in main):
         return "incomplete"
     missed = sum(not s["converged"] for s in main)
-    need, group = PASS_CONVERGED, main
-    if missed == FALLBACK_AT:
+    need, group = rules["pass_converged"], main
+    if missed == rules["fallback_at"]:
         extra = [stats.get(s) for s in fallback]
         if any(s is None or not s["complete"] for s in extra):
             return "fallback"
-        group, need = main + extra, FALLBACK_CONVERGED
-    converged = sum(s["converged"] for s in group)
+        group, need = main + extra, rules["fallback_converged"]
+    n = sum(s["converged"] for s in group)
     median = float(np.median([s["last50_reward"] for s in group]))
-    return "pass" if converged >= need and median >= PASS_MEDIAN else "fail"
+    return ("pass" if n >= need and median >= rules["pass_median"]
+            else "fail")
+
+
+def reference_stats(name, episodes=None):
+    """{seed: seed_stats} of a preset's recorded reference seeds."""
+    preset = PRESETS[name]
+    episodes = episodes or preset["episodes"]
+    return {s: seed_stats(p, episodes, preset["rules"]) for s, p in
+            find_seeds([os.path.join(ROOT, d) for d in preset["ref"]]).items()}
+
+
+def bootstrap_miss(name):
+    """How often a port drawn from the reference misses the pass: each of
+    DRAWS draws takes 16 of the preset's recorded seeds with replacement,
+    the first 12 as the band and the last 4 as the fallback, and judges
+    them by the preset's rules."""
+    preset = PRESETS[name]
+    ref = list(reference_stats(name).values())
+    seeds, fallback = preset["seeds"], preset["fallback"]
+    order = list(seeds) + list(fallback)
+    rng = np.random.default_rng(DRAW_SEED)
+    picks = rng.integers(0, len(ref), (DRAWS, len(order)))
+    missed = sum(verdict(dict(zip(order, (ref[i] for i in row))), seeds,
+                         fallback, preset["rules"]) != "pass"
+                 for row in picks)
+    return missed / DRAWS
+
+
+def smallest_failing_drop(name):
+    """The smallest drop (a multiple of DROP_STEP) of every last-50 reward
+    at which the reference's own 12 band seeds, judged as the port, no
+    longer pass."""
+    preset = PRESETS[name]
+    ref = reference_stats(name)
+    band = {s: ref[s] for s in preset["seeds"]}
+    for k in range(1, 10 ** 7):
+        drop = round(k * DROP_STEP, 10)
+        low = {}
+        for s, st in band.items():
+            st = dict(st, last50_reward=st["last50_reward"] - drop)
+            st["converged"] = converged(st, preset["rules"])
+            low[s] = st
+        if verdict(low, preset["seeds"], preset["fallback"],
+                   preset["rules"]) != "pass":
+            return drop
+    raise ValueError(f"{name}: no drop fails the band")
+
+
+def rules_record(preset):
+    """The rules a judge.json records."""
+    r, n, m = (preset["rules"], len(preset["seeds"]),
+               len(preset["seeds"]) + len(preset["fallback"]))
+    return {"converged": dict(r["converged"]),
+            "pass": {"converged": f"{r['pass_converged']} of {n}",
+                     "median_last50_reward": r["pass_median"],
+                     "fallback_at": r["fallback_at"],
+                     "fallback_converged":
+                         f"{r['fallback_converged']} of {m}"}}
+
+
+def results_dir(preset):
+    return os.path.join(ROOT, "results", "torch_band", preset)
 
 
 def cmd_judge(args):
     preset = PRESETS[args.preset]
     episodes = args.episodes or preset["episodes"]
-    ref = {s: seed_stats(p, episodes) for s, p in find_seeds(
-        [os.path.join(ROOT, d) for d in preset["ref"]]).items()}
-    port = {s: seed_stats(p, episodes)
+    args.port = args.port or results_dir(args.preset)
+    ref = reference_stats(args.preset, episodes)
+    port = {s: seed_stats(p, episodes, preset["rules"])
             for s, p in find_seeds([args.port]).items()}
     seeds, fallback = preset["seeds"], preset["fallback"]
-    result = verdict(port, seeds, fallback)
+    result = verdict(port, seeds, fallback, preset["rules"])
 
     def table(name, stats):
         print(f"{name}: seed  episodes  last-50 reward  goals/50  "
@@ -569,14 +822,21 @@ def cmd_judge(args):
                  if s in port and port[s]["complete"]]
     r_port = [port[s]["last50_reward"] for s in band_port]
     r_ref = [st["last50_reward"] for st in ref.values()]
-    mwu = None
-    if len(r_port) >= 2 and len(r_ref) >= 2:
+
+    def mann_whitney(key):
+        a = [port[s][key] for s in band_port]
+        b = [st[key] for st in ref.values()]
+        if len(a) < 2 or len(b) < 2:
+            return None
         from scipy.stats import mannwhitneyu
 
-        u = mannwhitneyu(r_port, r_ref, alternative="two-sided")
-        mwu = {"u": float(u.statistic), "p": float(u.pvalue),
-               "n_port": len(r_port), "n_ref": len(r_ref)}
+        u = mannwhitneyu(a, b, alternative="two-sided")
+        return {"u": float(u.statistic), "p": float(u.pvalue),
+                "n_port": len(a), "n_ref": len(b)}
+
+    mwu = mann_whitney("last50_reward")
     summary = {
+        "preset": args.preset,
         "verdict": result,
         "port_converged": sum(port[s]["converged"] for s in band_port),
         "port_complete": len(band_port),
@@ -587,17 +847,9 @@ def cmd_judge(args):
         "ref_median_last50_reward": (float(np.median(r_ref)) if r_ref
                                      else None),
         "mann_whitney_u": mwu,
-        "rules": {"converged": {"last50_reward": CONVERGED_REWARD,
-                                "goals_last50": CONVERGED_GOALS,
-                                "violation_episodes_last100":
-                                    CONVERGED_VIOLATIONS},
-                  "pass": {"converged": f"{PASS_CONVERGED} of "
-                                        f"{len(seeds)}",
-                           "median_last50_reward": PASS_MEDIAN,
-                           "fallback_at": FALLBACK_AT,
-                           "fallback_converged":
-                               f"{FALLBACK_CONVERGED} of "
-                               f"{len(seeds) + len(fallback)}"}},
+        "mann_whitney_u_violations": mann_whitney(
+            "violation_episodes_last100"),
+        "rules": rules_record(preset),
         "port": {f"s{s}": st for s, st in port.items()},
         "reference": {f"s{s}": st for s, st in ref.items()},
     }
@@ -607,8 +859,11 @@ def cmd_judge(args):
           f"{summary['ref_converged']} of {summary['ref_seeds']}, median "
           f"{summary['ref_median_last50_reward']}")
     if mwu is not None:
-        print(f"Mann-Whitney U (two-sided, last-50 rewards, port against "
-              f"reference; not a gate): U {mwu['u']:.1f}, p {mwu['p']:.4g}")
+        v = summary["mann_whitney_u_violations"]
+        print(f"Mann-Whitney U (two-sided, port against reference; not a "
+              f"gate): last-50 rewards U {mwu['u']:.1f}, p {mwu['p']:.4g}; "
+              f"violation episodes in the last 100 U {v['u']:.1f}, p "
+              f"{v['p']:.4g}")
     band = episodes == preset["episodes"]
     print(f"band verdict: {result}" if band else
           f"verdict at {episodes} episodes (the band's rules on each seed's "
@@ -638,15 +893,20 @@ def build_parser():
     r.add_argument("--time_limit", type=float, default=None,
                    help="seconds; at the limit running chunks are cut "
                         "(their rows dropped) and the call ends")
-    r.add_argument("--out", default=os.path.join(ROOT, "results",
-                                                 "torch_band", "unicycle"))
-    r.add_argument("--work", default=os.path.join(ROOT, "band_work",
-                                                  "unicycle"),
-                   help="checkpoints and the chunks' run directories")
+    r.add_argument("--out", default=None,
+                   help="default results/torch_band/<preset>")
+    r.add_argument("--work", default=None,
+                   help="checkpoints and the chunks' run directories "
+                        "(default band_work/<preset>)")
     r.add_argument("--carry_mb", type=float, default=None,
                    help="at the end, keep unfinished seeds' checkpoints "
-                        "(the furthest first) up to this many MiB and "
-                        "start the rest afresh")
+                        "(those with the fewest episodes left first) up "
+                        "to this many MiB, --carry_dir's other files "
+                        "included, and start the rest afresh")
+    r.add_argument("--carry_dir", default=None,
+                   help="the directory a later call is handed back, whose "
+                        "other files count against --carry_mb (default: "
+                        "none; only the checkpoints count)")
     r.add_argument("--cpu", action="store_true",
                    help="train on the CPU at tiny widths (a check of the "
                         "script, not a band)")
@@ -655,20 +915,37 @@ def build_parser():
                         "the band runs the preset's defaults)")
     j = sub.add_parser("judge", help="hold the port's seeds to the band")
     j.add_argument("--preset", default="unicycle", choices=sorted(PRESETS))
-    j.add_argument("--port", default=os.path.join(ROOT, "results",
-                                                  "torch_band", "unicycle"))
+    j.add_argument("--port", default=None,
+                   help="default results/torch_band/<preset>")
     j.add_argument("--episodes", type=int, default=None,
                    help="judge each seed's first N episodes (default: the "
                         "preset's budget, the band)")
     j.add_argument("--json", default=None,
                    help="where to write judge.json (default under --port; "
                         "'-' writes none)")
+    sub.add_parser("rules", help="print each preset's rules, how often "
+                                 "the reference misses them and the "
+                                 "smallest reward drop they fail")
     return p
+
+
+def cmd_rules(args):
+    for name in PRESETS:
+        ref = reference_stats(name)
+        n = sum(st["converged"] for st in ref.values())
+        print(f"{name}: {json.dumps(rules_record(PRESETS[name]))}; "
+              f"reference {n} of {len(ref)} converged; bootstrap miss "
+              f"{100 * bootstrap_miss(name):.3f}% over {DRAWS} draws (seed "
+              f"{DRAW_SEED}); the reference's 12 band seeds fail at a "
+              f"uniform drop of {smallest_failing_drop(name):.2f}",
+              flush=True)
+    return 0
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    return cmd_run(args) if args.cmd == "run" else cmd_judge(args)
+    return {"run": cmd_run, "judge": cmd_judge, "rules": cmd_rules}[
+        args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -496,6 +496,20 @@ def test_grid_needs_a_world_and_nccl_a_card():
     assert (local.dp_index, local.tp_index) == (1, 1)
 
 
+def test_init_distributed_takes_the_card_unless_told():
+    """Without a ``device`` a gang's rank takes the card, as every other
+    entry point does: with no GPU it raises before any group forms (the
+    CPU only when named); one process joins nothing either way."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.init_distributed("localhost:1", 2, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.init_distributed("localhost:1", 2, 0, backend="gloo")
+    parallel.init_distributed()
+    assert not torch.distributed.is_initialized()
+
+
 BASE = ["--preset", "unicycle", "--cpu", "--quiet", "--max_episode_steps",
         "6", "--batch_size", "4", "--start_steps", "2", "--replay_size",
         "512", "--hidden_size", "16"]
