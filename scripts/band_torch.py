@@ -33,17 +33,25 @@ a card it raises unless ``--cpu`` is given; ``--cpu`` trains at tiny
 widths and only checks the script.
 
 ``judge`` reads the port's and the reference's ``progress.txt`` files,
-prints a row per seed (last-50 reward, goals in the last 50, episodes with
-``safety_cost_train > 0`` in the last 100, first episode with a goal, env
-steps; ``scripts/r9_analyze.py``'s definitions), the verdict of the band
-rules below and two-sided Mann-Whitney U tests of the last-50 rewards
-and of the violation episodes in the last 100, port against reference
-(reported, not gates), and writes ``judge.json`` under ``--port`` (each
-seed's figures there also give its violation episodes in each 50, its
-safety cost over the last 100 and the multipliers ``rho`` and
-``lam_max`` there). ``--episodes N`` takes every seed's first N
-episodes, both sides, for a reading before the budget ends (not the
-band).
+prints a row per seed (last-50 reward, goals in the last 50, episodes
+with ``safety_cost_train > 0`` in the last 100, first episode with a
+goal, env steps; ``scripts/r9_analyze.py``'s definitions), the verdict
+of the band rules below and two-sided Mann-Whitney U tests of the
+last-50 rewards and of the violation episodes in the last 100, port
+against reference (reported, not gates), and writes ``judge.json`` under
+``--port`` (each seed's figures there also give its violation episodes
+and its backup controller's mean steps an episode in each 50, its safety
+cost over the last 100 and the multipliers ``rho`` and ``lam_max``
+there). ``--episodes N`` takes every seed's first N episodes, both
+sides, for a reading before the budget ends (not the band). While band
+seeds are short, the verdict is ``fail`` once no outcome of theirs can
+pass (a short seed whose rows already break a count limit over the
+window that ends at the budget, as more than 5 violation episodes in
+unicycle's episodes 100-199, is a miss); otherwise it is ``incomplete``,
+and ``judge`` prints (and ``judge.json`` holds under ``short_seeds`` and
+``outcomes``) what each number of misses among them leads to: ``pass``,
+``fallback`` with the fallback seeds' converged count that a pass then
+needs, or ``fail``.
 
 Band rules (``PRESETS[p]["rules"]``), each from the preset's 16 recorded
 reference seeds (12345-12348 and 100-111). A seed is converged when it
@@ -665,8 +673,9 @@ def seed_stats(path, episodes, rules=None):
     ``episodes`` episodes, and whether it is converged under ``rules``
     (default: unicycle's); beside them, not in the rules: the violation
     episodes in each WINDOW episodes, the safety cost summed over the last
-    100 and the multipliers' means over the last 100 (None where the file
-    has no such column)."""
+    100, the multipliers' means over the last 100 and the backup
+    controller's mean steps an episode in each WINDOW episodes (None where
+    the file has no such column)."""
     _, _, c = read_progress(path)
     c = {k: v[:episodes] for k, v in c.items()}
     goals = c["goal_met"]
@@ -689,10 +698,36 @@ def seed_stats(path, episodes, rules=None):
         "multipliers_last100": {
             k: (float(c[k][-LAST_VIOLATIONS:].mean()) if k in c else None)
             for k in MULTIPLIERS},
+        "backup_steps_by_window": (
+            [float(c["backup_steps"][i:i + WINDOW].mean())
+             for i in range(0, len(violated), WINDOW)]
+            if "backup_steps" in c else None),
     }
     stats["complete"] = stats["episodes"] >= episodes
     stats["converged"] = stats["complete"] and converged(stats, rules)
+    stats["cannot_converge"] = (not stats["complete"]
+                                and cannot_converge(c, episodes, rules))
     return stats
+
+
+def cannot_converge(c, episodes, rules=None):
+    """Whether a short seed's rows ``c`` already break a count limit of
+    ``rules`` over a window that ends at ``episodes``, whatever its
+    remaining episodes bring (a reward limit is never decided early)."""
+    limits = (rules or PRESETS["unicycle"]["rules"])["converged"]
+    n = len(c["Episode"])
+    if "violation_episodes_last100" in limits:
+        start = max(0, episodes - LAST_VIOLATIONS)
+        seen = int((c["safety_cost_train"][start:] > 0).sum())
+        if seen > limits["violation_episodes_last100"]:
+            return True
+    if "goals_last50" in limits:
+        start = max(0, episodes - LAST_GOALS)
+        best = int((c["goal_met"][start:] > 0).sum()) + episodes - max(
+            n, start)
+        if best < limits["goals_last50"]:
+            return True
+    return False
 
 
 def converged(stats, rules=None):
@@ -713,26 +748,111 @@ def find_seeds(dirs):
     return found
 
 
-def verdict(stats, seeds, fallback, rules=None):
-    """The band rules (default: unicycle's) over the port's seeds:
-    ``pass``, ``fail``, ``incomplete`` (a band seed short of its episodes)
-    or ``fallback`` (exactly ``fallback_at`` seeds not converged and the
-    fallback seeds not yet complete)."""
-    rules = rules or PRESETS["unicycle"]["rules"]
-    main = [stats.get(s) for s in seeds]
-    if any(s is None or not s["complete"] for s in main):
-        return "incomplete"
+def _short(stats, seeds):
+    """The seeds of ``seeds`` short of their episodes (or not run), those
+    that can no longer converge first."""
+    short = [s for s in seeds if s not in stats or not stats[s]["complete"]]
+    return sorted(short, key=lambda s: not _doomed(stats, s))
+
+
+def _doomed(stats, seed):
+    return bool(stats.get(seed, {}).get("cannot_converge"))
+
+
+def _decided(main, extra, rules):
+    """The verdict of complete band seeds ``main``, with the complete
+    fallback seeds ``extra`` held only at exactly ``fallback_at`` misses."""
     missed = sum(not s["converged"] for s in main)
     need, group = rules["pass_converged"], main
     if missed == rules["fallback_at"]:
-        extra = [stats.get(s) for s in fallback]
-        if any(s is None or not s["complete"] for s in extra):
-            return "fallback"
         group, need = main + extra, rules["fallback_converged"]
     n = sum(s["converged"] for s in group)
     median = float(np.median([s["last50_reward"] for s in group]))
     return ("pass" if n >= need and median >= rules["pass_median"]
             else "fail")
+
+
+def _reachable(stats, seeds, fallback, rules, band_misses=None):
+    """The verdicts that some completion of the short seeds reaches (with
+    exactly ``band_misses`` of the short band seeds not converged, if
+    given). A short seed that converges scores its last-50 reward anywhere
+    from the converged limit (or -inf where none is held) up; one that
+    misses, anywhere."""
+    floor = rules["converged"].get("last50_reward", -np.inf)
+
+    def fill(group, misses, high):
+        # the first ``misses`` short seeds miss, those that cannot
+        # converge among them
+        order = {s: i for i, s in enumerate(_short(stats, group))}
+        out = []
+        for s in group:
+            if s not in order:
+                out.append(stats[s])
+                continue
+            hit = order[s] >= misses
+            out.append({"complete": True, "converged": hit,
+                        "last50_reward": np.inf if high else
+                        floor if hit else -np.inf})
+        return out
+
+    band, fall = _short(stats, seeds), _short(stats, fallback)
+    ks = (_miss_counts(stats, seeds) if band_misses is None
+          else [band_misses])
+    highs = (False, True) if band or fall else (False,)
+    return {_decided(fill(seeds, k, high), fill(fallback, j, high), rules)
+            for k in ks for j in _miss_counts(stats, fallback)
+            for high in highs}
+
+
+def _miss_counts(stats, group):
+    """The numbers of misses that ``group``'s short seeds can end with."""
+    short = _short(stats, group)
+    return range(sum(_doomed(stats, s) for s in short), len(short) + 1)
+
+
+def verdict(stats, seeds, fallback, rules=None):
+    """The band rules (default: unicycle's) over the port's seeds:
+    ``pass``; ``fail``, also before every seed is complete once no
+    completion of the short seeds can pass; ``incomplete`` (a band seed
+    short of its episodes) or ``fallback`` (exactly ``fallback_at`` seeds
+    not converged and the fallback seeds not yet complete) while one can."""
+    rules = rules or PRESETS["unicycle"]["rules"]
+    reach = _reachable(stats, seeds, fallback, rules)
+    if "pass" not in reach:
+        return "fail"
+    if _short(stats, seeds):
+        return "incomplete"
+    missed = sum(not stats[s]["converged"] for s in seeds)
+    if missed == rules["fallback_at"] and _short(stats, fallback):
+        return "fallback"
+    (result,) = reach
+    return result
+
+
+def outcomes(stats, seeds, fallback, rules=None):
+    """What each number of misses among the short band seeds leads to (at
+    least those that cannot converge miss): a row per count with its
+    verdict (``pass``, ``fail``, ``pass or fail``
+    where the short seeds' rewards decide the median, or ``fallback``,
+    then with the fallback seeds' converged count that a pass needs)."""
+    rules = rules or PRESETS["unicycle"]["rules"]
+    short = _short(stats, seeds)
+    known = sum(not stats[s]["converged"] for s in seeds if s not in short)
+    rows = []
+    for k in _miss_counts(stats, seeds):
+        reach = _reachable(stats, seeds, fallback, rules, band_misses=k)
+        row = {"misses": k, "verdict": " or ".join(
+            v for v in ("pass", "fail") if v in reach)}
+        if known + k == rules["fallback_at"] and "pass" in reach:
+            done = [stats[s] for s in fallback if s not in _short(
+                stats, fallback)]
+            row["verdict"] = "fallback"
+            row["fallback_converged_needed"] = (
+                rules["fallback_converged"] - (len(seeds) - known - k)
+                - sum(s["converged"] for s in done))
+            row["fallback_short"] = _short(stats, fallback)
+        rows.append(row)
+    return rows
 
 
 def reference_stats(name, episodes=None):
@@ -805,6 +925,9 @@ def cmd_judge(args):
             for s, p in find_seeds([args.port]).items()}
     seeds, fallback = preset["seeds"], preset["fallback"]
     result = verdict(port, seeds, fallback, preset["rules"])
+    short = _short(port, seeds)
+    table_out = (outcomes(port, seeds, fallback, preset["rules"])
+                 if short and result != "fail" else [])
 
     def table(name, stats):
         print(f"{name}: seed  episodes  last-50 reward  goals/50  "
@@ -850,6 +973,8 @@ def cmd_judge(args):
         "mann_whitney_u_violations": mann_whitney(
             "violation_episodes_last100"),
         "rules": rules_record(preset),
+        "short_seeds": short,
+        "outcomes": table_out,
         "port": {f"s{s}": st for s, st in port.items()},
         "reference": {f"s{s}": st for s, st in ref.items()},
     }
@@ -864,6 +989,17 @@ def cmd_judge(args):
               f"gate): last-50 rewards U {mwu['u']:.1f}, p {mwu['p']:.4g}; "
               f"violation episodes in the last 100 U {v['u']:.1f}, p "
               f"{v['p']:.4g}")
+    doomed = [s for s in short if _doomed(port, s)]
+    if doomed:
+        print(f"short seeds that can no longer converge (their rows break "
+              f"a count limit already): {', '.join(map(str, doomed))}")
+    for row in table_out:
+        need = ("" if row["verdict"] != "fallback" else
+                f" ({row['fallback_converged_needed']} of "
+                f"{', '.join(map(str, row['fallback_short']))} must "
+                f"converge)")
+        print(f"if {row['misses']} of the short seeds "
+              f"{', '.join(map(str, short))} miss: {row['verdict']}{need}")
     band = episodes == preset["episodes"]
     print(f"band verdict: {result}" if band else
           f"verdict at {episodes} episodes (the band's rules on each seed's "

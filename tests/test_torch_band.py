@@ -16,7 +16,10 @@
     ``nlbac_tpu*`` module, and ``run`` without a card raises unless given
     ``--cpu``;
 (f) ``judge`` on the card's committed seeds (``results/torch_band/
-    unicycle/``) gives the verdict that ``PERF.md`` states.
+    unicycle/``) gives the verdict that ``PERF.md`` states;
+(g) with band seeds short, ``judge`` fails a band that no outcome of
+    theirs can pass and otherwise tables what each number of misses
+    among them leads to.
 
 Tolerances: none; (a) compares at the printed precision (0.05), the rest
 bit for bit.
@@ -151,7 +154,9 @@ def test_judge_first_episodes(tmp_path):
 
 def test_judge_fallback_and_incomplete():
     """The band rules' edges: exactly 3 seeds not converged calls seeds
-    108-111, whose 16 seeds then decide; a short seed is incomplete."""
+    108-111, whose 16 seeds then decide; a short seed is incomplete unless
+    no outcome of the short seeds can pass (then a fail), and the outcome
+    table says what each number of misses among them leads to."""
     ok = {"complete": True, "converged": True, "last50_reward": 690.0}
     low = {"complete": True, "converged": False, "last50_reward": 520.0}
     seeds, fallback = PRESET["seeds"], PRESET["fallback"]
@@ -166,6 +171,139 @@ def test_judge_fallback_and_incomplete():
     stats = {s: dict(ok) for s in seeds}
     stats[seeds[0]] = {**ok, "complete": False, "converged": False}
     assert band.verdict(stats, seeds, fallback) == "incomplete"
+    # the committed band's shape: 8 complete, 2 of them missed (at a high
+    # reward, as s102 and s106), 4 short
+    short = {**ok, "complete": False, "converged": False}
+    stats = {s: dict(ok) for s in seeds}
+    for s in seeds[4:6]:
+        stats[s] = {**ok, "converged": False}
+    for s in seeds[-4:]:
+        stats[s] = dict(short)
+    assert band.verdict(stats, seeds, fallback) == "incomplete"
+    table = band.outcomes(stats, seeds, fallback)
+    assert [r["verdict"] for r in table] == [
+        "pass", "fallback", "fail", "fail", "fail"]
+    assert table[1]["fallback_converged_needed"] == 4
+    assert table[1]["fallback_short"] == list(fallback)
+    # decided while incomplete: 4 complete seeds missed, so no outcome of
+    # the short ones passes
+    for s in seeds[:2]:
+        stats[s] = dict(low)
+    assert band.verdict(stats, seeds, fallback) == "fail"
+    assert {r["verdict"] for r in band.outcomes(stats, seeds, fallback)} \
+        == {"fail"}
+    # 3 missed with one short: converging calls the fallback, missing fails
+    stats = {s: dict(ok) for s in seeds}
+    for s in seeds[:3]:
+        stats[s] = dict(low)
+    stats[seeds[-1]] = dict(short)
+    assert band.verdict(stats, seeds, fallback) == "incomplete"
+    assert [r["verdict"] for r in band.outcomes(stats, seeds, fallback)] \
+        == ["fallback", "fail"]
+    # the fallback decided before its seeds are complete: one of them
+    # missed where all 4 must converge
+    stats[seeds[-1]] = dict(ok)
+    stats[fallback[0]] = dict(low)
+    assert band.verdict(stats, seeds, fallback) == "fail"
+    stats[fallback[0]] = dict(ok)
+    assert band.verdict(stats, seeds, fallback) == "fallback"
+    # a median that the short seeds cannot lift: 6 complete seeds far under
+    # the floor, converged only by the limit of 640 (the short ones score
+    # at most anything, at least 640 if converged)
+    stats = {s: {**ok, "last50_reward": 645.0} for s in seeds}
+    for s in seeds[:2]:
+        stats[s] = dict(short)
+    assert band.outcomes(stats, seeds, fallback)[0]["verdict"] == "fail"
+    assert band.verdict(stats, seeds, fallback) == "fail"
+    for s in seeds[2:8]:
+        stats[s] = dict(ok)
+    assert [r["verdict"] for r in band.outcomes(stats, seeds, fallback)] \
+        == ["pass or fail", "pass or fail", "pass or fail"]
+    # a short seed's rows that already break a count limit of its last
+    # window: 2 goals missed in episodes 150-159 leave at most 48 of 50
+    c = {"Episode": np.arange(160), "safety_cost_train": np.zeros(160),
+         "goal_met": np.ones(160)}
+    assert not band.cannot_converge(c, 200)
+    c["goal_met"][150] = 0
+    assert not band.cannot_converge(c, 200)
+    c["goal_met"][151] = 0
+    assert band.cannot_converge(c, 200)
+    c["goal_met"][:] = 1
+    c["safety_cost_train"][[99, 100, 120, 130, 140, 150]] = 0.1
+    assert not band.cannot_converge(c, 200)
+    c["safety_cost_train"][159] = 0.1
+    assert band.cannot_converge(c, 200)
+
+
+def test_judge_outcomes_on_doctored_rows(tmp_path):
+    """``judge`` on the reference's 12 band seeds doctored into the
+    committed band's shape (s12345's miss kept, s100 made to miss with 6
+    violation episodes in its last 100, s103-s105 and s107 cut to 120
+    episodes) prints and records the outcome table; a short seed whose
+    rows already break the violation limit counts as a miss; with 4
+    misses among complete and such seeds, it is a fail before the short
+    seeds end."""
+    files = {s: p for s, p in ref_files().items() if s in PRESET["seeds"]}
+
+    def violate(header, lines):
+        i = header.split("\t").index("safety_cost_train")
+        out = []
+        for n, ln in enumerate(lines):
+            cells = ln.split("\t")
+            if n >= 190:
+                cells[i] = "0.5"
+            out.append("\t".join(cells))
+        return out
+
+    port = as_port(tmp_path, files)
+    cut = (103, 104, 105, 107)
+    for seed in (100,) + cut:
+        path = port / f"s{seed}" / "progress.txt"
+        header, lines, _ = band.read_progress(path)
+        lines = violate(header, lines) if seed == 100 else lines[:120]
+        path.write_text("\n".join([header] + lines) + "\n")
+    got = judge(port, tmp_path)
+    assert got["verdict"] == "incomplete"
+    assert got["port"]["s100"]["violation_episodes_last100"] >= 6
+    assert got["short_seeds"] == list(cut)
+    # the median holds even with the short seeds converged at 640
+    assert [r["verdict"] for r in got["outcomes"]] == [
+        "pass", "fallback", "fail", "fail", "fail"]
+    assert got["outcomes"][1]["fallback_converged_needed"] == 4
+    assert not any(got["port"][f"s{s}"]["cannot_converge"] for s in cut)
+    # s107's rows made to violate in 6 of its episodes 100-119: it can no
+    # longer converge (episodes 100-199 are its last 100), so the table
+    # starts at 1 miss
+    path = port / "s107" / "progress.txt"
+    header, lines, _ = band.read_progress(path)
+    i = header.split("\t").index("safety_cost_train")
+    lines = ["\t".join(c[:i] + ["0.5"] + c[i + 1:])
+             if 100 <= n < 106 else ln
+             for n, ln in enumerate(lines) for c in [ln.split("\t")]]
+    path.write_text("\n".join([header] + lines) + "\n")
+    got = judge(port, tmp_path)
+    assert got["port"]["s107"]["cannot_converge"]
+    assert got["verdict"] == "incomplete"
+    assert [(r["misses"], r["verdict"]) for r in got["outcomes"]] == [
+        (1, "fallback"), (2, "fail"), (3, "fail"), (4, "fail")]
+    # one more complete seed missed: 3 known and s107, a fail already
+    path = port / "s101" / "progress.txt"
+    header, lines, _ = band.read_progress(path)
+    path.write_text("\n".join([header] + violate(header, lines)) + "\n")
+    got = judge(port, tmp_path)
+    assert got["verdict"] == "fail" and got["outcomes"] == []
+    # and without s107's early miss, 2 more complete misses fail it too
+    for seed in (102,):
+        path = port / f"s{seed}" / "progress.txt"
+        header, lines, _ = band.read_progress(path)
+        path.write_text("\n".join([header] + violate(header, lines)) + "\n")
+    shutil.copy(files[107], port / "s107" / "progress.txt")
+    header, lines, _ = band.read_progress(port / "s107" / "progress.txt")
+    (port / "s107" / "progress.txt").write_text(
+        "\n".join([header] + lines[:120]) + "\n")
+    got = judge(port, tmp_path)
+    assert not got["port"]["s107"]["cannot_converge"]
+    assert got["verdict"] == "fail" and got["outcomes"] == []
 
 
 def run(tmp_path, name, *args, check=True):

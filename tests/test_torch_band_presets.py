@@ -316,7 +316,9 @@ def test_carry_counts_the_rest_of_carry_dir(tmp_path):
 def test_judge_figures_beside_the_rules(tmp_path):
     """Violation episodes by 50-episode window add up to the run's and
     end in the last-100 count; the multipliers' means are None where the
-    file has no such column (the r9 runs) and read where it has (r10)."""
+    file has no such column (the r9 runs) and read where it has (r10);
+    the backup steps by window likewise (none of the reference's files,
+    the port's)."""
     files = ref_files("unicycle")
     for seed in (12345, 108):
         st = band.seed_stats(files[seed], 200)
@@ -333,6 +335,14 @@ def test_judge_figures_beside_the_rules(tmp_path):
         else:
             assert mult == {k: pytest.approx(c[k][100:].mean(), rel=1e-12)
                             for k in band.MULTIPLIERS}
+        assert st["backup_steps_by_window"] is None
+    # the port's files have the backup controller's steps an episode
+    port = ROOT / "results" / "torch_band" / "unicycle" / "s104" / \
+        "progress.txt"
+    _, _, c = band.read_progress(port)
+    got = band.seed_stats(port, 200)["backup_steps_by_window"]
+    assert got == pytest.approx([c["backup_steps"][i:i + 50].mean()
+                                 for i in range(0, 200, 50)], rel=1e-12)
     got = judge("unicycle", as_port(tmp_path, {s: files[s] for s in
                                                band.BAND_SEEDS}), tmp_path)
     assert got["mann_whitney_u_violations"]["n_port"] == 12

@@ -17,6 +17,9 @@ takes the same batches and the same standard-normal draws on both sides
 does); each side then carries its own state into the next update. Every
 metric, rho, the multipliers and the fit/no-fit choice are compared after
 each update, and every parameter, target and Adam moment after the last.
+A second case (unicycle) runs the same sequence from multipliers at their
+caps (``rho`` 200, ``lam`` 400: where a band seed sits over its last 100
+episodes); its tolerances are in its docstring.
 
 Tolerances are the single-update ones: unicycle metrics rtol 1e-5 /
 atol 1e-6, PVTOL metrics rtol 1e-4 / atol 1e-6; parameters, Adam moments
@@ -56,6 +59,10 @@ BATCH, NODE_BATCH = 6, 8
 EPISODES = (0, 0, 1, 1, 2, 2, 3, 3)
 TOL = {"unicycle": (1e-5, 1e-6), "pvtol": (1e-4, 1e-5)}
 PRE_TANH_MAX = 3.0
+# the updates that fit the NODE
+FITS = [True, False, False, True, False, False, False, False]
+# how far under lambda_max the saturated state's other multipliers start
+NEAR_CAP = 1e-3
 
 
 def gated_cfg(mod, preset):
@@ -121,14 +128,35 @@ def pre_tanh_max(port, batch, noise):
     return worst
 
 
-@pytest.mark.parametrize("preset", ["unicycle", "pvtol"])
-def test_gate_sequence_matches_reference(preset):
+def saturated(ts_j, cfg):
+    """``ts_j`` with its multipliers where a late band seed holds them:
+    ``rho`` and ``backup_rho`` at ``rho_max``, the first multiplier of
+    each kind at ``lambda_max`` and the rest NEAR_CAP under it."""
+    c = cfg.constraint
+
+    def lams(lam):
+        return jnp.full_like(lam, c.lambda_max - NEAR_CAP).at[0].set(
+            c.lambda_max)
+
+    return ts_j._replace(lag=ts_j.lag._replace(
+        rho=jnp.float32(c.rho_max), backup_rho=jnp.float32(c.rho_max),
+        lam=lams(ts_j.lag.lam), backup_lam=lams(ts_j.lag.backup_lam)))
+
+
+def gate_sequence(preset, start=None, leaf_scaled=False):
+    """The 8 updates from a fresh state (or ``start(ts, cfg)`` of it),
+    each compared with JAX's; returns, per update, whether it fitted the
+    NODE and whether it moved the multipliers, and both final states.
+    ``leaf_scaled``: the final leaves' atol times their largest entry
+    (where it is over 1)."""
     cfg_j, cfg_t = gated_cfg(jconfig, preset), gated_cfg(tconfig, preset)
     metric_rtol, atol = TOL[preset]
     n_u = cfg_j.action_dim
     update = jax.jit(make_agent(cfg_j).update_from_batch)
     agent = t_make_agent(cfg_t, "cpu")
     ts_j = create_train_state(cfg_j, jax.random.PRNGKey(0))
+    if start is not None:
+        ts_j = start(ts_j, cfg_j)
     port = from_reference(jax.tree.map(np.asarray, ts_j), cfg_t, "cpu")
     rng = np.random.default_rng(1)
     fits, ascents = [], []
@@ -160,12 +188,55 @@ def test_gate_sequence_matches_reference(preset):
                 err_msg=f"update {k} {field}")
         assert port.updates == int(ref.updates) == k + 1
 
-    assert fits == [True, False, False, True, False, False, False, False]
-    assert ascents == [False, False, False, False, True, False, False,
-                       False]
     expect = jax.tree.map(np.asarray, ts_j)
     got = to_reference(port, expect)
     for (pa, a), (pb, b) in zip(leaves_with_paths(expect),
                                 leaves_with_paths(got)):
         assert pa == pb
-        np.testing.assert_allclose(b, a, rtol=1e-4, atol=atol, err_msg=pa)
+        scale = max(1.0, float(np.abs(a).max(initial=0.0))) \
+            if leaf_scaled else 1.0
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=atol * scale,
+                                   err_msg=pa)
+    return fits, ascents, port, expect
+
+
+@pytest.mark.parametrize("preset", ["unicycle", "pvtol"])
+def test_gate_sequence_matches_reference(preset):
+    fits, ascents, _, _ = gate_sequence(preset)
+    assert fits == FITS
+    assert ascents == [False, False, False, False, True, False, False,
+                       False]
+
+
+@pytest.mark.parametrize("preset", ["unicycle"])
+def test_saturated_multipliers_match_reference(preset):
+    """The same 8 updates from multipliers at their caps, where every
+    band seed of the port sits over its last 100 episodes: ``rho`` and
+    ``backup_rho`` at ``rho_max`` (200), the first multiplier of each kind
+    at ``lambda_max`` (400) and the others NEAR_CAP under it, set in the
+    JAX state and carried into the port by ``interop.from_reference``.
+    Update 4's ascent then lifts those whose constraint its batch violates
+    to the cap through the clamp of ``ascend_multipliers``, and
+    ``grow_rho`` holds rho at its cap.
+
+    Tolerances are the fresh-state case's, but for the final parameters,
+    targets and Adam moments atol is 1e-6 times the leaf's largest entry
+    (where it is over 1): at the caps the policy loss carries lam 400 and
+    rho 200, so the policy's gradients and Adam first moments grow to
+    about 12 (0.2-0.37 from the fresh state), and float32 rounding grows
+    with them. The worst gap, in the policy trunk's first moments, is
+    9.6e-7 of the leaf's largest entry over rtol 1e-4; every metric and
+    multiplier holds at the fresh case's tolerance."""
+    fits, ascents, port, ref = gate_sequence(preset, saturated,
+                                             leaf_scaled=True)
+    assert fits == FITS
+    assert ascents == [False, False, False, False, True, False, False,
+                       False]
+    lam_max = tconfig.get_config(preset).constraint.lambda_max
+    rho_max = tconfig.get_config(preset).constraint.rho_max
+    assert float(port.lag.rho) == float(ref.lag.rho) == rho_max
+    np.testing.assert_array_equal(port.lag.lam.numpy(), ref.lag.lam)
+    # each multiplier is at its start or lifted to the cap, some lifted
+    near = np.float32(lam_max - NEAR_CAP)
+    assert set(ref.lag.lam.tolist()) <= {float(lam_max), float(near)}
+    assert (ref.lag.lam[1:] == lam_max).any()
