@@ -11,6 +11,11 @@ Phases, one line each (any failure raises and exits nonzero):
    tensor-core (HMMA) instructions in its SASS; then find where
    ``torch.tanh`` first returns 1.0 on the card and on the CPU, and the
    policy's squash term's gap to float64 on each, over |x| in [3, 9.1];
+   then the XLA-form tanh (``--squash xla``, ``nn/xla_float.py``) on the
+   card against the CPU, bit for bit: forward over a float32 grid on
+   [-10, 10], every float32 in [7.9988, 7.9989] and around +-0.0004, and
+   its gradient; and the soft target update of a full-width critic on the
+   card against the CPU, bit for bit;
 3. hold the kernel against its plain PyTorch version on the card, forward
    and gradients, at the rows the main path gives it (128 and 32768), at
    the tile edges (1, 16, 17, 127, 129), at a ragged 1000 and at the
@@ -30,7 +35,9 @@ Phases, one line each (any failure raises and exits nonzero):
    episode, then resume it from its checkpoint.npz for one more episode
    (launch counts reset just before each run, read just after); profile 10 more steps of the restored state (device busy
    share, top device ops); then hold one full-width update on the card
-   against the same update on the CPU;
+   against the same update on the CPU, and again under ``squash="xla"``;
+   then ms per update of the restored state under each squash,
+   interleaved (SQUASH_BLOCKS blocks of SQUASH_BLOCK updates each);
 6. cars and PVTOL at their full widths through the CLI, each with its
    env-steps/s, and each followed by one full-width update on the card
    against the CPU;
@@ -190,6 +197,12 @@ DOPRI5_GANG_STEPS, STARTUP_STEPS, LOCKSTEP_PRESETS, LOCKSTEP_DOPRI5_STEPS
 below; phase 21's and 24's lockstep runs take the main path's EPISODES x
 EPISODE_STEPS); the widths are the presets'.
 
+``python3 chip_smoke.py --squash`` runs only the squash's checks: the
+card's line, the kernel's build, phase 2's XLA-form tanh and soft update
+checks, then a SQUASH_RUN unicycle run through the CLI under ``--squash
+xla`` and phase 5's squash checks on its state (a quick check before a
+band under ``--squash xla``).
+
 Needs a CUDA device; it exits nonzero without printing a result when there
 is none, or when the ``nlbac_tpu_torch`` package is not beside it.
 """
@@ -225,9 +238,11 @@ from nlbac_tpu_torch.nn import (
     make_field,
     node_init,
     pack_input,
+    soft_update,
     twin_q_unstack,
     uses_euler_kernel,
 )
+from nlbac_tpu_torch.nn.xla_float import xla_tanh
 from nlbac_tpu_torch.ode import odeint_adjoint, solve_adaptive, solvers
 from nlbac_tpu_torch import parallel
 from nlbac_tpu_torch.ops import node_kernel
@@ -310,6 +325,15 @@ DOPRI5_CHECK_NODE_ROWS = 512
 DOPRI5_UPDATE_TIMING = (1, 10)
 # The squash term's action scales (unicycle v, omega; PVTOL's thrust).
 TANH_SCALES = (3.5, 12.0, 15.0)
+# The XLA-form tanh on the card against the CPU: a float32 grid over
+# [-10, 10], and every float32 within TANH_TINY_ULPS of +-0.0004 (where it
+# switches to x); ms per update under each squash in SQUASH_BLOCKS
+# interleaved blocks of SQUASH_BLOCK updates (one NODE fit each); the
+# --squash mode's CLI run (episodes, steps; --start_steps one episode).
+TANH_GRID = 2000001
+TANH_TINY_ULPS = 5000
+SQUASH_BLOCKS, SQUASH_BLOCK = 3, 10
+SQUASH_RUN = (2, 150)
 # The quadrotor's card-vs-CPU evaluation stops after this many steps, clear
 # of float32 divergence between the two devices' rollouts.
 EVAL_QUAD_STEPS = 50
@@ -838,16 +862,17 @@ def cli_run(preset, argv, card, label):
     return run, launches, steps, updates, seconds
 
 
-def restored(preset, argv, run, dev):
+def restored(preset, argv, run, dev, squash="torch"):
     """The config of a CLI run and its final state, replays and generator,
-    restored on ``dev`` from the run's checkpoint.npz."""
+    restored on ``dev`` from the run's checkpoint.npz (a run under
+    ``squash``)."""
     cfg = cli.config_from_args(cli.build_parser().parse_args(
         ["--preset", preset, "--seed", str(SEED)] + argv))
     gen = torch.Generator(dev).manual_seed(SEED)
     ts = create_train_state(cfg, gen, dev)
     rl, node = create_replays(cfg, dev)
     total, episode = restore_checkpoint(str(run / "checkpoint.npz"), ts, rl,
-                                        node, gen)
+                                        node, gen, squash)
     return cfg, ts, rl, node, total, episode
 
 
@@ -992,11 +1017,13 @@ def check_preset(preset, argv, run, dev, card):
 
 
 def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None,
-                          rtol=UPDATE_RTOL, atol=UPDATE_ATOL):
+                          rtol=UPDATE_RTOL, atol=UPDATE_ATOL,
+                          squash="torch"):
     """One full-width update from a fresh state on the card (kernel) and
     on the CPU (plain version), with the same batches and draws; the NODE
-    fit on ``node_rows`` rows (default: the config's 32768); every metric
-    within ``rtol`` / ``atol``. Returns the card's K1 launches."""
+    fit on ``node_rows`` rows (default: the config's 32768); the policy's
+    tanh ``squash``'s; every metric within ``rtol`` / ``atol``. Returns
+    the card's K1 launches."""
     gen_cpu = torch.Generator().manual_seed(SEED + 1)
     ts_cpu = create_train_state(cfg, gen_cpu, "cpu")
     ts_dev = to_device(ts_cpu, cfg, dev)
@@ -1013,7 +1040,7 @@ def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None,
                       for k in ("resample", "backup_resample")})
 
     def run(ts, device):
-        agent = make_agent(cfg, device)
+        agent = make_agent(cfg, device, squash=squash)
         to = {k: v.to(device) for k, v in noise.items()}
         nb = {k: v.to(device) for k, v in node_batch.items()}
         b = {k: v.to(device) for k, v in batch.items()}
@@ -1036,6 +1063,8 @@ def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None,
     if cfg.node.compute_dtype is not None:
         solver += (f" (NODE in {cfg.node.compute_dtype}, {launches} K1 "
                    "launches)")
+    if squash != "torch":
+        solver += f" (squash {squash})"
     phase(f"{cfg.run.exp_name} full-width update{solver}, card vs CPU: "
           f"{len(m_cpu)} metrics within rtol "
           f"{rtol} atol {atol} (worst at {worst:.3f} of the "
@@ -1405,6 +1434,111 @@ def tanh_saturation(card):
             "gap_to_f64_below_7_99_cpu": [g[0] for g in found["cpu"][1]],
             "gap_to_f64_cuda": [g[1] for g in found["cuda"][1]],
             "gap_to_f64_cpu": [g[1] for g in found["cpu"][1]]}
+
+
+def xla_tanh_on_card(dev, card):
+    """The XLA-form tanh (``--squash xla``) on the card against the CPU,
+    bit for bit: forward over a float32 grid on [-10, 10], every float32
+    in [7.9988, 7.9989] and within TANH_TINY_ULPS of +-0.0004 (both
+    signs), and its gradient at the same points for seeded normal
+    cotangents; then one soft target update of a full-width critic on the
+    card against the CPU, bit for bit. Returns the figures."""
+    grid = np.linspace(-10.0, 10.0, TANH_GRID, dtype=np.float32)
+    sat = np.arange(np.float32(7.9988).view(np.int32),
+                    np.float32(7.9989).view(np.int32) + 1,
+                    dtype=np.int32).view(np.float32)
+    t = np.float32(0.0004).view(np.int32)
+    tiny = np.arange(t - TANH_TINY_ULPS, t + TANH_TINY_ULPS + 1,
+                     dtype=np.int32).view(np.float32)
+    x = np.concatenate([grid, sat, -sat, tiny, -tiny])
+    g = np.random.default_rng(SEED).standard_normal(x.size).astype(
+        np.float32)
+    out = []
+    for where in (dev, "cpu"):
+        xt = torch.from_numpy(x).to(where).requires_grad_()
+        y = xla_tanh(xt)
+        y.backward(torch.from_numpy(g).to(where))
+        out.append([a.detach().cpu().numpy().view(np.int32)
+                    for a in (y, xt.grad)])
+    fwd, bwd = (int((a != b).sum()) for a, b in zip(*out))
+    y = out[0][0].view(np.float32)
+    first = float(np.abs(x[np.abs(y) == 1.0]).min())
+
+    cfg = get_config("unicycle")
+    gen = torch.Generator().manual_seed(SEED + 5)
+    ts = create_train_state(cfg, gen, "cpu")
+    online = tree_map(lambda p: p.detach() + 0.01 * torch.randn(
+        p.shape, generator=gen), ts.critic)
+    target = tree_map(lambda p: p.detach().clone(), ts.critic_target)
+    target_dev = tree_map(lambda p: p.to(dev), target)
+    soft_update(target, online, cfg.sac.tau)
+    soft_update(target_dev, tree_map(lambda p: p.to(dev), online),
+                cfg.sac.tau)
+    soft = sum(int((a.cpu().numpy().view(np.int32)
+                    != b.numpy().view(np.int32)).sum())
+               for a, b in zip(tree_leaves(target_dev), tree_leaves(target)))
+    n_soft = sum(p.numel() for p in tree_leaves(target))
+    if fwd or bwd or soft:
+        raise RuntimeError(f"card vs CPU: XLA-form tanh {fwd} values and "
+                           f"{bwd} gradients of {x.size} differ, the soft "
+                           f"update {soft} of {n_soft} entries")
+    phase(f"xla tanh: card vs CPU bit for bit over {x.size} float32 "
+          f"inputs (forward and gradient; the grid, [7.9988, 7.9989] and "
+          f"+-0.0004 +- {TANH_TINY_ULPS} ulps), first +-1 at |x| = "
+          f"{first:.7f}; the soft update of a full-width critic "
+          f"({n_soft} entries) bit for bit, on {card}")
+    return {"inputs": int(x.size), "forward_apart": fwd,
+            "gradient_apart": bwd, "first_saturated": first,
+            "soft_update_entries": n_soft, "soft_update_apart": soft}
+
+
+def squash_on_card(cfg, ts, rl, node, dev, card):
+    """Phase 5's squash checks: one full-width update from a fresh state
+    under ``squash="xla"`` on the card against the CPU (UPDATE_RTOL /
+    UPDATE_ATOL), then ms per update of ``ts`` (stepped in place) on its
+    replays under each squash, in SQUASH_BLOCKS interleaved blocks of
+    SQUASH_BLOCK updates (each block holds one NODE fit). Returns the
+    figures."""
+    update_on_card_vs_cpu(cfg, rl, node, dev, squash="xla")
+    agents = {s: make_agent(cfg, dev, squash=s) for s in ("torch", "xla")}
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    for agent in agents.values():  # warm-up
+        agent.update(ts, rl, node, gen, 0)
+    times = {s: [] for s in agents}
+    for _ in range(SQUASH_BLOCKS):
+        for s, agent in agents.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SQUASH_BLOCK):
+                agent.update(ts, rl, node, gen, 0)
+            torch.cuda.synchronize()
+            times[s].append((time.perf_counter() - t0) / SQUASH_BLOCK * 1e3)
+    med = {s: statistics.median(v) for s, v in times.items()}
+    phase(f"squash: ms per update (host clock, median of {SQUASH_BLOCKS} "
+          f"interleaved blocks of {SQUASH_BLOCK}, a NODE fit in each): "
+          f"torch {med['torch']:.2f}, xla {med['xla']:.2f} "
+          f"({med['xla'] / med['torch']:.3f} times) on {card}")
+    return {"ms_per_update": med, "block_ms": times}
+
+
+def squash_only(dev, card):
+    """``--squash``: the squash's checks alone (the module's note)."""
+    t0 = time.perf_counter()
+    lib = node_kernel.build(verbose=True)
+    phase(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    figures = {"tanh": xla_tanh_on_card(dev, card)}
+    episodes, steps = SQUASH_RUN
+    argv = ["--max_episodes", str(episodes), "--max_episode_steps",
+            str(steps), "--start_steps", str(steps), "--squash", "xla"]
+    run, launches, _, _, _ = cli_run("unicycle", argv, card, "unicycle_xla")
+    if launches <= 0 or not (run / "squash.json").is_file():
+        raise RuntimeError(f"--squash xla: {launches} K1 launches, "
+                           f"squash.json {(run / 'squash.json').is_file()}")
+    cfg, ts, rl, node, _, _ = restored("unicycle", argv, run, dev, "xla")
+    figures["update"] = squash_on_card(cfg, ts, rl, node, dev, card)
+    print(json.dumps({"squash": figures}), flush=True)
+    phase(f"squash checks: {time.perf_counter() - t0:.2f} s on {card}")
+    return 0
 
 
 def main_run_dir():
@@ -3807,6 +3941,8 @@ def main() -> int:
     phase(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
           f"{torch.backends.cudnn.allow_tf32}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    if sys.argv[1:2] == ["--squash"]:
+        return squash_only(dev, card)
 
     start = t0 = time.perf_counter()
     marks = []  # (phase, seconds since the start) at each phase's end
@@ -3818,6 +3954,7 @@ def main() -> int:
     phase(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
     tensor_core_check(lib)
     tanh = tanh_saturation(card)
+    tanh["xla"] = xla_tanh_on_card(dev, card)
 
     gen = torch.Generator(dev).manual_seed(SEED)
     max_err = check_kernel(dev, gen)
@@ -3829,6 +3966,7 @@ def main() -> int:
     profile_steps(cfg, ts, rl, node, dev, card)
     time_updates(cfg, ts, rl, node, dev, card)
     update_on_card_vs_cpu(cfg, rl, node, dev)
+    squash = squash_on_card(cfg, ts, rl, node, dev, card)
     mark("main path (5)")
     for preset, (episodes, steps) in PRESET_RUNS.items():
         argv = ["--max_episodes", str(episodes), "--max_episode_steps",
@@ -3909,6 +4047,7 @@ def main() -> int:
         "seed_batched_calls": lockstep_calls,
         "launches_by_path": by_path}], "tanh": tanh, "levers": levers,
         "startup": startup, "lockstep": lockstep, "band": band,
+        "squash": squash,
         "phase_end_seconds": dict(marks)}), flush=True)
     phase(f"total: {time.perf_counter() - start:.2f} s from the build to "
           f"the end on {card}; seconds since the start at each phase's "

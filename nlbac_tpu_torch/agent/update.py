@@ -112,6 +112,7 @@ from nlbac_tpu_torch.nn import (
     twin_q_apply,
 )
 from nlbac_tpu_torch.nn.adam import SeedAdam
+from nlbac_tpu_torch.nn.xla_float import squash_tanh
 from nlbac_tpu_torch.tree import (
     SeedMasks,
     detach,
@@ -143,20 +144,26 @@ class Agent(NamedTuple):
     update_core: Callable
     update_from_batch: Callable
     node_fit: Callable
+    squash: str = "torch"
 
 
 def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
-               dp_group=None, _decoupled_updates: bool = False) -> Agent:
+               dp_group=None, _decoupled_updates: bool = False,
+               squash: str = "torch") -> Agent:
     """``env_override`` stands in for the registry's env (a host-env
     adapter, ``envs.host_adapter``): it exposes ``SPEC`` and, where its obs
     is not the NODE state, ``obs_to_state``. ``dp_group`` (a
     ``parallel.mesh.Comm``) runs each update on this rank's rows of the
-    batch, as the module's note sets out.
+    batch, as the module's note sets out. ``squash`` is the policy's tanh
+    (``nn.xla_float.SQUASHES``): ``"torch"``, or ``"xla"`` for XLA's CPU
+    tanh (a diagnostic; not a config field, so that the config stays the
+    JAX package's).
 
     ``_decoupled_updates`` is an experimental variant reachable only
     through ``nlbac_tpu_torch.experimental.make_decoupled_agent``: the
     policy losses read the critic, Lyapunov net, barrier and NODE as they
     were before the update stepped them."""
+    squash_tanh(squash)  # refuses an unknown squash
     env = env_override if env_override is not None else \
         get_env(cfg.env.name)
     builder = get_builder(cfg.constraint.kind)
@@ -206,7 +213,8 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
         return slice(dp_group.index * k, (dp_group.index + 1) * k)
 
     def sample_fn(params, obs_b, gen, noise=None):
-        return sample_policy(params, obs_b, spec, gen=gen, noise=noise)
+        return sample_policy(params, obs_b, spec, gen=gen, noise=noise,
+                             squash=squash)
 
     def batch_sample_fn(params, obs_b, gen, noise=None, on=None):
         """``sample_fn`` over this rank's rows of the batch: under dp a
@@ -801,4 +809,5 @@ def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
     return Agent(cfg=cfg, select_action=select_action, update=update,
                  update_presampled=update_presampled,
                  update_core=update_core,
-                 update_from_batch=update_from_batch, node_fit=node_fit)
+                 update_from_batch=update_from_batch, node_fit=node_fit,
+                 squash=squash)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from nlbac_tpu_torch.nn.mlp import mlp_apply, mlp_init
+from nlbac_tpu_torch.nn.xla_float import fma_f32
 from nlbac_tpu_torch.tree import tree_leaves, where_seeds
 
 
@@ -108,16 +109,22 @@ def barrier_apply(params, obs, action):
 @torch.no_grad()
 def soft_update(target_params, online_params, tau: float, mask=None):
     """Polyak averaging, target <- (1 - tau) * target + tau * online, in
-    place on ``target_params`` (which is returned). Stacked over seeds, a
+    place on ``target_params`` (which is returned), rounded as the JAX
+    package's jitted update rounds it: ``f32(tau * online)``, then one
+    fused multiply-add with ``f32(1 - tau)``. Stacked over seeds, a
     ``mask`` ((S,) bool) averages only its seeds; the others keep their
-    targets bit for bit."""
+    targets bit for bit. Every leaf goes through one flat buffer (a seed
+    axis kept in front), so that the average costs a few launches."""
     targets = tree_leaves(target_params)
-    if mask is None:
-        torch._foreach_mul_(targets, 1.0 - tau)
-        torch._foreach_add_(targets, tree_leaves(online_params), alpha=tau)
-        return target_params
-    new = torch._foreach_mul(targets, 1.0 - tau)
-    torch._foreach_add_(new, tree_leaves(online_params), alpha=tau)
-    for t, n in zip(targets, new):
-        t.copy_(where_seeds(mask, n, t))
+    lead = () if mask is None else (targets[0].shape[0],)
+    flat = [t.reshape(lead + (-1,)) for t in targets]
+    t = torch.cat(flat, dim=-1)
+    o = torch.cat([x.reshape(lead + (-1,))
+                   for x in tree_leaves(online_params)], dim=-1)
+    new = fma_f32(torch.full_like(t, 1.0 - tau), t, o * tau)
+    if mask is not None:
+        new = where_seeds(mask, new, t)
+    pieces = torch.split(new, [f.shape[-1] for f in flat], dim=-1)
+    torch._foreach_copy_(targets, [p.reshape(x.shape)
+                                   for p, x in zip(pieces, targets)])
     return target_params

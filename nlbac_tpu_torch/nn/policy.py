@@ -2,7 +2,9 @@
 (port of ``nlbac_tpu/nn/policy.py``).
 
 Sampling takes an explicit ``torch.Generator``, or the standard-normal
-draws themselves (``noise``) so that a test can feed the reference's."""
+draws themselves (``noise``) so that a test can feed the reference's.
+``squash`` picks the tanh of every squash here: ``"torch"`` (the default,
+``torch.tanh``) or ``"xla"`` (XLA's CPU tanh, ``nn/xla_float.py``)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from nlbac_tpu_torch.nn.mlp import mlp_apply, mlp_init, xavier_uniform
+from nlbac_tpu_torch.nn.xla_float import squash_tanh
 
 LOG_SIG_MAX = 2.0
 LOG_SIG_MIN = -20.0
@@ -31,9 +34,9 @@ class ActionSpec(NamedTuple):
         return ActionSpec(scale=(high - low) / 2.0, bias=(high + low) / 2.0)
 
 
-def _squash(mean, spec: ActionSpec):
+def _squash(mean, spec: ActionSpec, squash: str = "torch"):
     """The deterministic head: tanh(mean) * scale + bias."""
-    return torch.tanh(mean) * spec.scale + spec.bias
+    return squash_tanh(squash)(mean) * spec.scale + spec.bias
 
 
 def gaussian_policy_init(gen, obs_dim: int, action_dim: int, hidden: int,
@@ -60,7 +63,8 @@ def gaussian_policy_forward(params, obs):
 
 def gaussian_policy_sample(params, obs, spec: ActionSpec,
                            gen: Optional[torch.Generator] = None,
-                           noise: Optional[torch.Tensor] = None
+                           noise: Optional[torch.Tensor] = None,
+                           squash: str = "torch"
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Reparameterized sample: (action, log_prob (B,1), deterministic
@@ -72,14 +76,14 @@ def gaussian_policy_sample(params, obs, spec: ActionSpec,
         noise = torch.randn(mean.shape, generator=gen, device=mean.device,
                             dtype=mean.dtype)
     x = mean + std * noise
-    y = torch.tanh(x)
+    y = squash_tanh(squash)(x)
     action = y * spec.scale + spec.bias
     log_prob = (-0.5 * torch.square(noise) - log_std
                 - 0.5 * math.log(2.0 * math.pi))
     log_prob = log_prob - torch.log(spec.scale * (1.0 - torch.square(y))
                                     + EPS)
     log_prob = torch.sum(log_prob, dim=-1, keepdim=True)
-    return action, log_prob, _squash(mean, spec)
+    return action, log_prob, _squash(mean, spec, squash)
 
 
 def deterministic_policy_init(gen, obs_dim: int, action_dim: int,
@@ -92,10 +96,11 @@ def deterministic_policy_sample(params, obs, spec: ActionSpec,
                                 gen: Optional[torch.Generator] = None,
                                 noise: Optional[torch.Tensor] = None,
                                 noise_std: float = 0.1,
-                                noise_clip: float = 0.25):
+                                noise_clip: float = 0.25,
+                                squash: str = "torch"):
     """tanh(mean)*scale + bias plus clipped N(0, noise_std) noise; ``noise``
     is the standard-normal draw."""
-    mean = _squash(mlp_apply(params, obs), spec)
+    mean = _squash(mlp_apply(params, obs), spec, squash)
     if noise is None:
         noise = torch.randn(mean.shape, generator=gen, device=mean.device,
                             dtype=mean.dtype)
@@ -104,7 +109,8 @@ def deterministic_policy_sample(params, obs, spec: ActionSpec,
 
 
 def policy_mean_action(params, obs, spec: ActionSpec,
-                       policy_type: str = "gaussian"):
+                       policy_type: str = "gaussian",
+                       squash: str = "torch"):
     """The deterministic head ``tanh(mean) * scale + bias`` without a draw:
     the third output of ``gaussian_policy_sample`` (``policy_type``
     'gaussian') or of ``deterministic_policy_sample`` ('deterministic')."""
@@ -112,4 +118,4 @@ def policy_mean_action(params, obs, spec: ActionSpec,
         mean = mlp_apply(params, obs)
     else:
         mean, _ = gaussian_policy_forward(params, obs)
-    return _squash(mean, spec)
+    return _squash(mean, spec, squash)

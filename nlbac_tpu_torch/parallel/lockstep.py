@@ -176,7 +176,8 @@ def _seed_step(env, **kwargs):
 
 
 def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
-                              device="cuda", prepare=None, setup=None):
+                              device="cuda", prepare=None, setup=None,
+                              squash: str = "torch"):
     """Build ``(init_fn, run_fn)`` for N-seed lockstep training (the
     module's note).
 
@@ -205,10 +206,12 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
     an env or a constraint builder registered at run time is registered
     (a registry holds what its own process registered). A sharded run
     pickles both to its workers, so they must be module-level
-    functions."""
+    functions. ``squash`` is every seed's policy tanh (``make_agent``'s),
+    in every shard."""
     if isinstance(device, (list, tuple)):
         if len(device) > 1:
-            runner = ShardedSeedRunner(cfg, n_seeds, device, prepare, setup)
+            runner = ShardedSeedRunner(cfg, n_seeds, device, prepare, setup,
+                                       squash)
             return runner.init, runner
         device = device[0]
     if setup is not None:
@@ -217,7 +220,10 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
         raise ValueError(f"n_seeds must be at least 1, got {n_seeds}")
     device = resolve_device(device)
     env = get_env(cfg.env.name)
-    agent = make_agent(cfg, device)
+    # the default squash keeps make_agent's two-argument call, which a
+    # wrapped make_agent (a test's watch on each update) is given
+    agent = (make_agent(cfg, device) if squash == "torch"
+             else make_agent(cfg, device, squash=squash))
     scfg = cfg.sac
     dt = cfg.env.dt
     max_steps = cfg.env.max_episode_steps
@@ -361,15 +367,16 @@ class _Shard:
     (``seeds._serve``): the one-device lockstep of ``n_seeds`` seeds from
     ``base_seed``."""
 
-    def __init__(self, cfg, n_seeds, base_seed, prepare, setup):
+    def __init__(self, cfg, n_seeds, base_seed, prepare, setup, squash):
         self.cfg, self.n_seeds, self.base_seed = cfg, n_seeds, base_seed
-        self.prepare, self.setup = prepare, setup
+        self.prepare, self.setup, self.squash = prepare, setup, squash
 
     def start(self, dev) -> float:
         """Make the runner and the seeds; the seconds it took."""
         t0 = time.perf_counter()
         init_fn, self.run = make_seed_parallel_runner(
-            self.cfg, self.n_seeds, dev, self.prepare, self.setup)
+            self.cfg, self.n_seeds, dev, self.prepare, self.setup,
+            self.squash)
         self.carry = init_fn(self.base_seed)
         return time.perf_counter() - t0
 
@@ -391,7 +398,7 @@ class _Shard:
 
     def save(self, j, path, include_barrier) -> None:
         save_model_weights(path, unstack_state(self.cfg, self.carry[0], j),
-                           include_barrier)
+                           include_barrier, self.squash)
 
     def state(self, j):
         return seed_on_host(self.cfg, self.carry, j)
@@ -427,7 +434,7 @@ class ShardedSeedRunner:
     ends every worker and raises its traceback in the parent."""
 
     def __init__(self, cfg: NLBACConfig, n_seeds: int, devices,
-                 prepare=None, setup=None):
+                 prepare=None, setup=None, squash: str = "torch"):
         n_dev = len(devices)
         if n_seeds < 1 or n_seeds % n_dev:
             raise ValueError(
@@ -435,7 +442,7 @@ class ShardedSeedRunner:
                 f"devices (each device holds a block of n_seeds / "
                 f"{n_dev} seeds)")
         self.cfg, self.n_seeds = cfg, n_seeds
-        self.prepare, self.setup = prepare, setup
+        self.prepare, self.setup, self.squash = prepare, setup, squash
         self.devices = [torch.device(d) for d in devices]
         self.per_shard = n_seeds // n_dev
         # the seeds of each shard, as JAX's NamedSharding places them
@@ -458,7 +465,7 @@ class ShardedSeedRunner:
         threads = max(1, _cores() // len(self.devices))
         for dev, seeds in zip(self.devices, self.shards):
             shard = _Shard(self.cfg, self.per_shard, base_seed + seeds[0],
-                           self.prepare, self.setup)
+                           self.prepare, self.setup, self.squash)
             self._procs.append(_Process(ctx, shard, dev, threads))
         self.start_seconds = self._wait([p.pending[0] for p in self._procs])
         return [0] * self.n_seeds

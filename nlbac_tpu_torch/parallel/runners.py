@@ -143,7 +143,7 @@ def _place_fn(grid: ProcessGrid, device, shard: bool):
 
 def make_dp_episode_runner(cfg: NLBACConfig, n_devices: int,
                            grid: Optional[ProcessGrid] = None,
-                           device="cuda"):
+                           device="cuda", squash: str = "torch"):
     """The episode runner data-parallel over the ``n_devices`` ranks of
     ``grid`` (by default the world's first ``n_devices``): each update
     runs on this rank's rows of the batch and the group sums the
@@ -155,14 +155,14 @@ def make_dp_episode_runner(cfg: NLBACConfig, n_devices: int,
     if grid.dp != n_devices or grid.tp != 1:
         raise ValueError(f"grid {grid.shape} is not a dp={n_devices} grid")
     device = resolve_device(device)
-    agent = make_agent(cfg, device, dp_group=grid.dp_comm)
+    agent = make_agent(cfg, device, dp_group=grid.dp_comm, squash=squash)
     return (_place_fn(grid, device, shard=False),
-            make_episode_runner(cfg, device, agent=agent))
+            make_episode_runner(cfg, device, agent=agent, squash=squash))
 
 
 def make_tp_episode_runner(cfg: NLBACConfig, tp: int, dp: int = 1,
                            grid: Optional[ProcessGrid] = None,
-                           device="cuda"):
+                           device="cuda", squash: str = "torch"):
     """The episode runner tensor-parallel over ``tp`` ranks (and, with
     ``dp`` > 1, data-parallel over the grid's other axis): every network,
     its target and its Adam moments cut Megatron-style over the tp group
@@ -178,26 +178,31 @@ def make_tp_episode_runner(cfg: NLBACConfig, tp: int, dp: int = 1,
                          "grid")
     device = resolve_device(device)
     agent = make_agent(cfg, device,
-                       dp_group=grid.dp_comm if dp > 1 else None)
+                       dp_group=grid.dp_comm if dp > 1 else None,
+                       squash=squash)
     return (_place_fn(grid, device, shard=True),
-            make_episode_runner(cfg, device, agent=agent))
+            make_episode_runner(cfg, device, agent=agent, squash=squash))
 
 
-def make_dp_update(cfg: NLBACConfig, grid: ProcessGrid, device="cuda"):
+def make_dp_update(cfg: NLBACConfig, grid: ProcessGrid, device="cuda",
+                   squash: str = "torch"):
     """``(place, dp_update)``: ``place`` as the runners', ``dp_update(ts,
     batch, node_batch, gen, i_episode, noise=None)`` the update over whole
     batches with this rank's rows taken (``Agent.update_from_batch``)."""
     _validate_batches_divisible(cfg, grid.dp)
     device = resolve_device(device)
-    agent = make_agent(cfg, device, dp_group=grid.dp_comm)
+    agent = make_agent(cfg, device, dp_group=grid.dp_comm, squash=squash)
     return _place_fn(grid, device, shard=False), agent.update_from_batch
 
 
-def make_parallel_runner(cfg: NLBACConfig, grid: ProcessGrid, device):
+def make_parallel_runner(cfg: NLBACConfig, grid: ProcessGrid, device,
+                         squash: str = "torch"):
     """The runner of ``grid``'s layout: tp (with or without dp), dp, or
-    the plain runner for a 1 x 1 grid."""
+    the plain runner for a 1 x 1 grid; ``squash`` the policy's tanh."""
     if grid.tp > 1:
-        return make_tp_episode_runner(cfg, grid.tp, grid.dp, grid, device)
+        return make_tp_episode_runner(cfg, grid.tp, grid.dp, grid, device,
+                                      squash)
     if grid.dp > 1:
-        return make_dp_episode_runner(cfg, grid.dp, grid, device)
-    return (lambda tree: tree), make_episode_runner(cfg, device)
+        return make_dp_episode_runner(cfg, grid.dp, grid, device, squash)
+    return (lambda tree: tree), make_episode_runner(cfg, device,
+                                                    squash=squash)

@@ -120,22 +120,24 @@ class _Seeds:
     single-seed ``train()`` makes them and run one after another: what
     ``_serve`` holds and asks."""
 
-    def __init__(self, cfg, seeds):
-        self.cfg, self.seeds = cfg, seeds
+    def __init__(self, cfg, seeds, squash):
+        self.cfg, self.seeds, self.squash = cfg, seeds, squash
 
     def start(self, dev) -> None:
         self.states = {i: _new_seed(self.cfg, seed, dev)
                        for i, seed in self.seeds}
         ts, rl, node, gen, total = next(iter(self.states.values()))
         self.run = cached_episode_runner(self.cfg,
-                                         (ts, rl, node, gen, 0, total))
+                                         (ts, rl, node, gen, 0, total),
+                                         squash=self.squash)
 
     def episode(self, i_episode: int) -> dict:
         return {i: _run_episode(self.run, st, i_episode)
                 for i, st in self.states.items()}
 
     def save(self, i, path, include_barrier) -> None:
-        save_model_weights(path, self.states[i][0], include_barrier)
+        save_model_weights(path, self.states[i][0], include_barrier,
+                           self.squash)
 
     def state(self, i):
         ts, rl, node, _, total = self.states[i]
@@ -221,8 +223,8 @@ class _Process:
 
 
 class _ProcessStepper(SeedStepper):
-    def __init__(self, cfg, devices, n_seeds, n_workers):
-        self._cfg, self._devices = cfg, devices
+    def __init__(self, cfg, devices, n_seeds, n_workers, squash):
+        self._cfg, self._devices, self._squash = cfg, devices, squash
         self._n_seeds, self._n_workers = n_seeds, n_workers
         self._procs: List[_Process] = []
 
@@ -233,8 +235,9 @@ class _ProcessStepper(SeedStepper):
             seeds = [(i, base_seed + i)
                      for i in range(w, self._n_seeds, self._n_workers)]
             device = self._devices[w % len(self._devices)]
-            self._procs.append(_Process(ctx, _Seeds(self._cfg, seeds),
-                                        device, threads))
+            self._procs.append(_Process(
+                ctx, _Seeds(self._cfg, seeds, self._squash), device,
+                threads))
         for p in self._procs:
             p.pending[0].result()
         return list(range(self._n_seeds))
@@ -285,8 +288,8 @@ def _cores() -> int:
 # ---------------------------------------------------------------------------
 
 class _GroupStepper(SeedStepper):
-    def __init__(self, cfg, n_seeds, grids, device):
-        self._cfg, self._n_seeds = cfg, n_seeds
+    def __init__(self, cfg, n_seeds, grids, device, squash):
+        self._cfg, self._n_seeds, self._squash = cfg, n_seeds, squash
         self._n_groups = len(grids)
         mine = [g for g, grid in enumerate(grids) if grid is not None]
         if len(mine) != 1:
@@ -294,7 +297,8 @@ class _GroupStepper(SeedStepper):
                              "group")
         self._group, self.grid = mine[0], grids[mine[0]]
         self._device = device
-        self._place, self._run = make_parallel_runner(cfg, self.grid, device)
+        self._place, self._run = make_parallel_runner(cfg, self.grid, device,
+                                                      squash)
 
     def init(self, base_seed: int):
         return [list(self._place(tuple(
@@ -314,7 +318,7 @@ class _GroupStepper(SeedStepper):
         if self.grid.tp > 1:
             ts = gather_state_tp(ts)
         if self.grid.is_root and path is not None:
-            save_model_weights(path, ts, include_barrier)
+            save_model_weights(path, ts, include_barrier, self._squash)
 
 
 def _default_devices():
@@ -326,7 +330,8 @@ def _default_devices():
 
 def make_async_seed_runner(cfg: NLBACConfig, devices=None,
                            n_seeds: Optional[int] = None, dp: int = 1,
-                           tp: int = 1, grids: Optional[Sequence] = None):
+                           tp: int = 1, grids: Optional[Sequence] = None,
+                           squash: str = "torch"):
     """Seed-parallel training: ``(init_fn, step_fn)``.
 
     ``init_fn(base_seed)`` makes every seed's state, seed i from
@@ -347,7 +352,8 @@ def make_async_seed_runner(cfg: NLBACConfig, devices=None,
     round robin. With ``dp``/``tp`` > 1, ``grids`` is ``make_grids``' list
     for this rank and ``devices`` its one device: seed i trains on group
     ``i % len(grids)``, this rank running its group's seeds one after
-    another (the group's collectives go in one order on every rank)."""
+    another (the group's collectives go in one order on every rank).
+    ``squash`` is every seed's policy tanh (``make_agent``'s)."""
     if dp > 1 or tp > 1:
         if not grids:
             raise ValueError("dp/tp seed groups need this rank's grids "
@@ -355,12 +361,13 @@ def make_async_seed_runner(cfg: NLBACConfig, devices=None,
         device = torch.device(devices[0]) if devices else \
             _default_devices()[0]
         n = len(grids) if n_seeds is None else n_seeds
-        stepper = _GroupStepper(cfg, n, grids, device)
+        stepper = _GroupStepper(cfg, n, grids, device, squash)
         return stepper.init, stepper
     devices = [torch.device(d) for d in (devices or _default_devices())]
     n_seeds = len(devices) if n_seeds is None else n_seeds
     # at most a process per core, a multiple of the device count so that
     # seed i stays on device i % n_devices
     per = max(1, _cores() // len(devices)) * len(devices)
-    stepper = _ProcessStepper(cfg, devices, n_seeds, min(n_seeds, per))
+    stepper = _ProcessStepper(cfg, devices, n_seeds, min(n_seeds, per),
+                              squash)
     return stepper.init, stepper

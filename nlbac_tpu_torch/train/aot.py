@@ -47,13 +47,14 @@ def episode_kernels(cfg: NLBACConfig, device) -> List[str]:
 
 def cached_episode_runner(cfg: NLBACConfig, example_args: Sequence[Any],
                           cache_dir: str | None = None,
-                          env_override=None) -> Callable:
+                          env_override=None,
+                          squash: str = "torch") -> Callable:
     """``make_episode_runner(cfg, ...)`` on the device of ``example_args``
     (the episode runner's arguments: ``(ts, rl_replay, node_replay, gen,
     i_episode, total_steps)``), with every kernel library of its episode
     loaded first. ``cache_dir`` is refused: the libraries live in
     ``_build/`` under their sources' hashes, and no program is cached
-    elsewhere."""
+    elsewhere. ``squash`` is the policy's tanh (``make_agent``'s)."""
     if cache_dir is not None:
         raise ValueError(
             "cached_episode_runner keeps no cache directory: the kernel "
@@ -62,4 +63,5 @@ def cached_episode_runner(cfg: NLBACConfig, example_args: Sequence[Any],
     device = example_args[1].data.device
     for name in episode_kernels(cfg, device):
         _LOADERS[name]()
-    return make_episode_runner(cfg, device, env_override=env_override)
+    return make_episode_runner(cfg, device, env_override=env_override,
+                               squash=squash)

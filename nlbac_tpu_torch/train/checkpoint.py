@@ -7,7 +7,10 @@
   ``barrier.pkl`` for the learned-barrier family), each a pickle of
   numpy arrays in the JAX package's ``(in, out)`` layout, written
   atomically. The JAX package's ``load_model_weights`` and ``nlbac-eval``
-  read them.
+  read them. Weights trained under a squash other than ``torch.tanh``
+  (``make_agent(..., squash=...)``) have it recorded beside them in
+  ``squash.json``, which ``weights_squash`` reads (evaluation and export
+  follow it).
 - ``checkpoint_arrays`` / ``restore_checkpoint``: the full training state
   in the port's own ``.npz`` (numpy arrays only, loaded with
   ``allow_pickle=False``): every parameter and target, every Adam state,
@@ -23,7 +26,9 @@
   snapshot (its valid rows, cursor and sampler state) in place of the
   device RL replay and the host env's generator beside the trainer's.
   The archive's ``extra`` records ``mode`` (``fused`` or ``host_loop``),
-  and each restore refuses the other mode's file.
+  and each restore refuses the other mode's file; it records the policy's
+  ``squash`` too (an older archive's is ``torch``), and each restore
+  refuses a run of another squash.
 - ``AsyncCheckpointer``: writes either mode's arrays as one archive on a
   background thread; the ``*_arrays`` functions take the host snapshot
   before they return. ``write_checkpoint`` writes them in the caller's
@@ -53,6 +58,7 @@ FORMAT = "nlbac_tpu_torch.checkpoint/1"
 WEIGHT_FILES = {"actor.pkl": "policy", "critic.pkl": "critic",
                 "lyapunov.pkl": "lyap", "node_model.pkl": "node"}
 BARRIER_FILE = "barrier.pkl"
+SQUASH_FILE = "squash.json"
 REPLAYS = ("rl_replay", "node_replay")
 
 
@@ -80,13 +86,31 @@ def _weights(ts: TrainState, field: str):
 
 
 def save_model_weights(output_dir: str, ts: TrainState,
-                       include_barrier: bool = False) -> None:
+                       include_barrier: bool = False,
+                       squash: str = "torch") -> None:
     """Weights-only files in the reference's layout; ``barrier.pkl`` too
-    with ``include_barrier`` (the learned-barrier family)."""
+    with ``include_barrier`` (the learned-barrier family); ``squash.json``
+    where the policy's ``squash`` is not the default (an earlier one is
+    removed otherwise)."""
     os.makedirs(output_dir, exist_ok=True)
     for name, field in _weight_files(include_barrier).items():
         _write_atomic(os.path.join(output_dir, name),
                       pickle.dumps(to_numpy(_weights(ts, field))))
+    record = os.path.join(output_dir, SQUASH_FILE)
+    if squash != "torch":
+        _write_atomic(record, json.dumps({"squash": squash}).encode())
+    elif os.path.exists(record):
+        os.remove(record)
+
+
+def weights_squash(output_dir: str) -> str:
+    """The squash that the weights in ``output_dir`` were trained under
+    (``torch`` where no record is beside them)."""
+    record = os.path.join(output_dir, SQUASH_FILE)
+    if not os.path.exists(record):
+        return "torch"
+    with open(record) as f:
+        return json.load(f)["squash"]
 
 
 def _copy_leaves(what: str, dst, src) -> None:
@@ -161,13 +185,15 @@ def _tail_arrays(ts: TrainState, gen: torch.Generator, total_steps: int,
 
 def checkpoint_arrays(ts: TrainState, rl_replay: Replay, node_replay: Replay,
                       gen: torch.Generator, total_steps: int,
-                      i_episode: int) -> Dict[str, np.ndarray]:
-    """The training state as numpy arrays, copied to new host memory."""
+                      i_episode: int, squash: str = "torch"
+                      ) -> Dict[str, np.ndarray]:
+    """The training state as numpy arrays, copied to new host memory;
+    ``squash`` is the policy's, recorded in ``extra``."""
     arrays = _state_arrays(ts)
     for name, rep in zip(REPLAYS, (rl_replay, node_replay)):
         arrays.update(_replay_arrays(name, rep))
     arrays.update(_tail_arrays(ts, gen, total_steps, i_episode,
-                               {"mode": "fused"}))
+                               {"mode": "fused", "squash": squash}))
     return arrays
 
 
@@ -241,6 +267,19 @@ def _mode(z, path: str) -> str:
     return json.loads(bytes(z["extra"]).decode())["mode"]
 
 
+def checkpoint_squash(z) -> str:
+    """The policy's squash that an open archive ``z`` records (``torch``
+    for an archive written before it was recorded)."""
+    return json.loads(bytes(z["extra"]).decode()).get("squash", "torch")
+
+
+def _check_squash(z, path: str, squash: str) -> None:
+    saved = checkpoint_squash(z)
+    if saved != squash:
+        raise ValueError(f"{path} was trained with --squash {saved}; "
+                         f"resume it with --squash {saved}, not {squash}")
+
+
 def _restore_state(z, ts: TrainState) -> None:
     # an archive written before the layout was recorded holds the plain one
     saved = json.loads(bytes(z["extra"]).decode()).get("twin_q", "plain")
@@ -290,15 +329,17 @@ def _restore_tail(z, ts: TrainState, gen: torch.Generator
 
 
 def restore_checkpoint(path: str, ts: TrainState, rl_replay: Replay,
-                       node_replay: Replay, gen: torch.Generator
-                       ) -> Tuple[int, int]:
+                       node_replay: Replay, gen: torch.Generator,
+                       squash: str = "torch") -> Tuple[int, int]:
     """Restore a checkpoint into ``ts``, the replays and ``gen`` (built
-    from the run's config, which they are checked against); returns
-    ``(total_steps, i_episode)``."""
+    from the run's config, which they are checked against) for a run
+    under the policy's ``squash`` (the archive's must be the same);
+    returns ``(total_steps, i_episode)``."""
     with np.load(path, allow_pickle=False) as z:
         if _mode(z, path) != "fused":
             raise ValueError(f"{path} is a host-loop checkpoint; resume it "
                              "with --host_loop")
+        _check_squash(z, path, squash)
         _restore_state(z, ts)
         for name, rep in zip(REPLAYS, (rl_replay, node_replay)):
             _restore_replay(name, z, rep)
@@ -308,12 +349,13 @@ def restore_checkpoint(path: str, ts: TrainState, rl_replay: Replay,
 def host_checkpoint_arrays(ts: TrainState, ring, node_replay: Replay,
                            gen: torch.Generator,
                            env_gen: Optional[torch.Generator],
-                           total_steps: int, i_episode: int
+                           total_steps: int, i_episode: int,
+                           squash: str = "torch"
                            ) -> Dict[str, np.ndarray]:
     """The host loop's training state as fresh host arrays: ``ring`` is
     the native RL ring (``runtime_native.HostReplay``; its valid rows,
     cursor and sampler state), ``env_gen`` the host env's generator (or
-    None)."""
+    None); ``squash`` as ``checkpoint_arrays``'."""
     arrays = _state_arrays(ts)
     data, meta = ring.snapshot()
     arrays["rl_ring.data"] = data[:int(meta[1])].copy()
@@ -322,21 +364,22 @@ def host_checkpoint_arrays(ts: TrainState, ring, node_replay: Replay,
     if env_gen is not None:
         arrays["env_gen"] = env_gen.get_state().numpy()
     arrays.update(_tail_arrays(ts, gen, total_steps, i_episode,
-                               {"mode": "host_loop"}))
+                               {"mode": "host_loop", "squash": squash}))
     return arrays
 
 
 def restore_host_checkpoint(path: str, ts: TrainState, ring,
                             node_replay: Replay, gen: torch.Generator,
-                            env_gen: Optional[torch.Generator]
-                            ) -> Tuple[int, int]:
+                            env_gen: Optional[torch.Generator],
+                            squash: str = "torch") -> Tuple[int, int]:
     """Restore a host-loop checkpoint into ``ts``, the native ring (in
-    place), the NODE replay and both generators; returns ``(total_steps,
-    i_episode)``."""
+    place), the NODE replay and both generators, for a run under
+    ``squash``; returns ``(total_steps, i_episode)``."""
     with np.load(path, allow_pickle=False) as z:
         if _mode(z, path) != "host_loop":
             raise ValueError(f"{path} is not a host-loop checkpoint; resume "
                              "it without --host_loop")
+        _check_squash(z, path, squash)
         if ("env_gen" in z) != (env_gen is not None):
             raise ValueError(f"{path}: the host env's generator state is "
                              f"{'in' if 'env_gen' in z else 'not in'} the "

@@ -7,7 +7,12 @@ The flags, their defaults, the run-directory layout
 ``progress.txt`` columns, ``config.json``, the reference-layout weight
 files and the save cadence are the JAX CLI's; the full-state checkpoint
 is the port's own ``.npz`` (``train/checkpoint.py``). Training runs on
-the GPU unless ``--cpu`` is given. ``--host_loop`` trains through the
+the GPU unless ``--cpu`` is given. ``--squash xla`` gives the policy
+XLA's CPU tanh in place of ``torch.tanh`` (a diagnostic: the JAX
+package's squash as its CPU programs compute it, ``nn/xla_float.py``),
+in every mode; the run's checkpoint and weight files record it, a
+``--resume`` under another squash is refused, and ``--mode eval``
+follows the weights' record. ``--host_loop`` trains through the
 host-loop mode (``train/host_loop.py``: the preset's env behind the host
 gym API, the native RL ring, the updates on the device);
 ``--wandb``/``--tensorboard`` add those channels when installed;
@@ -188,6 +193,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host_loop", action="store_true",
                    help="train in the host-loop mode: the env on the host, "
                         "the native C++ RL ring, the updates on the device")
+    p.add_argument("--squash", default=None, choices=["torch", "xla"],
+                   help="the policy's tanh: torch.tanh (training's "
+                        "default) or XLA's CPU tanh, as the JAX package "
+                        "computes it (a diagnostic); --mode eval follows "
+                        "the weights' record")
     p.add_argument("--mode", default="train", choices=["train", "eval"],
                    help="eval: roll out the weights in --output (a run "
                         "directory) for 5 episodes")
@@ -489,7 +499,7 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
           quiet: bool = False, checkpoint_path: str | None = None,
           resume_path: str | None = None, device="cuda",
           profile_dir: str | None = None, dp: int = 1, tp: int = 1,
-          grid=None):
+          grid=None, squash: str = "torch"):
     """The training loop: episodes of ``run_episode`` with the JAX CLI's
     logging, weight files, checkpoint cadence and best-window selection.
     With ``profile_dir``, the second episode this process runs (a steady
@@ -502,8 +512,9 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
     0's state, and runs the data-/tensor-parallel episode; the files are
     the caller's to give to rank 0 only (``output_dir`` None elsewhere).
     Under tp the ranks put the whole state together before each save,
-    so the files are those of a run of one. Returns this rank's state
-    (its shards under tp)."""
+    so the files are those of a run of one. ``squash`` is the policy's
+    tanh (``make_agent``'s), recorded in the checkpoint and beside the
+    weights. Returns this rank's state (its shards under tp)."""
     device = resolve_device(device)
     if grid is None and dp * tp > 1:
         grid = make_mesh((dp, tp))
@@ -531,19 +542,20 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
         rl_replay, node_replay = create_replays(cfg, device)
         if resume_path is not None:
             total_steps, ep0 = restore_checkpoint(
-                resume_path, ts, rl_replay, node_replay, gen)
+                resume_path, ts, rl_replay, node_replay, gen, squash)
             start_episode = ep0 + 1
             print(colorize(f"resumed from {resume_path} at episode "
                            f"{start_episode} ({total_steps} steps)",
                            "yellow"))
         if grid is not None:
-            place, run_episode = make_parallel_runner(cfg, grid, device)
+            place, run_episode = make_parallel_runner(cfg, grid, device,
+                                                      squash)
             ts, rl_replay, node_replay, gen, total_steps = place(
                 (ts, rl_replay, node_replay, gen, total_steps))
         else:
             run_episode = cached_episode_runner(
                 cfg, (ts, rl_replay, node_replay, gen, start_episode,
-                      total_steps))
+                      total_steps), squash=squash)
 
     def whole():
         """The state as a run of one holds it (a collective under tp)."""
@@ -586,7 +598,8 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
                         snap = whole()
                         if best_dir is not None:
                             save_model_weights(best_dir, snap,
-                                               include_barrier=is_nbc)
+                                               include_barrier=is_nbc,
+                                               squash=squash)
                             with open(os.path.join(best_dir, "best.json"),
                                       "w") as f:
                                 json.dump({"episode": i_episode,
@@ -600,14 +613,15 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
                 snap = whole()
                 if output_dir is not None:
                     save_model_weights(output_dir, snap,
-                                       include_barrier=is_nbc)
+                                       include_barrier=is_nbc,
+                                       squash=squash)
                     if checkpoint_path is None:
                         checkpoint_path = os.path.join(output_dir,
                                                        "checkpoint.npz")
                     with timer.time("checkpoint"):
                         ckpt_writer.save(checkpoint_path, checkpoint_arrays(
                             snap, rl_replay, node_replay, gen, total_steps,
-                            i_episode))
+                            i_episode, squash))
 
             wb = {"Episode Reward": m["reward"],
                   "Episode Length": m["steps"],
@@ -666,18 +680,20 @@ def train_host_loop(args, cfg: NLBACConfig, device) -> None:
         ts, _ = train_host_env(
             cfg, adapter, logger=logger, quiet=args.quiet, sink=sink,
             weights_dir=lk["output_dir"], checkpoint_path=checkpoint_path,
-            resume_path=args.resume, device=device)
+            resume_path=args.resume, device=device, squash=_squash(args))
     finally:
         if sink is not None:
             sink.close()
         logger.close()
     save_model_weights(lk["output_dir"], ts,
-                       include_barrier=uses_barrier(cfg.constraint.kind))
+                       include_barrier=uses_barrier(cfg.constraint.kind),
+                       squash=_squash(args))
 
 
 def train_multi_seed(cfg: NLBACConfig, n_seeds: int,
                      output_root: str | None, quiet: bool = False,
-                     dp: int = 1, tp: int = 1, device="cuda", grids=None):
+                     dp: int = 1, tp: int = 1, device="cuda", grids=None,
+                     squash: str = "torch"):
     """Seed-parallel training (``--n_seeds``): seeds ``cfg.run.seed + i``
     advance side by side through ``parallel.make_async_seed_runner`` (in
     worker processes, see ``parallel/seeds.py``), seed i
@@ -688,7 +704,8 @@ def train_multi_seed(cfg: NLBACConfig, n_seeds: int,
     reward over the seeds. With ``dp``/``tp``, this rank's ``grids``
     (``parallel.make_grids``) lay the seeds over groups of ranks; each
     group's first rank writes its seeds' files and global rank 0 prints
-    the aggregate row. Returns ``(states, launches)``: the runner's states
+    the aggregate row; ``squash`` is every seed's policy tanh. Returns
+    ``(states, launches)``: the runner's states
     and each seed's K1 launches over the run, as the kernel's wrapper
     counted them where the seed ran (0 for other groups' seeds)."""
     device = resolve_device(device)
@@ -718,7 +735,7 @@ def train_multi_seed(cfg: NLBACConfig, n_seeds: int,
     with timer.time("init"):
         init_fn, step_fn = make_async_seed_runner(
             cfg, devices=devices, n_seeds=n_seeds, dp=dp, tp=tp,
-            grids=grids)
+            grids=grids, squash=squash)
         try:
             states = init_fn(cfg.run.seed)
         except BaseException:
@@ -844,6 +861,11 @@ def _multi_seed_loop(cfg, output_root, quiet, seeds, loggers, step_fn,
         process(*pending)
 
 
+def _squash(args) -> str:
+    """The policy's tanh of a training run: ``--squash``, else torch's."""
+    return args.squash or "torch"
+
+
 def _device_for(args, local_rank: int = 0):
     """Before any run dir: the device this process trains on (raises
     without a GPU unless --cpu)."""
@@ -867,6 +889,8 @@ def _banner(args, cfg, out, device, rank=None):
         extra += f" tp={args.tp}"
     if rank is not None:
         extra += f" rank={rank}/{args.num_processes}"
+    if _squash(args) != "torch":
+        extra += f" squash={_squash(args)}"
     print(colorize(f"NLBAC-TORCH preset={args.preset} env={cfg.env.name} "
                    f"device={name}{extra} -> {out}", "green", bold=True))
 
@@ -877,7 +901,8 @@ def _run_rank(args, cfg, device, out, grids) -> None:
     each seed group, writes into it)."""
     if args.n_seeds > 1:
         train_multi_seed(cfg, args.n_seeds, out, quiet=args.quiet,
-                         dp=args.dp, tp=args.tp, device=device, grids=grids)
+                         dp=args.dp, tp=args.tp, device=device, grids=grids,
+                         squash=_squash(args))
         return
     rank0 = grids[0].is_root
     lk = (setup_logger_kwargs(cfg.run.exp_name, cfg.run.seed, data_dir=out)
@@ -886,7 +911,7 @@ def _run_rank(args, cfg, device, out, grids) -> None:
           checkpoint_path=args.checkpoint if rank0 else None,
           resume_path=args.resume, device=device,
           profile_dir=args.profile_dir, dp=args.dp, tp=args.tp,
-          grid=grids[0])
+          grid=grids[0], squash=_squash(args))
 
 
 def _gang_rank(rank: int, world: int, coordinator: str, argv, out,
@@ -931,12 +956,18 @@ def main(argv=None):
     device = _device_for(args, args.process_id or 0)
     if args.mode == "eval":
         # the weights in --output, which names a run directory here
+        from nlbac_tpu_torch.train.checkpoint import weights_squash
         from nlbac_tpu_torch.utils.evaluate import (
             load_trained_state,
             run_policy,
         )
+        squash = weights_squash(args.output)
+        if args.squash not in (None, squash):
+            raise SystemExit(f"the weights in {args.output} were trained "
+                             f"with --squash {squash}; drop --squash or "
+                             f"pass --squash {squash}")
         ts = load_trained_state(cfg, args.output, device)
-        run_policy(cfg, ts, episodes=5, seed=cfg.run.seed)
+        run_policy(cfg, ts, episodes=5, seed=cfg.run.seed, squash=squash)
         return
     if args.host_loop:
         train_host_loop(args, cfg, device)
@@ -968,12 +999,12 @@ def main(argv=None):
         return
     if args.n_seeds > 1:
         train_multi_seed(cfg, args.n_seeds, out, quiet=args.quiet,
-                         device=device)
+                         device=device, squash=_squash(args))
         return
     lk = setup_logger_kwargs(cfg.run.exp_name, cfg.run.seed, data_dir=out)
     train(cfg, output_dir=lk["output_dir"], quiet=args.quiet,
           checkpoint_path=args.checkpoint, resume_path=args.resume,
-          device=device, profile_dir=args.profile_dir)
+          device=device, profile_dir=args.profile_dir, squash=_squash(args))
 
 
 if __name__ == "__main__":

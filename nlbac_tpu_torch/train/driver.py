@@ -117,7 +117,8 @@ class UpdateCarry(NamedTuple):
 
 
 def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None,
-                        env_override=None, _update_step=None):
+                        env_override=None, _update_step=None,
+                        squash: str = "torch"):
     """Build ``run_episode(ts, rl_replay, node_replay, gen, i_episode,
     total_steps) -> (ts, rl_replay, node_replay, EpisodeMetrics,
     total_steps)``. State, replays and ``gen`` live on ``device``.
@@ -128,12 +129,18 @@ def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None,
     replaces an env step's block of ``updates_per_step`` sequential
     ``agent.update`` calls (experimental variants and measurements only,
     see ``nlbac_tpu_torch.experimental``); ``carry`` is an ``UpdateCarry``,
-    and the metrics' ``short_integrations`` count the whole block's."""
+    and the metrics' ``short_integrations`` count the whole block's.
+    ``squash`` is the policy's tanh (``make_agent``'s); a given ``agent``
+    must have been made with it."""
     device = resolve_device(device)
     env = env_override if env_override is not None else \
         get_env(cfg.env.name)
-    agent = agent if agent is not None else \
-        make_agent(cfg, device, env_override=env_override)
+    if agent is None:
+        agent = make_agent(cfg, device, env_override=env_override,
+                           squash=squash)
+    elif agent.squash != squash:
+        raise ValueError(f"the agent's squash is {agent.squash!r}, the "
+                         f"runner's {squash!r}")
     scfg = cfg.sac
     dt = cfg.env.dt
     max_steps = cfg.env.max_episode_steps

@@ -86,8 +86,8 @@ def train_host_env(cfg: NLBACConfig, adapter, episodes: Optional[int] = None,
                    quiet: bool = True, on_episode_end=None, sink=None,
                    weights_dir: Optional[str] = None,
                    checkpoint_path: Optional[str] = None,
-                   resume_path: Optional[str] = None, device="cuda"
-                   ) -> tuple:
+                   resume_path: Optional[str] = None, device="cuda",
+                   squash: str = "torch") -> tuple:
     """Train against a ``HostEnvAdapter``; returns ``(ts,
     per_episode_rows)``.
 
@@ -100,7 +100,9 @@ def train_host_env(cfg: NLBACConfig, adapter, episodes: Optional[int] = None,
       one and continues bit for bit (an env without a generator of its
       own has its resets replayed instead, as the JAX package does);
     - ``sink``: a ``MetricsSink`` given the reference's per-episode dict;
-    - ``on_episode_end(i_episode, ts, row)``: called after each episode.
+    - ``on_episode_end(i_episode, ts, row)``: called after each episode;
+    - ``squash``: the policy's tanh (``make_agent``'s), recorded beside
+      the weights and in the checkpoint.
     """
     if cfg.supervisor.kind != "none" and not cfg.constraint.use_backup:
         raise ValueError(
@@ -112,7 +114,7 @@ def train_host_env(cfg: NLBACConfig, adapter, episodes: Optional[int] = None,
         raise ValueError(
             f"updates_per_step must be >= 1 (got {scfg.updates_per_step})")
     device = resolve_device(device)
-    agent = make_agent(cfg, device, env_override=adapter)
+    agent = make_agent(cfg, device, env_override=adapter, squash=squash)
     seed = cfg.run.seed if seed is None else seed
     episodes = cfg.run.max_episodes if episodes is None else episodes
     max_steps = cfg.env.max_episode_steps
@@ -145,7 +147,7 @@ def train_host_env(cfg: NLBACConfig, adapter, episodes: Optional[int] = None,
     total_steps = start_episode = 0
     if resume_path is not None:
         total_steps, ep0 = restore_host_checkpoint(
-            resume_path, ts, rings.rl, node_replay, gen, env_gen)
+            resume_path, ts, rings.rl, node_replay, gen, env_gen, squash)
         start_episode = ep0 + 1
         if env_gen is None:
             # each completed episode consumed one reset
@@ -291,11 +293,12 @@ def train_host_env(cfg: NLBACConfig, adapter, episodes: Optional[int] = None,
                 if weights_dir is not None:
                     save_model_weights(weights_dir, ts,
                                        include_barrier=uses_barrier(
-                                           cfg.constraint.kind))
+                                           cfg.constraint.kind),
+                                       squash=squash)
                 if ckpt_writer is not None:
                     ckpt_writer.save(checkpoint_path, host_checkpoint_arrays(
                         ts, rings.rl, node_replay, gen, env_gen, total_steps,
-                        i_episode))
+                        i_episode, squash))
             if on_episode_end is not None:
                 on_episode_end(i_episode, ts, row)
     finally:

@@ -12,7 +12,9 @@ Usage:
 both packages write, so a run of either evaluates here. The rollout runs
 on the GPU unless ``--cpu`` is given. Each episode resets from a
 ``torch.Generator`` seeded ``seed + ep`` and ends at ``done``, reading
-the device once a step.
+the device once a step. The policy squashes with the tanh its weights
+were trained under (the record ``train.checkpoint.weights_squash``
+reads).
 """
 
 from __future__ import annotations
@@ -80,10 +82,11 @@ def _tracked(st, width: int):
 
 def run_policy(cfg, ts, episodes: int = 5, seed: int = 0,
                render_path: Optional[str] = None, deterministic=True,
-               display: bool = False, spawn_alpha: Optional[float] = None):
+               display: bool = False, spawn_alpha: Optional[float] = None,
+               squash: str = "torch"):
     """Roll out ``ts.policy`` for ``episodes`` episodes on the device its
-    weights live on. Returns one {"return", "length", "violations"} dict
-    an episode."""
+    weights live on, squashed with ``squash``'s tanh. Returns one
+    {"return", "length", "violations"} dict an episode."""
     env = get_env(cfg.env.name)
     if spawn_alpha is not None:
         _check_spawn_alpha(cfg, spawn_alpha)
@@ -112,9 +115,10 @@ def run_policy(cfg, ts, episodes: int = 5, seed: int = 0,
             while not done:
                 if deterministic:
                     a = policy_mean_action(ts.policy, obs[None], spec,
-                                           policy_type)[0]
+                                           policy_type, squash)[0]
                 else:
-                    a = sample(ts.policy, obs[None], spec, gen=gen)[0][0]
+                    a = sample(ts.policy, obs[None], spec, gen=gen,
+                               squash=squash)[0][0]
                 st, out = env.step(st, a, max_episode_steps=max_steps,
                                    **step_kwargs)
                 obs = out.obs
@@ -197,6 +201,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from nlbac_tpu_torch.config import get_config
+    from nlbac_tpu_torch.train.checkpoint import weights_squash
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = get_config(args.preset)
@@ -204,7 +209,8 @@ def main(argv=None):
     results = run_policy(cfg, ts, episodes=args.episodes, seed=args.seed,
                          render_path=args.render, display=args.display,
                          deterministic=not args.stochastic,
-                         spawn_alpha=args.spawn_alpha)
+                         spawn_alpha=args.spawn_alpha,
+                         squash=weights_squash(args.run_dir))
     if args.json:
         import json
 

@@ -15,6 +15,9 @@ The weights are buffers of the exported module, so ``act.to("cuda")``
 moves a CPU export to the card. The stochastic head takes the
 standard-normal draw ``(B, action_dim)`` as its second input, where the
 JAX export takes a PRNG key (the two packages' random streams differ).
+The head squashes with the tanh its weights were trained under (the
+record ``train.checkpoint.weights_squash`` reads; the manifest names a
+squash other than ``torch.tanh``).
 
 CLI:
     python -m nlbac_tpu_torch.utils.export_policy RUN_DIR --preset unicycle \
@@ -53,8 +56,9 @@ class PolicyHead(torch.nn.Module):
     it."""
 
     def __init__(self, policy, spec: ActionSpec, policy_type: str,
-                 stochastic: bool = False):
+                 stochastic: bool = False, squash: str = "torch"):
         super().__init__()
+        self.squash = squash
         self._tree = tree_map(lambda _: None, policy)  # the structure
         self.policy_type = policy_type
         self.stochastic = stochastic
@@ -73,31 +77,36 @@ class PolicyHead(torch.nn.Module):
         params = self._params()
         spec = ActionSpec(scale=self.scale, bias=self.bias)
         if not self.stochastic:
-            return policy_mean_action(params, obs, spec, self.policy_type)
+            return policy_mean_action(params, obs, spec, self.policy_type,
+                                      self.squash)
         sample = (deterministic_policy_sample
                   if self.policy_type == "deterministic"
                   else gaussian_policy_sample)
-        return sample(params, obs, spec, noise=noise)[0]
+        return sample(params, obs, spec, noise=noise,
+                      squash=self.squash)[0]
 
 
-def make_policy_fn(cfg, ts, deterministic: bool = True) -> PolicyHead:
+def make_policy_fn(cfg, ts, deterministic: bool = True,
+                   squash: str = "torch") -> PolicyHead:
     """The serving module of ``ts.policy`` on the device its weights live
     on: ``(obs) -> action``, or ``(obs, noise) -> action`` when not
-    ``deterministic``."""
+    ``deterministic``; ``squash`` is the policy's tanh."""
     env = get_env(cfg.env.name)
     device = tree_leaves(ts.policy)[0].device
     spec = ActionSpec.from_bounds(env.SPEC.action_low, env.SPEC.action_high,
                                   device)
     return PolicyHead(ts.policy, spec, cfg.sac.policy_type,
-                      stochastic=not deterministic).eval()
+                      stochastic=not deterministic, squash=squash).eval()
 
 
 def export_policy(cfg, ts, path: str, deterministic: bool = True,
-                  batch: Optional[int] = None) -> None:
+                  batch: Optional[int] = None, squash: str = "torch"
+                  ) -> None:
     """Export the policy head to ``path`` (and a ``.json`` manifest beside
     it). ``batch=None`` gives a symbolic batch dimension; an int pins it.
     The program is traced on the device of ``ts``'s weights."""
-    head = make_policy_fn(cfg, ts, deterministic=deterministic)
+    head = make_policy_fn(cfg, ts, deterministic=deterministic,
+                          squash=squash)
     device = head.scale.device
     # trace with 2 rows or more: an example batch of 1 would specialize
     # the dimension to 1
@@ -125,6 +134,8 @@ def export_policy(cfg, ts, path: str, deterministic: bool = True,
         "batch": batch,  # None = symbolic
         "torch_version": torch.__version__,
     }
+    if squash != "torch":  # the JAX export's fields, and a squash of note
+        manifest["squash"] = squash
     # the manifest is written the same way, so a crash never pairs a new
     # program with a stale or truncated manifest
     _write_atomic(path + _MANIFEST_SUFFIX,
@@ -162,6 +173,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from nlbac_tpu_torch.config import get_config
+    from nlbac_tpu_torch.train.checkpoint import weights_squash
     from nlbac_tpu_torch.utils.evaluate import load_trained_state
 
     device = resolve_device("cpu" if args.cpu else "cuda")
@@ -169,7 +181,7 @@ def main(argv=None):
     ts = load_trained_state(cfg, args.run_dir, device)
     out = args.out or os.path.join(args.run_dir, "policy.pt2")
     export_policy(cfg, ts, out, deterministic=not args.stochastic,
-                  batch=args.batch)
+                  batch=args.batch, squash=weights_squash(args.run_dir))
     print(f"exported {args.preset} policy "
           f"({'stochastic' if args.stochastic else 'deterministic'}, "
           f"batch={'symbolic' if args.batch is None else args.batch}) "

@@ -516,7 +516,7 @@ class Runner:
                   "card_index": card,
                   "processes_per_card": self.args.per_card,
                   "cards_in_call": len(self.card_names),
-                  "call": self.call}
+                  "call": self.call, "cli_args": self.args.cli_args}
         seed.commit(header, rows, ckpt, steps, record)
         shutil.rmtree(os.path.join(seed.work, "chunk"), ignore_errors=True)
         print(f"s{seed.seed}: episodes {start}..{end - 1} kept, {steps} env "
@@ -1047,8 +1047,11 @@ def build_parser():
                    help="train on the CPU at tiny widths (a check of the "
                         "script, not a band)")
     r.add_argument("--cli_args", default="",
-                   help="more flags for every CLI process (checks only; "
-                        "the band runs the preset's defaults)")
+                   help="more flags for every CLI process: a check's cuts, "
+                        "or --squash xla (the band of the XLA-form squash, "
+                        "into its own --out and --work; the band otherwise "
+                        "runs the preset's defaults); each chunk record "
+                        "keeps them")
     j = sub.add_parser("judge", help="hold the port's seeds to the band")
     j.add_argument("--preset", default="unicycle", choices=sorted(PRESETS))
     j.add_argument("--port", default=None,

@@ -29,9 +29,12 @@ one-ulp port's; then, for each part of the state, its largest gap to
 JAX's after the last update, relative to the part's largest entry, for
 the port and for the one-ulp port. A port that follows JAX only as far as
 float32 noise lets it shows gaps to JAX of the floor's size.
-``--xla_tanh`` (a diagnostic) gives both port runs XLA's tanh, computed
-by JAX, so that what gap remains is not the tanh's (the pinned deviation
-of ROADMAP Queue 3).
+``--xla_tanh`` gives both port runs the port's own XLA-form squash
+(``make_agent(..., squash="xla")``, ``nlbac-train-torch --squash xla``:
+XLA's CPU tanh and its jitted derivative, bit for bit), so that what gap
+remains is not the tanh's (the pinned deviation of ROADMAP Queue 3). A
+checkpoint of a run under ``--squash xla`` records it; the script prints
+the record.
 
 It imports both packages (a comparison, like the tests), and is not part
 of the test suite: a full-width update sequence takes minutes on the CPU.
@@ -63,6 +66,7 @@ from nlbac_tpu_torch.agent import make_agent  # noqa: E402
 from nlbac_tpu_torch.agent.update import METRIC_NAMES  # noqa: E402
 from nlbac_tpu_torch.interop import to_reference  # noqa: E402
 from nlbac_tpu_torch.nn import gaussian_policy_forward  # noqa: E402
+from nlbac_tpu_torch.nn.xla_float import xla_tanh  # noqa: E402
 from nlbac_tpu_torch.replay import buffer as replay_lib  # noqa: E402
 from nlbac_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from nlbac_tpu_torch.train.driver import create_replays  # noqa: E402
@@ -87,7 +91,8 @@ def restore(cfg, path):
         for name, rep in zip(ckpt.REPLAYS, (rl, node)):
             ckpt._restore_replay(name, z, rep)
         ts.updates, total, episode = (int(v) for v in z["counters"])
-    return ts, rl, node, total, episode
+        squash = ckpt.checkpoint_squash(z)
+    return ts, rl, node, total, episode, squash
 
 
 def replay_rows(rep):
@@ -124,26 +129,6 @@ def pre_tanh(ts, batch, noise):
     return torch.cat(out)
 
 
-class XlaTanh(torch.autograd.Function):
-    """tanh as XLA computes it on the CPU (through JAX), with JAX's
-    derivative (1 + y)(1 - y) g: a diagnostic stand-in for torch.tanh."""
-
-    @staticmethod
-    def forward(ctx, x):
-        y = torch.from_numpy(np.array(_jax_tanh(x.detach().numpy())))
-        ctx.save_for_backward(y)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        return (g + g * y) * (1 - y)
-
-
-_jax_tanh = jax.jit(jnp.tanh)
-TORCH_TANH = torch.tanh
-
-
 def ulp_jump(u):
     """The largest change of the squash term log(1 - tanh(u)^2 + 1e-6)
     (action scale 1) under a one-ulp move of u, with torch's tanh and with
@@ -154,7 +139,7 @@ def ulp_jump(u):
         return torch.log(1.0 - torch.square(y) + 1e-6)
 
     jumps = {}
-    for name, tanh in (("torch", TORCH_TANH), ("xla", XlaTanh.apply)):
+    for name, tanh in (("torch", torch.tanh), ("xla", xla_tanh)):
         with torch.no_grad():
             jumps[name] = float((term(tanh(up)) - term(tanh(u))).abs()
                                 .max())
@@ -204,17 +189,15 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0,
                    help="the batches' numpy seed and the keys' offset")
     p.add_argument("--xla_tanh", action="store_true",
-                   help="diagnostic: both port runs take XLA's tanh in "
-                        "place of torch.tanh (the one place the port "
-                        "calls it is the policy's squash)")
+                   help="both port runs take the port's XLA-form squash "
+                        "(squash='xla') in place of torch.tanh")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
-    if args.xla_tanh:
-        torch.tanh = XlaTanh.apply
+    squash = "xla" if args.xla_tanh else "torch"
     t0 = time.monotonic()
 
     cfg_t, cfg_j = tconfig.get_config(PRESET), jconfig.get_config(PRESET)
-    port, rl, node, total, last = restore(cfg_t, args.checkpoint)
+    port, rl, node, total, last, trained = restore(cfg_t, args.checkpoint)
     ulp, *_ = restore(cfg_t, args.checkpoint)
     one_ulp_up(ulp)
     episode = last + 1
@@ -222,13 +205,15 @@ def main(argv=None):
                             j_create(cfg_j, jax.random.PRNGKey(0)))
     ts_j = jax.tree.map(jnp.asarray, to_reference(port, template))
     update = jax.jit(j_make_agent(cfg_j).update_from_batch)
-    agent = make_agent(cfg_t, "cpu")
+    agent = make_agent(cfg_t, "cpu", squash=squash)
     rl_rows, layout = replay_rows(rl)
     node_rows, _ = replay_rows(node)
     rng = np.random.default_rng(args.seed)
     n_u, batch_size = cfg_j.action_dim, cfg_j.sac.batch_size
     print(f"{args.checkpoint}: episode {last}, {total} env steps, "
-          f"{port.updates} updates; rho {float(port.lag.rho)}, lam "
+          f"{port.updates} updates (trained under --squash {trained}); "
+          f"these updates under squash {squash}; rho "
+          f"{float(port.lag.rho)}, lam "
           f"{port.lag.lam.tolist()}; RL rows {rl.size}, NODE rows "
           f"{node.size}; the next {args.updates} updates at episode "
           f"{episode}", flush=True)
@@ -281,6 +266,7 @@ def main(argv=None):
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"checkpoint": args.checkpoint, "episode": episode,
+                       "trained_squash": trained, "squash": squash,
                        "updates": rows, "state_gap": gap_j,
                        "state_floor": gap_u}, f, indent=1)
     return 0

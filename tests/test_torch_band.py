@@ -20,6 +20,10 @@
 (g) with band seeds short, ``judge`` fails a band that no outcome of
     theirs can pass and otherwise tables what each number of misses
     among them leads to.
+(h) ``run --cpu --cli_args "--squash xla"`` passes the flag to every
+    chunk (the second chunk resumes the first's checkpoint under it);
+(i) (f) for the committed band under ``--squash xla``
+    (``results/torch_band/unicycle_xla_squash/``).
 
 Tolerances: none; (a) compares at the printed precision (0.05), the rest
 bit for bit.
@@ -462,6 +466,35 @@ def test_committed_band_verdict_matches_perf(tmp_path):
     stated = re.findall(r"band verdict: \*\*(\w+)\*\*",
                         (ROOT / "PERF.md").read_text())
     assert stated, "PERF.md states no band verdict"
+    got = judge(port, tmp_path)
+    assert got["verdict"] == stated[-1]
+    committed = json.loads((port / "judge.json").read_text())
+    assert committed["verdict"] == got["verdict"]
+    assert committed["port"] == got["port"]
+
+
+def test_run_passes_cli_args_to_every_chunk(tmp_path):
+    """``--cli_args "--squash xla"`` reaches both chunks' processes: each
+    chunk record keeps it, and the second chunk resumed the first's
+    checkpoint, which records the squash (a resume under another squash
+    is refused, and the chunk would fail)."""
+    run(tmp_path, "xla", "--episodes", "2", "--chunk", "1", "--cli_args",
+        "--squash xla")
+    state, rows, ckpt = kept(tmp_path, "xla")
+    assert [c["episodes"] for c in state["chunks"]] == [[0, 0], [1, 1]]
+    assert [c["cli_args"] for c in state["chunks"]] == ["--squash xla"] * 2
+    with np.load(ckpt) as z:
+        assert json.loads(bytes(z["extra"]).decode())["squash"] == "xla"
+    assert len(rows.splitlines()) == 3
+
+
+def test_committed_squash_band_verdict_matches_perf(tmp_path):
+    """(f) for the band under ``--squash xla``
+    (``results/torch_band/unicycle_xla_squash/``)."""
+    port = ROOT / "results" / "torch_band" / "unicycle_xla_squash"
+    stated = re.findall(r"`--squash xla` band's verdict: \*\*(\w+)\*\*",
+                        (ROOT / "PERF.md").read_text())
+    assert stated, "PERF.md states no verdict of the --squash xla band"
     got = judge(port, tmp_path)
     assert got["verdict"] == stated[-1]
     committed = json.loads((port / "judge.json").read_text())
