@@ -35,7 +35,7 @@ Phases, one line each (any failure raises and exits nonzero):
    episode, then resume it from its checkpoint.npz for one more episode
    (launch counts reset just before each run, read just after); profile 10 more steps of the restored state (device busy
    share, top device ops); then hold one full-width update on the card
-   against the same update on the CPU, and again under ``squash="xla"``;
+   against the same update on the CPU, and again under ``squash="torch"``;
    then ms per update of the restored state under each squash,
    interleaved (SQUASH_BLOCKS blocks of SQUASH_BLOCK updates each);
 6. cars and PVTOL at their full widths through the CLI, each with its
@@ -235,6 +235,7 @@ from nlbac_tpu_torch.agent.state import make_optimizers
 from nlbac_tpu_torch.config import get_config
 from nlbac_tpu_torch.envs import get_env
 from nlbac_tpu_torch.nn import (
+    DEFAULT_SQUASH,
     make_field,
     node_init,
     pack_input,
@@ -274,14 +275,14 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 # passes through Adam's normalisation and the constraint's /dt.
 UPDATE_RTOL, UPDATE_ATOL = 1e-3, 1e-4
 # Depth of the CLI runs (the presets' widths are kept): unicycle 2
-# episodes of 300 steps (preset: 200 of 1200), resumed for a third; cars
+# episodes of 200 steps (preset: 200 of 1200), resumed for a third; cars
 # 1 of 300 (preset: 200 of 300); PVTOL 1 of 600 (preset: 400 of 2000).
 # Short enough that the whole script ends well within its 1200 s limit on
 # a slow host. The unicycle runs take --start_steps one episode (preset:
 # 1000), so the first episode's actions are random warm-up draws and the
 # second episode and the resumed third are trained and resumed with the
 # policy acting.
-EPISODES, EPISODE_STEPS = 2, 300
+EPISODES, EPISODE_STEPS = 2, 200
 PRESET_RUNS = {"cars": (1, 300), "pvtol": (1, 600)}
 # nbc_unicycle 1 episode of 400 steps (preset: 200 of 1200), nbc_pvtol 1
 # of 500 (preset: 210 of 2000); the quadrotor in chunks of QUAD_CHUNK
@@ -862,7 +863,7 @@ def cli_run(preset, argv, card, label):
     return run, launches, steps, updates, seconds
 
 
-def restored(preset, argv, run, dev, squash="torch"):
+def restored(preset, argv, run, dev, squash=DEFAULT_SQUASH):
     """The config of a CLI run and its final state, replays and generator,
     restored on ``dev`` from the run's checkpoint.npz (a run under
     ``squash``)."""
@@ -1018,7 +1019,7 @@ def check_preset(preset, argv, run, dev, card):
 
 def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None,
                           rtol=UPDATE_RTOL, atol=UPDATE_ATOL,
-                          squash="torch"):
+                          squash=DEFAULT_SQUASH):
     """One full-width update from a fresh state on the card (kernel) and
     on the CPU (plain version), with the same batches and draws; the NODE
     fit on ``node_rows`` rows (default: the config's 32768); the policy's
@@ -1063,7 +1064,7 @@ def update_on_card_vs_cpu(cfg, rl, node, dev, node_rows=None,
     if cfg.node.compute_dtype is not None:
         solver += (f" (NODE in {cfg.node.compute_dtype}, {launches} K1 "
                    "launches)")
-    if squash != "torch":
+    if squash != DEFAULT_SQUASH:
         solver += f" (squash {squash})"
     phase(f"{cfg.run.exp_name} full-width update{solver}, card vs CPU: "
           f"{len(m_cpu)} metrics within rtol "
@@ -1494,12 +1495,12 @@ def xla_tanh_on_card(dev, card):
 
 def squash_on_card(cfg, ts, rl, node, dev, card):
     """Phase 5's squash checks: one full-width update from a fresh state
-    under ``squash="xla"`` on the card against the CPU (UPDATE_RTOL /
-    UPDATE_ATOL), then ms per update of ``ts`` (stepped in place) on its
-    replays under each squash, in SQUASH_BLOCKS interleaved blocks of
-    SQUASH_BLOCK updates (each block holds one NODE fit). Returns the
-    figures."""
-    update_on_card_vs_cpu(cfg, rl, node, dev, squash="xla")
+    under ``squash="torch"`` (the option; phase 5 holds the default's) on
+    the card against the CPU (UPDATE_RTOL / UPDATE_ATOL), then ms per
+    update of ``ts`` (stepped in place) on its replays under each squash,
+    in SQUASH_BLOCKS interleaved blocks of SQUASH_BLOCK updates (each
+    block holds one NODE fit). Returns the figures."""
+    update_on_card_vs_cpu(cfg, rl, node, dev, squash="torch")
     agents = {s: make_agent(cfg, dev, squash=s) for s in ("torch", "xla")}
     gen = torch.Generator(dev).manual_seed(SEED + 6)
     for agent in agents.values():  # warm-up
@@ -3066,8 +3067,8 @@ def counted_runner(cfg, dev, calls):
     """``make_seed_parallel_runner(cfg, SEEDS, dev)`` whose agent records
     each update call in ``calls`` (``CountedAgent``)."""
     real = parallel.lockstep.make_agent
-    parallel.lockstep.make_agent = lambda c, d: CountedAgent(real(c, d),
-                                                             calls)
+    parallel.lockstep.make_agent = lambda c, d, **kw: CountedAgent(
+        real(c, d, **kw), calls)
     try:
         return parallel.make_seed_parallel_runner(cfg, SEEDS, dev)
     finally:

@@ -98,6 +98,7 @@ from nlbac_tpu_torch.constraints import get_builder, uses_barrier
 from nlbac_tpu_torch.constraints import primary_loss as lag_primary_loss
 from nlbac_tpu_torch.envs import get_env
 from nlbac_tpu_torch.nn import (
+    DEFAULT_SQUASH,
     ActionSpec,
     apply_grads,
     barrier_apply,
@@ -144,20 +145,20 @@ class Agent(NamedTuple):
     update_core: Callable
     update_from_batch: Callable
     node_fit: Callable
-    squash: str = "torch"
+    squash: str = DEFAULT_SQUASH
 
 
 def make_agent(cfg: NLBACConfig, device="cuda", env_override=None,
                dp_group=None, _decoupled_updates: bool = False,
-               squash: str = "torch") -> Agent:
+               squash: str = DEFAULT_SQUASH) -> Agent:
     """``env_override`` stands in for the registry's env (a host-env
     adapter, ``envs.host_adapter``): it exposes ``SPEC`` and, where its obs
     is not the NODE state, ``obs_to_state``. ``dp_group`` (a
     ``parallel.mesh.Comm``) runs each update on this rank's rows of the
     batch, as the module's note sets out. ``squash`` is the policy's tanh
-    (``nn.xla_float.SQUASHES``): ``"torch"``, or ``"xla"`` for XLA's CPU
-    tanh (a diagnostic; not a config field, so that the config stays the
-    JAX package's).
+    (``nn.xla_float.SQUASHES``): ``"xla"`` for XLA's CPU tanh (the
+    default, ``nn.DEFAULT_SQUASH``), or ``"torch"`` for ``torch.tanh``; not
+    a config field, so that the config stays the JAX package's.
 
     ``_decoupled_updates`` is an experimental variant reachable only
     through ``nlbac_tpu_torch.experimental.make_decoupled_agent``: the

@@ -31,6 +31,7 @@ from nlbac_tpu_torch.nn.node import (  # noqa: F401
     uses_euler_kernel,
 )
 from nlbac_tpu_torch.nn.policy import (  # noqa: F401
+    DEFAULT_SQUASH,
     ActionSpec,
     deterministic_policy_init,
     deterministic_policy_sample,

@@ -3,8 +3,8 @@
 
 Sampling takes an explicit ``torch.Generator``, or the standard-normal
 draws themselves (``noise``) so that a test can feed the reference's.
-``squash`` picks the tanh of every squash here: ``"torch"`` (the default,
-``torch.tanh``) or ``"xla"`` (XLA's CPU tanh, ``nn/xla_float.py``)."""
+``squash`` picks the tanh of every squash here: ``"xla"`` (XLA's CPU tanh,
+``nn/xla_float.py``; ``DEFAULT_SQUASH``) or ``"torch"`` (``torch.tanh``)."""
 
 from __future__ import annotations
 
@@ -15,6 +15,10 @@ import torch
 
 from nlbac_tpu_torch.nn.mlp import mlp_apply, mlp_init, xavier_uniform
 from nlbac_tpu_torch.nn.xla_float import squash_tanh
+
+# The policy's squash wherever none is asked for: XLA's CPU tanh, as the
+# JAX package computes it (``--squash torch`` gives ``torch.tanh``)
+DEFAULT_SQUASH = "xla"
 
 LOG_SIG_MAX = 2.0
 LOG_SIG_MIN = -20.0
@@ -34,7 +38,7 @@ class ActionSpec(NamedTuple):
         return ActionSpec(scale=(high - low) / 2.0, bias=(high + low) / 2.0)
 
 
-def _squash(mean, spec: ActionSpec, squash: str = "torch"):
+def _squash(mean, spec: ActionSpec, squash: str = DEFAULT_SQUASH):
     """The deterministic head: tanh(mean) * scale + bias."""
     return squash_tanh(squash)(mean) * spec.scale + spec.bias
 
@@ -64,7 +68,7 @@ def gaussian_policy_forward(params, obs):
 def gaussian_policy_sample(params, obs, spec: ActionSpec,
                            gen: Optional[torch.Generator] = None,
                            noise: Optional[torch.Tensor] = None,
-                           squash: str = "torch"
+                           squash: str = DEFAULT_SQUASH
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Reparameterized sample: (action, log_prob (B,1), deterministic
@@ -97,7 +101,7 @@ def deterministic_policy_sample(params, obs, spec: ActionSpec,
                                 noise: Optional[torch.Tensor] = None,
                                 noise_std: float = 0.1,
                                 noise_clip: float = 0.25,
-                                squash: str = "torch"):
+                                squash: str = DEFAULT_SQUASH):
     """tanh(mean)*scale + bias plus clipped N(0, noise_std) noise; ``noise``
     is the standard-normal draw."""
     mean = _squash(mlp_apply(params, obs), spec, squash)
@@ -110,7 +114,7 @@ def deterministic_policy_sample(params, obs, spec: ActionSpec,
 
 def policy_mean_action(params, obs, spec: ActionSpec,
                        policy_type: str = "gaussian",
-                       squash: str = "torch"):
+                       squash: str = DEFAULT_SQUASH):
     """The deterministic head ``tanh(mean) * scale + bias`` without a draw:
     the third output of ``gaussian_policy_sample`` (``policy_type``
     'gaussian') or of ``deterministic_policy_sample`` ('deterministic')."""

@@ -10,7 +10,8 @@ follow those forms:
   and the XLA-form tanh's derivative;
 - ``xla_tanh``: the policy's squash under ``squash="xla"``
   (``nn/policy.py``; ``make_agent(..., squash=...)``,
-  ``nlbac-train-torch --squash``), a diagnostic that is off by default.
+  ``nlbac-train-torch --squash``), the default (``nn.DEFAULT_SQUASH``;
+  ``squash="torch"`` gives ``torch.tanh``).
   Only the tanh and its derivative take XLA's form: the squash term
   log(scale (1 - y^2) + 1e-6) and the action y scale + bias keep the
   port's two roundings where XLA fuses each product and sum into one
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-# The policy's squash: ``torch.tanh`` (the default) or XLA's CPU tanh.
+# The policy's squash: XLA's CPU tanh (the default) or ``torch.tanh``.
 SQUASHES = ("torch", "xla")
 
 # Eigen's generic_fast_tanh_float, as XLA's CPU backend emits it with FMA:

@@ -94,6 +94,7 @@ from nlbac_tpu_torch.agent.state import stack_states, unstack_state
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.config import NLBACConfig
 from nlbac_tpu_torch.envs import get_env
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH
 from nlbac_tpu_torch.ops import node_kernel
 from nlbac_tpu_torch.parallel.seeds import (
     _cores,
@@ -177,7 +178,7 @@ def _seed_step(env, **kwargs):
 
 def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
                               device="cuda", prepare=None, setup=None,
-                              squash: str = "torch"):
+                              squash: str = DEFAULT_SQUASH):
     """Build ``(init_fn, run_fn)`` for N-seed lockstep training (the
     module's note).
 
@@ -220,10 +221,7 @@ def make_seed_parallel_runner(cfg: NLBACConfig, n_seeds: int,
         raise ValueError(f"n_seeds must be at least 1, got {n_seeds}")
     device = resolve_device(device)
     env = get_env(cfg.env.name)
-    # the default squash keeps make_agent's two-argument call, which a
-    # wrapped make_agent (a test's watch on each update) is given
-    agent = (make_agent(cfg, device) if squash == "torch"
-             else make_agent(cfg, device, squash=squash))
+    agent = make_agent(cfg, device, squash=squash)
     scfg = cfg.sac
     dt = cfg.env.dt
     max_steps = cfg.env.max_episode_steps
@@ -434,7 +432,7 @@ class ShardedSeedRunner:
     ends every worker and raises its traceback in the parent."""
 
     def __init__(self, cfg: NLBACConfig, n_seeds: int, devices,
-                 prepare=None, setup=None, squash: str = "torch"):
+                 prepare=None, setup=None, squash: str = DEFAULT_SQUASH):
         n_dev = len(devices)
         if n_seeds < 1 or n_seeds % n_dev:
             raise ValueError(

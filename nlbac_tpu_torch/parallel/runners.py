@@ -24,6 +24,7 @@ import torch
 from nlbac_tpu_torch import resolve_device
 from nlbac_tpu_torch.agent import TrainState, make_agent
 from nlbac_tpu_torch.config import NLBACConfig
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH
 from nlbac_tpu_torch.parallel.mesh import ProcessGrid, make_mesh
 from nlbac_tpu_torch.parallel.tp import shard_state_tp
 from nlbac_tpu_torch.replay import Replay
@@ -143,7 +144,7 @@ def _place_fn(grid: ProcessGrid, device, shard: bool):
 
 def make_dp_episode_runner(cfg: NLBACConfig, n_devices: int,
                            grid: Optional[ProcessGrid] = None,
-                           device="cuda", squash: str = "torch"):
+                           device="cuda", squash: str = DEFAULT_SQUASH):
     """The episode runner data-parallel over the ``n_devices`` ranks of
     ``grid`` (by default the world's first ``n_devices``): each update
     runs on this rank's rows of the batch and the group sums the
@@ -162,7 +163,7 @@ def make_dp_episode_runner(cfg: NLBACConfig, n_devices: int,
 
 def make_tp_episode_runner(cfg: NLBACConfig, tp: int, dp: int = 1,
                            grid: Optional[ProcessGrid] = None,
-                           device="cuda", squash: str = "torch"):
+                           device="cuda", squash: str = DEFAULT_SQUASH):
     """The episode runner tensor-parallel over ``tp`` ranks (and, with
     ``dp`` > 1, data-parallel over the grid's other axis): every network,
     its target and its Adam moments cut Megatron-style over the tp group
@@ -185,7 +186,7 @@ def make_tp_episode_runner(cfg: NLBACConfig, tp: int, dp: int = 1,
 
 
 def make_dp_update(cfg: NLBACConfig, grid: ProcessGrid, device="cuda",
-                   squash: str = "torch"):
+                   squash: str = DEFAULT_SQUASH):
     """``(place, dp_update)``: ``place`` as the runners', ``dp_update(ts,
     batch, node_batch, gen, i_episode, noise=None)`` the update over whole
     batches with this rank's rows taken (``Agent.update_from_batch``)."""
@@ -196,7 +197,7 @@ def make_dp_update(cfg: NLBACConfig, grid: ProcessGrid, device="cuda",
 
 
 def make_parallel_runner(cfg: NLBACConfig, grid: ProcessGrid, device,
-                         squash: str = "torch"):
+                         squash: str = DEFAULT_SQUASH):
     """The runner of ``grid``'s layout: tp (with or without dp), dp, or
     the plain runner for a 1 x 1 grid; ``squash`` the policy's tanh."""
     if grid.tp > 1:

@@ -35,6 +35,7 @@ from nlbac_tpu_torch.agent import create_train_state
 from nlbac_tpu_torch.agent.state import OPT_GROUPS
 from nlbac_tpu_torch.config import NLBACConfig
 from nlbac_tpu_torch.interop import TARGETS, TRAINED
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH
 from nlbac_tpu_torch.ops import node_kernel
 from nlbac_tpu_torch.parallel.runners import make_parallel_runner
 from nlbac_tpu_torch.parallel.tp import gather_state_tp
@@ -331,7 +332,7 @@ def _default_devices():
 def make_async_seed_runner(cfg: NLBACConfig, devices=None,
                            n_seeds: Optional[int] = None, dp: int = 1,
                            tp: int = 1, grids: Optional[Sequence] = None,
-                           squash: str = "torch"):
+                           squash: str = DEFAULT_SQUASH):
     """Seed-parallel training: ``(init_fn, step_fn)``.
 
     ``init_fn(base_seed)`` makes every seed's state, seed i from

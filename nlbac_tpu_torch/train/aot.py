@@ -28,7 +28,7 @@ from typing import Any, Callable, List, Sequence
 import torch
 
 from nlbac_tpu_torch.config import NLBACConfig
-from nlbac_tpu_torch.nn import uses_euler_kernel
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH, uses_euler_kernel
 from nlbac_tpu_torch.ops import node_kernel
 from nlbac_tpu_torch.train.driver import make_episode_runner
 
@@ -48,7 +48,7 @@ def episode_kernels(cfg: NLBACConfig, device) -> List[str]:
 def cached_episode_runner(cfg: NLBACConfig, example_args: Sequence[Any],
                           cache_dir: str | None = None,
                           env_override=None,
-                          squash: str = "torch") -> Callable:
+                          squash: str = DEFAULT_SQUASH) -> Callable:
     """``make_episode_runner(cfg, ...)`` on the device of ``example_args``
     (the episode runner's arguments: ``(ts, rl_replay, node_replay, gen,
     i_episode, total_steps)``), with every kernel library of its episode

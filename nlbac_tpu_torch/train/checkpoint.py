@@ -7,10 +7,10 @@
   ``barrier.pkl`` for the learned-barrier family), each a pickle of
   numpy arrays in the JAX package's ``(in, out)`` layout, written
   atomically. The JAX package's ``load_model_weights`` and ``nlbac-eval``
-  read them. Weights trained under a squash other than ``torch.tanh``
-  (``make_agent(..., squash=...)``) have it recorded beside them in
-  ``squash.json``, which ``weights_squash`` reads (evaluation and export
-  follow it).
+  read them. The policy's squash (``make_agent(..., squash=...)``) is
+  recorded beside them in ``squash.json``, which ``weights_squash`` reads
+  (evaluation and export follow it; a directory without one was trained
+  under ``torch.tanh``).
 - ``checkpoint_arrays`` / ``restore_checkpoint``: the full training state
   in the port's own ``.npz`` (numpy arrays only, loaded with
   ``allow_pickle=False``): every parameter and target, every Adam state,
@@ -50,7 +50,7 @@ import torch
 from nlbac_tpu_torch.agent.state import OPT_GROUPS, TrainState
 from nlbac_tpu_torch.constraints.common import LagrangianState
 from nlbac_tpu_torch.interop import TARGETS, TRAINED, to_numpy
-from nlbac_tpu_torch.nn import twin_q_unstack
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH, twin_q_unstack
 from nlbac_tpu_torch.replay import Replay
 from nlbac_tpu_torch.tree import tree_leaves
 
@@ -59,6 +59,10 @@ WEIGHT_FILES = {"actor.pkl": "policy", "critic.pkl": "critic",
                 "lyapunov.pkl": "lyap", "node_model.pkl": "node"}
 BARRIER_FILE = "barrier.pkl"
 SQUASH_FILE = "squash.json"
+# the squash of an archive or weights directory that records none: every
+# save records its squash, and those that did not were trained under
+# torch.tanh
+UNRECORDED_SQUASH = "torch"
 REPLAYS = ("rl_replay", "node_replay")
 
 
@@ -87,20 +91,16 @@ def _weights(ts: TrainState, field: str):
 
 def save_model_weights(output_dir: str, ts: TrainState,
                        include_barrier: bool = False,
-                       squash: str = "torch") -> None:
+                       squash: str = DEFAULT_SQUASH) -> None:
     """Weights-only files in the reference's layout; ``barrier.pkl`` too
-    with ``include_barrier`` (the learned-barrier family); ``squash.json``
-    where the policy's ``squash`` is not the default (an earlier one is
-    removed otherwise)."""
+    with ``include_barrier`` (the learned-barrier family); ``squash.json``,
+    the policy's ``squash``."""
     os.makedirs(output_dir, exist_ok=True)
     for name, field in _weight_files(include_barrier).items():
         _write_atomic(os.path.join(output_dir, name),
                       pickle.dumps(to_numpy(_weights(ts, field))))
-    record = os.path.join(output_dir, SQUASH_FILE)
-    if squash != "torch":
-        _write_atomic(record, json.dumps({"squash": squash}).encode())
-    elif os.path.exists(record):
-        os.remove(record)
+    _write_atomic(os.path.join(output_dir, SQUASH_FILE),
+                  json.dumps({"squash": squash}).encode())
 
 
 def weights_squash(output_dir: str) -> str:
@@ -108,7 +108,7 @@ def weights_squash(output_dir: str) -> str:
     (``torch`` where no record is beside them)."""
     record = os.path.join(output_dir, SQUASH_FILE)
     if not os.path.exists(record):
-        return "torch"
+        return UNRECORDED_SQUASH
     with open(record) as f:
         return json.load(f)["squash"]
 
@@ -185,7 +185,7 @@ def _tail_arrays(ts: TrainState, gen: torch.Generator, total_steps: int,
 
 def checkpoint_arrays(ts: TrainState, rl_replay: Replay, node_replay: Replay,
                       gen: torch.Generator, total_steps: int,
-                      i_episode: int, squash: str = "torch"
+                      i_episode: int, squash: str = DEFAULT_SQUASH
                       ) -> Dict[str, np.ndarray]:
     """The training state as numpy arrays, copied to new host memory;
     ``squash`` is the policy's, recorded in ``extra``."""
@@ -270,7 +270,8 @@ def _mode(z, path: str) -> str:
 def checkpoint_squash(z) -> str:
     """The policy's squash that an open archive ``z`` records (``torch``
     for an archive written before it was recorded)."""
-    return json.loads(bytes(z["extra"]).decode()).get("squash", "torch")
+    return json.loads(bytes(z["extra"]).decode()).get("squash",
+                                                       UNRECORDED_SQUASH)
 
 
 def _check_squash(z, path: str, squash: str) -> None:
@@ -330,7 +331,7 @@ def _restore_tail(z, ts: TrainState, gen: torch.Generator
 
 def restore_checkpoint(path: str, ts: TrainState, rl_replay: Replay,
                        node_replay: Replay, gen: torch.Generator,
-                       squash: str = "torch") -> Tuple[int, int]:
+                       squash: str = DEFAULT_SQUASH) -> Tuple[int, int]:
     """Restore a checkpoint into ``ts``, the replays and ``gen`` (built
     from the run's config, which they are checked against) for a run
     under the policy's ``squash`` (the archive's must be the same);
@@ -350,7 +351,7 @@ def host_checkpoint_arrays(ts: TrainState, ring, node_replay: Replay,
                            gen: torch.Generator,
                            env_gen: Optional[torch.Generator],
                            total_steps: int, i_episode: int,
-                           squash: str = "torch"
+                           squash: str = DEFAULT_SQUASH
                            ) -> Dict[str, np.ndarray]:
     """The host loop's training state as fresh host arrays: ``ring`` is
     the native RL ring (``runtime_native.HostReplay``; its valid rows,
@@ -371,7 +372,7 @@ def host_checkpoint_arrays(ts: TrainState, ring, node_replay: Replay,
 def restore_host_checkpoint(path: str, ts: TrainState, ring,
                             node_replay: Replay, gen: torch.Generator,
                             env_gen: Optional[torch.Generator],
-                            squash: str = "torch") -> Tuple[int, int]:
+                            squash: str = DEFAULT_SQUASH) -> Tuple[int, int]:
     """Restore a host-loop checkpoint into ``ts``, the native ring (in
     place), the NODE replay and both generators, for a run under
     ``squash``; returns ``(total_steps, i_episode)``."""

@@ -7,12 +7,13 @@ The flags, their defaults, the run-directory layout
 ``progress.txt`` columns, ``config.json``, the reference-layout weight
 files and the save cadence are the JAX CLI's; the full-state checkpoint
 is the port's own ``.npz`` (``train/checkpoint.py``). Training runs on
-the GPU unless ``--cpu`` is given. ``--squash xla`` gives the policy
-XLA's CPU tanh in place of ``torch.tanh`` (a diagnostic: the JAX
-package's squash as its CPU programs compute it, ``nn/xla_float.py``),
-in every mode; the run's checkpoint and weight files record it, a
-``--resume`` under another squash is refused, and ``--mode eval``
-follows the weights' record. ``--host_loop`` trains through the
+the GPU unless ``--cpu`` is given. The policy squashes with XLA's CPU
+tanh (the JAX package's squash as its CPU programs compute it,
+``nn/xla_float.py``) unless ``--squash torch`` gives it ``torch.tanh``,
+in every mode; the run's checkpoint and weight files record the squash
+(an archive or weights directory with no record was trained under
+``torch``), a ``--resume`` under another squash is refused, and ``--mode
+eval`` follows the weights' record. ``--host_loop`` trains through the
 host-loop mode (``train/host_loop.py``: the preset's env behind the host
 gym API, the native RL ring, the updates on the device);
 ``--wandb``/``--tensorboard`` add those channels when installed;
@@ -60,6 +61,7 @@ from nlbac_tpu_torch.agent import create_train_state
 from nlbac_tpu_torch.config import NLBACConfig, get_config
 from nlbac_tpu_torch.constraints import uses_barrier
 from nlbac_tpu_torch.envs import as_host_env, get_env
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH
 from nlbac_tpu_torch.parallel import (
     device_for_rank,
     gather_state_tp,
@@ -194,10 +196,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train in the host-loop mode: the env on the host, "
                         "the native C++ RL ring, the updates on the device")
     p.add_argument("--squash", default=None, choices=["torch", "xla"],
-                   help="the policy's tanh: torch.tanh (training's "
-                        "default) or XLA's CPU tanh, as the JAX package "
-                        "computes it (a diagnostic); --mode eval follows "
-                        "the weights' record")
+                   help="the policy's tanh: XLA's CPU tanh, as the JAX "
+                        "package computes it (training's default), or "
+                        "torch.tanh; --mode eval follows the weights' "
+                        "record")
     p.add_argument("--mode", default="train", choices=["train", "eval"],
                    help="eval: roll out the weights in --output (a run "
                         "directory) for 5 episodes")
@@ -499,7 +501,7 @@ def train(cfg: NLBACConfig, output_dir: str | None = None,
           quiet: bool = False, checkpoint_path: str | None = None,
           resume_path: str | None = None, device="cuda",
           profile_dir: str | None = None, dp: int = 1, tp: int = 1,
-          grid=None, squash: str = "torch"):
+          grid=None, squash: str = DEFAULT_SQUASH):
     """The training loop: episodes of ``run_episode`` with the JAX CLI's
     logging, weight files, checkpoint cadence and best-window selection.
     With ``profile_dir``, the second episode this process runs (a steady
@@ -693,7 +695,7 @@ def train_host_loop(args, cfg: NLBACConfig, device) -> None:
 def train_multi_seed(cfg: NLBACConfig, n_seeds: int,
                      output_root: str | None, quiet: bool = False,
                      dp: int = 1, tp: int = 1, device="cuda", grids=None,
-                     squash: str = "torch"):
+                     squash: str = DEFAULT_SQUASH):
     """Seed-parallel training (``--n_seeds``): seeds ``cfg.run.seed + i``
     advance side by side through ``parallel.make_async_seed_runner`` (in
     worker processes, see ``parallel/seeds.py``), seed i
@@ -862,8 +864,9 @@ def _multi_seed_loop(cfg, output_root, quiet, seeds, loggers, step_fn,
 
 
 def _squash(args) -> str:
-    """The policy's tanh of a training run: ``--squash``, else torch's."""
-    return args.squash or "torch"
+    """The policy's tanh of a training run: ``--squash``, else the
+    default."""
+    return args.squash or DEFAULT_SQUASH
 
 
 def _device_for(args, local_rank: int = 0):
@@ -889,7 +892,7 @@ def _banner(args, cfg, out, device, rank=None):
         extra += f" tp={args.tp}"
     if rank is not None:
         extra += f" rank={rank}/{args.num_processes}"
-    if _squash(args) != "torch":
+    if _squash(args) != DEFAULT_SQUASH:
         extra += f" squash={_squash(args)}"
     print(colorize(f"NLBAC-TORCH preset={args.preset} env={cfg.env.name} "
                    f"device={name}{extra} -> {out}", "green", bold=True))

@@ -35,6 +35,7 @@ from nlbac_tpu_torch.agent import TrainState, make_agent
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.config import NLBACConfig
 from nlbac_tpu_torch.envs import get_env
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH
 from nlbac_tpu_torch.train.supervisor import (
     init_supervisor,
     post_step,
@@ -118,7 +119,7 @@ class UpdateCarry(NamedTuple):
 
 def make_episode_runner(cfg: NLBACConfig, device="cuda", agent=None,
                         env_override=None, _update_step=None,
-                        squash: str = "torch"):
+                        squash: str = DEFAULT_SQUASH):
     """Build ``run_episode(ts, rl_replay, node_replay, gen, i_episode,
     total_steps) -> (ts, rl_replay, node_replay, EpisodeMetrics,
     total_steps)``. State, replays and ``gen`` live on ``device``.

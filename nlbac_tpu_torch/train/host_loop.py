@@ -46,6 +46,7 @@ from nlbac_tpu_torch.agent import create_train_state, make_agent
 from nlbac_tpu_torch.config import NLBACConfig
 from nlbac_tpu_torch.constraints import uses_barrier
 from nlbac_tpu_torch.envs.base import StepOut
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH
 from nlbac_tpu_torch.runtime_native import HostReplay
 from nlbac_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
@@ -87,7 +88,7 @@ def train_host_env(cfg: NLBACConfig, adapter, episodes: Optional[int] = None,
                    weights_dir: Optional[str] = None,
                    checkpoint_path: Optional[str] = None,
                    resume_path: Optional[str] = None, device="cuda",
-                   squash: str = "torch") -> tuple:
+                   squash: str = DEFAULT_SQUASH) -> tuple:
     """Train against a ``HostEnvAdapter``; returns ``(ts,
     per_episode_rows)``.
 

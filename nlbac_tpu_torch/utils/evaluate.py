@@ -30,6 +30,7 @@ import torch
 from nlbac_tpu_torch import resolve_device
 from nlbac_tpu_torch.envs import get_env
 from nlbac_tpu_torch.nn import (
+    DEFAULT_SQUASH,
     ActionSpec,
     deterministic_policy_sample,
     gaussian_policy_sample,
@@ -83,7 +84,7 @@ def _tracked(st, width: int):
 def run_policy(cfg, ts, episodes: int = 5, seed: int = 0,
                render_path: Optional[str] = None, deterministic=True,
                display: bool = False, spawn_alpha: Optional[float] = None,
-               squash: str = "torch"):
+               squash: str = DEFAULT_SQUASH):
     """Roll out ``ts.policy`` for ``episodes`` episodes on the device its
     weights live on, squashed with ``squash``'s tanh. Returns one
     {"return", "length", "violations"} dict an episode."""

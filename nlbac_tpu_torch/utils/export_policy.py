@@ -17,7 +17,7 @@ standard-normal draw ``(B, action_dim)`` as its second input, where the
 JAX export takes a PRNG key (the two packages' random streams differ).
 The head squashes with the tanh its weights were trained under (the
 record ``train.checkpoint.weights_squash`` reads; the manifest names a
-squash other than ``torch.tanh``).
+squash other than XLA's, the JAX package's).
 
 CLI:
     python -m nlbac_tpu_torch.utils.export_policy RUN_DIR --preset unicycle \
@@ -37,6 +37,7 @@ import torch
 from nlbac_tpu_torch import resolve_device
 from nlbac_tpu_torch.envs import get_env
 from nlbac_tpu_torch.nn import (
+    DEFAULT_SQUASH,
     ActionSpec,
     deterministic_policy_sample,
     gaussian_policy_sample,
@@ -56,7 +57,7 @@ class PolicyHead(torch.nn.Module):
     it."""
 
     def __init__(self, policy, spec: ActionSpec, policy_type: str,
-                 stochastic: bool = False, squash: str = "torch"):
+                 stochastic: bool = False, squash: str = DEFAULT_SQUASH):
         super().__init__()
         self.squash = squash
         self._tree = tree_map(lambda _: None, policy)  # the structure
@@ -87,7 +88,7 @@ class PolicyHead(torch.nn.Module):
 
 
 def make_policy_fn(cfg, ts, deterministic: bool = True,
-                   squash: str = "torch") -> PolicyHead:
+                   squash: str = DEFAULT_SQUASH) -> PolicyHead:
     """The serving module of ``ts.policy`` on the device its weights live
     on: ``(obs) -> action``, or ``(obs, noise) -> action`` when not
     ``deterministic``; ``squash`` is the policy's tanh."""
@@ -100,7 +101,7 @@ def make_policy_fn(cfg, ts, deterministic: bool = True,
 
 
 def export_policy(cfg, ts, path: str, deterministic: bool = True,
-                  batch: Optional[int] = None, squash: str = "torch"
+                  batch: Optional[int] = None, squash: str = DEFAULT_SQUASH
                   ) -> None:
     """Export the policy head to ``path`` (and a ``.json`` manifest beside
     it). ``batch=None`` gives a symbolic batch dimension; an int pins it.
@@ -119,6 +120,12 @@ def export_policy(cfg, ts, path: str, deterministic: bool = True,
         b = torch.export.Dim("batch", min=1)
         dynamic = tuple({0: b} for _ in args)
     program = torch.export.export(head, args, dynamic_shapes=dynamic)
+    # the XLA-form tanh's float64 steps are dtype conversions, each of
+    # which the export checks against the tracing device; dropping those
+    # checks lets the program move with .to, as its weights do
+    for node in list(program.graph.nodes):
+        if node.target is torch.ops.aten._assert_tensor_metadata.default:
+            program.graph.erase_node(node)
 
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     buf = io.BytesIO()
@@ -134,7 +141,8 @@ def export_policy(cfg, ts, path: str, deterministic: bool = True,
         "batch": batch,  # None = symbolic
         "torch_version": torch.__version__,
     }
-    if squash != "torch":  # the JAX export's fields, and a squash of note
+    # the JAX export's fields, and a squash other than the JAX package's
+    if squash != "xla":
         manifest["squash"] = squash
     # the manifest is written the same way, so a crash never pairs a new
     # program with a stale or truncated manifest

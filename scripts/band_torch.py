@@ -35,7 +35,10 @@ widths and only checks the script.
 ``judge`` reads the port's and the reference's ``progress.txt`` files,
 prints a row per seed (last-50 reward, goals in the last 50, episodes
 with ``safety_cost_train > 0`` in the last 100, first episode with a
-goal, env steps; ``scripts/r9_analyze.py``'s definitions), the verdict
+goal, env steps; ``scripts/r9_analyze.py``'s definitions; and how a
+complete seed that is not converged missed: a ``graze`` meets the reward
+and goals limits and breaks the violation limit, a ``collapse`` breaks the
+reward or goals limit; a report, which no rule reads), the verdict
 of the band rules below and two-sided Mann-Whitney U tests of the
 last-50 rewards and of the violation episodes in the last 100, port
 against reference (reported, not gates), and writes ``judge.json`` under
@@ -120,6 +123,8 @@ LAST_REWARD, LAST_GOALS, LAST_VIOLATIONS = 50, 50, 100
 # a converged seed's statistics and the way each is held to its limit
 CONVERGED_CHECKS = {"last50_reward": ">=", "goals_last50": ">=",
                     "violation_episodes_last100": "<="}
+# the limits whose break makes a miss a collapse (the rest: a graze)
+MISS_MODE_COLLAPSE = ("last50_reward", "goals_last50")
 # the bootstrap of the pass rules: draws of 16 seeds and the draws' seed
 DRAWS, DRAW_SEED = 20000, 0
 # the resolution of the smallest uniform reward drop that fails a band
@@ -705,6 +710,7 @@ def seed_stats(path, episodes, rules=None):
     }
     stats["complete"] = stats["episodes"] >= episodes
     stats["converged"] = stats["complete"] and converged(stats, rules)
+    stats["miss_mode"] = miss_mode(stats, rules)
     stats["cannot_converge"] = (not stats["complete"]
                                 and cannot_converge(c, episodes, rules))
     return stats
@@ -730,11 +736,28 @@ def cannot_converge(c, episodes, rules=None):
     return False
 
 
-def converged(stats, rules=None):
-    """Whether a seed's statistics meet ``rules``' converged limits."""
-    limits = (rules or PRESETS["unicycle"]["rules"])["converged"]
+def _meets(stats, limits):
     return all(stats[k] >= v if CONVERGED_CHECKS[k] == ">=" else
                stats[k] <= v for k, v in limits.items())
+
+
+def converged(stats, rules=None):
+    """Whether a seed's statistics meet ``rules``' converged limits."""
+    return _meets(stats, (rules or PRESETS["unicycle"]["rules"])[
+        "converged"])
+
+
+def miss_mode(stats, rules=None):
+    """How a complete seed that is not converged missed (a report; no
+    rule reads it): ``collapse`` where it breaks the reward or the goals
+    limit, ``graze`` where it meets both and breaks the violation limit
+    only; None for a converged or short seed."""
+    if not stats["complete"] or stats["converged"]:
+        return None
+    limits = (rules or PRESETS["unicycle"]["rules"])["converged"]
+    return "graze" if _meets(stats, {
+        k: v for k, v in limits.items() if k in MISS_MODE_COLLAPSE}) \
+        else "collapse"
 
 
 def find_seeds(dirs):
@@ -931,13 +954,14 @@ def cmd_judge(args):
 
     def table(name, stats):
         print(f"{name}: seed  episodes  last-50 reward  goals/50  "
-              f"viol-eps/100  first goal  env steps  converged")
+              f"viol-eps/100  first goal  env steps  converged  miss")
         for s, st in stats.items():
             print(f"{name}: s{s:<6d} {st['episodes']:8d}  "
                   f"{st['last50_reward']:14.1f}  {st['goals_last50']:8d}  "
                   f"{st['violation_episodes_last100']:12d}  "
                   f"{str(st['first_goal_episode']):>10s}  "
-                  f"{st['env_steps']:9d}  {st['converged']}")
+                  f"{st['env_steps']:9d}  {str(st['converged']):9s}  "
+                  f"{st['miss_mode'] or '-'}")
 
     table("reference", ref)
     table("port", port)
@@ -975,6 +999,10 @@ def cmd_judge(args):
         "rules": rules_record(preset),
         "short_seeds": short,
         "outcomes": table_out,
+        "miss_modes": {f"s{s}": port[s]["miss_mode"] for s in band_port
+                       if port[s]["miss_mode"]},
+        "ref_miss_modes": {f"s{s}": st["miss_mode"]
+                           for s, st in ref.items() if st["miss_mode"]},
         "port": {f"s{s}": st for s, st in port.items()},
         "reference": {f"s{s}": st for s, st in ref.items()},
     }

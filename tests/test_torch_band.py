@@ -23,7 +23,10 @@
 (h) ``run --cpu --cli_args "--squash xla"`` passes the flag to every
     chunk (the second chunk resumes the first's checkpoint under it);
 (i) (f) for the committed band under ``--squash xla``
-    (``results/torch_band/unicycle_xla_squash/``).
+    (``results/torch_band/unicycle_xla_squash/``);
+(j) ``judge`` names each miss's mode on the committed bands and the
+    reference: a graze (reward and goals met, too many violation
+    episodes) or a collapse (reward or goals broken).
 
 Tolerances: none; (a) compares at the printed precision (0.05), the rest
 bit for bit.
@@ -500,3 +503,23 @@ def test_committed_squash_band_verdict_matches_perf(tmp_path):
     committed = json.loads((port / "judge.json").read_text())
     assert committed["verdict"] == got["verdict"]
     assert committed["port"] == got["port"]
+
+
+@pytest.mark.parametrize("band_dir, modes", [
+    ("unicycle", {"s102": "graze", "s106": "graze", "s107": "graze",
+                  "s104": "collapse"}),
+    ("unicycle_xla_squash", {"s107": "collapse"}),
+])
+def test_judge_names_each_miss_mode(tmp_path, band_dir, modes):
+    """(j): the ``torch.tanh`` band's three grazes and one collapse, the
+    reference's s12345 a collapse, and the ``--squash xla`` band's s107 a
+    collapse; in each seed's figures and in ``miss_modes``, and only for
+    seeds that are complete and not converged."""
+    got = judge(ROOT / "results" / "torch_band" / band_dir, tmp_path)
+    assert {s: m for s, m in got["miss_modes"].items() if s in modes} == \
+        modes
+    assert got["ref_miss_modes"] == {"s12345": "collapse"}
+    for name, st in got["port"].items():
+        assert st["miss_mode"] == got["miss_modes"].get(name)
+        assert (st["miss_mode"] is None) == (st["converged"]
+                                             or not st["complete"])

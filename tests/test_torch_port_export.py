@@ -139,6 +139,23 @@ def test_manifest_matches_reference_fields(batch, tmp_path):
     assert not list(tmp_path.glob("*.tmp"))
 
 
+@pytest.mark.parametrize("squash", ["xla", "torch"])
+def test_export_moves_with_its_weights(squash, tmp_path):
+    """An export traced on the CPU runs on another device after ``.to``:
+    the XLA-form tanh's dtype conversions leave no check of the tracing
+    device in the program, which the card would fail (``meta`` stands in
+    for the card's run here; it skips such checks)."""
+    cfg = tconfig.get_config("unicycle")
+    ts = t_create(cfg, torch.Generator().manual_seed(0), "cpu")
+    path = str(tmp_path / "p.pt2")
+    texport.export_policy(cfg, ts, path, squash=squash)
+    act, _ = texport.load_policy(path)
+    assert not [n for n in act.graph.nodes if n.target is
+                torch.ops.aten._assert_tensor_metadata.default]
+    out = act.to("meta")(torch.zeros(3, cfg.obs_dim, device="meta"))
+    assert out.device.type == "meta" and out.shape == (3, cfg.action_dim)
+
+
 def test_cli_exports_a_run_dir(tmp_path):
     """``main`` on a run directory at the preset's widths: the symbolic
     export takes any batch, the static one only its own."""

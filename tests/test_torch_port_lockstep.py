@@ -32,6 +32,16 @@ rewards, the last update's metrics, replay rows and the whole state
 within rtol 1e-4 / atol 1e-5 (float32 rounding of the batched products,
 carried through 3 episodes of training; the largest gap seen is below
 1e-5). (g): rtol 1e-6 / atol 1e-9, and a masked-off seed bit for bit.
+
+(c) and (d), and every runner held against its seeds' standalone runs in
+the other lockstep modules, run both sides under ``squash="torch"``
+(``RUN_SQUASH``). Under the default XLA-form squash, one ulp of a sample
+near saturation moves the squash term by up to 0.27 nats (``torch.tanh``'s
+by 2.1e-3), so the batched products' rounding leaves these tolerances:
+nbc_unicycle's standalone run with every network's initial weights one ulp
+up leaves them by 5 to 8 times (under ``torch.tanh`` it moves 0.008-0.020
+of them). The squash's own plumbing through the
+runner is held in ``test_torch_port_squash_xla.py``.
 """
 
 import dataclasses
@@ -277,6 +287,11 @@ def runner_cfg(env_name="unicycle"):
         replay=tconfig.ReplayConfig(capacity=40, node_capacity=50))
 
 
+# the policy's squash of every run held against its standalone runs (the
+# module's note)
+RUN_SQUASH = "torch"
+
+
 def standalone(cfg, seed, episodes, prepare=None):
     """``train()``'s single-seed loop for ``seed`` (its state passed
     through ``prepare(cfg, ts)`` where given): each episode's host
@@ -286,7 +301,7 @@ def standalone(cfg, seed, episodes, prepare=None):
     if prepare is not None:
         ts = prepare(cfg, ts)
     rl, node = create_replays(cfg, "cpu")
-    run = make_episode_runner(cfg, "cpu")
+    run = make_episode_runner(cfg, "cpu", squash=RUN_SQUASH)
     total, out = 0, []
     for ep in range(episodes):
         ts, rl, node, m, total = run(ts, rl, node, gen, ep, total)
@@ -368,7 +383,8 @@ def check_fetched_against_standalone(cfg, i, base, episodes, fetched,
 
 
 def run_lockstep(cfg, base, episodes=EPISODES, new_episode=None):
-    init_fn, run_fn = parallel.make_seed_parallel_runner(cfg, S, "cpu")
+    init_fn, run_fn = parallel.make_seed_parallel_runner(
+        cfg, S, "cpu", squash=RUN_SQUASH)
     ts, rl, node, gens, total = init_fn(base)
     results = []
     for ep in range(episodes):
@@ -477,8 +493,8 @@ def test_finished_seed_stays_frozen_while_others_run(monkeypatch):
 
     real = parallel.lockstep.make_agent
     monkeypatch.setattr(parallel.lockstep, "make_agent",
-                        lambda cfg, device: WatchedAgent(real(cfg, device),
-                                                         seen))
+                        lambda cfg, device, **kw: WatchedAgent(
+                            real(cfg, device, **kw), seen))
 
     def new_episode(rl, node):
         rings[:] = [rl, node]

@@ -65,6 +65,7 @@ from test_torch_port_lockstep import (
     BATCH,
     COUNTERS,
     NODE_BATCH,
+    RUN_SQUASH,
     as_numpy,
     check_fetched_against_standalone,
     check_seed_against_standalone,
@@ -91,7 +92,7 @@ def sharded_episodes(cfg, base, episodes, prepare=None):
     each seed's fetched state and the runner's shards and start-up
     seconds (its workers ended)."""
     init_fn, run_fn = parallel.make_seed_parallel_runner(
-        cfg, SEEDS, DEVICES, prepare=prepare)
+        cfg, SEEDS, DEVICES, prepare=prepare, squash=RUN_SQUASH)
     try:
         total = init_fn(base)
         results = []
@@ -189,8 +190,8 @@ def test_shard_equals_one_device_lockstep(sharded, d):
     shapes, in a worker process."""
     cfg = runner_cfg()
     seeds = sharded["shards"][d]
-    init_fn, run_fn = parallel.make_seed_parallel_runner(cfg, len(seeds),
-                                                         "cpu")
+    init_fn, run_fn = parallel.make_seed_parallel_runner(
+        cfg, len(seeds), "cpu", squash=RUN_SQUASH)
     ts, rl, node, gens, total = init_fn(BASE + seeds[0])
     for ep in range(EPISODES):
         ts, rl, node, gens, m, total = run_fn(ts, rl, node, gens, ep, total)
@@ -253,7 +254,7 @@ def test_setup_registers_an_env_in_each_worker(sharded):
     with pytest.raises(RuntimeError, match="unknown env 'unicycle_alias'"):
         init_fn(BASE)
     init_fn, run_fn = parallel.make_seed_parallel_runner(
-        cfg, 2, DEVICES, setup=register_unicycle_alias)
+        cfg, 2, DEVICES, setup=register_unicycle_alias, squash=RUN_SQUASH)
     try:
         init_fn(BASE)
         metrics, total = run_fn(0)
@@ -432,7 +433,8 @@ def test_stacked_twin_q_runner_matches_standalone_runs(devices):
     base = 7
     if devices == "cpu":
         init_fn, run_fn = parallel.make_seed_parallel_runner(
-            cfg, SEEDS, "cpu", prepare=stack_twin_q_state)
+            cfg, SEEDS, "cpu", prepare=stack_twin_q_state,
+            squash=RUN_SQUASH)
         ts, rl, node, gens, total = init_fn(base)
         assert "q1" not in ts.critic
         ts, rl, node, gens, m, total = run_fn(ts, rl, node, gens, 0, total)

@@ -13,11 +13,21 @@ atol 1e-6. Both sides run float32 and differ in the order of their
 summations. PVTOL's update 0 is held at metrics rtol 1e-4 and parameters
 atol 1e-5: at its initial weights one action coordinate of the
 policy-loss sample lands deep in the tanh's saturation (pre-tanh -4.96,
-std 6.0 against an action scale of 15), where log(scale (1 - tanh^2) +
-1e-6) turns the one-ulp difference between the two libraries' tanh into
-6e-4 of that row's log-prob: policy_loss then differs by 1.09e-5
+std 6.0 against an action scale of 15, 1 - tanh^2 = 2.0e-4), where
+log(scale (1 - tanh^2) + 1e-6) turns a one-ulp move of the sample into
+about 1e-3 of that row's log-prob: policy_loss then differs by 1.09e-5
 relative and one first Adam moment of the policy by 3.4e-6 absolute,
-just outside the unicycle's bounds.
+just outside the unicycle's bounds. The tanh is not what moves it: under
+the port's XLA-form squash (the same tanh as JAX's) policy_loss differs
+by 2.09e-5, since the policy's mean and log_std already leave JAX's by
+one ulp (the order of the matmul's sums), the sample by 4.8e-7, and the
+row's log-prob by 1.25e-3. Past pre-tanh 8 the forms part: XLA's tanh
+is +-1 there and ``torch.tanh`` is not, so a sample there moves
+``torch.tanh``'s log-prob by whole nats and XLA's not at all. With such a
+sample and none between pre-tanh 4 and XLA's clamp (PRNGKey(1027):
+8.99), policy_loss reads 1.904302 in JAX, 1.904301 under the XLA-form
+squash (held at the unicycle's bounds) and 1.870122 under
+``torch.tanh``.
 """
 
 import dataclasses
@@ -49,8 +59,10 @@ from nlbac_tpu_torch.envs import pvtol as tpvtol
 from nlbac_tpu_torch.envs.base import StepOut as TStepOut
 from nlbac_tpu_torch.interop import from_reference, to_reference
 from nlbac_tpu_torch.nn import ActionSpec as TActionSpec
+from nlbac_tpu_torch.nn import gaussian_policy_forward as t_policy_forward
 from nlbac_tpu_torch.nn import gaussian_policy_sample as t_policy_sample
 from nlbac_tpu_torch.nn import make_field as t_make_field
+from nlbac_tpu_torch.nn.xla_float import XLA_TANH_CLAMP
 from nlbac_tpu_torch.train import supervisor as tsup
 
 RTOL, ATOL = 1e-5, 1e-5
@@ -409,13 +421,11 @@ def jax_updates():
             for p in ("cars", "pvtol")}
 
 
-@pytest.mark.parametrize("node_fit", [True, False])
-@pytest.mark.parametrize("preset", ["cars", "pvtol"])
-def test_update_core_matches_reference(jax_updates, preset, node_fit):
-    """Update 0 (NODE fit, multiplier ascent, the backup branch and the
-    stale alpha_init all fire) and update 1 after a first reference
-    update (no fit, no ascent; PVTOL's backup branch is skipped)."""
-    update = jax_updates[preset]
+def run_update(update, preset, node_fit, key, squash="torch"):
+    """One update of ``preset`` from the initial state (after a first
+    reference update when ``node_fit`` is off) by JAX and by the port
+    under ``squash``, with JAX's draws from ``key`` injected; returns
+    both metrics, both states in JAX's form and the draws."""
     cfg_j, cfg_t = tiny_cfg(jconfig, preset), tiny_cfg(tconfig, preset)
     n_u = cfg_j.action_dim
     rng = np.random.default_rng(0)
@@ -426,7 +436,6 @@ def test_update_core_matches_reference(jax_updates, preset, node_fit):
                        jax.random.PRNGKey(3), jnp.int32(0))
     batch = make_batch(preset, rng, BATCH)
     node_batch = make_batch(preset, rng, NODE_BATCH)
-    key = jax.random.PRNGKey(7)
     ts_j, m_j = update(ts, batch, node_batch, key, jnp.int32(0))
 
     # the reference draws from split(key, 8): [2] the TD-target sample,
@@ -441,7 +450,8 @@ def test_update_core_matches_reference(jax_updates, preset, node_fit):
 
     ref = jax.tree.map(np.asarray, ts)
     port = from_reference(ref, cfg_t, "cpu")
-    agent = t_make_agent(cfg_t, "cpu")
+    pre_tanh = sample_pre_tanh(port, batch, noise)
+    agent = t_make_agent(cfg_t, "cpu", squash=squash)
     tb = {k: torch.tensor(v) for k, v in batch.items()}
     tnb = {k: torch.tensor(v) for k, v in node_batch.items()}
     drawn = []
@@ -450,16 +460,95 @@ def test_update_core_matches_reference(jax_updates, preset, node_fit):
                                   None, 0, noise=noise)
     assert drawn == ([1] if node_fit else [])
     assert (float(m_j["node_loss"]) > 0) == node_fit
-
-    rtol, atol = (1e-4, 1e-5) if (preset, node_fit) == ("pvtol", True) \
-        else (1e-5, 1e-6)
-    for k in METRIC_NAMES:
-        close(float(m_j[k]), float(m_t[k]), rtol=rtol, atol=1e-6,
-              err_msg=k)
     expect = jax.tree.map(np.asarray, ts_j)
     got = to_reference(port, expect)
     assert int(got.updates) == int(expect.updates) == ref.updates + 1
+    return m_j, m_t, expect, got, pre_tanh
+
+
+def sample_pre_tanh(port, batch, noise):
+    """Each sample's pre-tanh values, (TD target, policy loss, backup
+    loss), from the state ``port`` before its update."""
+    out = []
+    with torch.no_grad():
+        for policy, obs, name in ((port.policy, "next_obs", "next"),
+                                  (port.policy, "obs", "pi"),
+                                  (port.backup_policy, "obs", "backup")):
+            mean, log_std = t_policy_forward(policy,
+                                             torch.tensor(batch[obs]))
+            out.append(mean + torch.exp(log_std) * noise[name])
+    return torch.stack(out)
+
+
+def assert_update_close(m_j, m_t, expect, got, metric_rtol, atol):
+    for k in METRIC_NAMES:
+        close(float(m_j[k]), float(m_t[k]), rtol=metric_rtol, atol=1e-6,
+              err_msg=k)
     for (pa, a), (pb, b) in zip(leaves_with_paths(expect),
                                 leaves_with_paths(got)):
         assert pa == pb
         close(a, b, rtol=1e-4, atol=atol, err_msg=pa)
+
+
+@pytest.mark.parametrize("node_fit", [True, False])
+@pytest.mark.parametrize("preset", ["cars", "pvtol"])
+def test_update_core_matches_reference(jax_updates, preset, node_fit):
+    """Update 0 (NODE fit, multiplier ascent, the backup branch and the
+    stale alpha_init all fire) and update 1 after a first reference
+    update (no fit, no ascent; PVTOL's backup branch is skipped)."""
+    m_j, m_t, expect, got, _ = run_update(
+        jax_updates[preset], preset, node_fit, jax.random.PRNGKey(7))
+    rtol, atol = (1e-4, 1e-5) if (preset, node_fit) == ("pvtol", True) \
+        else (1e-5, 1e-6)
+    assert_update_close(m_j, m_t, expect, got, rtol, atol)
+
+
+def quiet_saturating_key():
+    """The first PRNGKey(1000 + j) whose draws put a sample of PVTOL's
+    update 0 past pre-tanh 8 and none at pre-tanh 4 up to XLA's clamp,
+    with the sample's pre-tanh values."""
+    cfg_j, cfg_t = tiny_cfg(jconfig, "pvtol"), tiny_cfg(tconfig, "pvtol")
+    port = from_reference(jax.tree.map(np.asarray, create_train_state(
+        cfg_j, jax.random.PRNGKey(0))), cfg_t, "cpu")
+    batch = make_batch("pvtol", np.random.default_rng(0), BATCH)
+    for j in range(200):
+        key = jax.random.PRNGKey(1000 + j)
+        keys = jax.random.split(key, 8)
+        noise = {name: torch.tensor(np.asarray(jax.random.normal(
+            keys[i], (BATCH, cfg_t.action_dim), jnp.float32)))
+            for name, i in (("next", 2), ("pi", 3), ("backup", 5))}
+        x = sample_pre_tanh(port, batch, noise).abs()
+        if float(x.max()) > 8.0 and not bool(
+                ((x > 4.0) & (x <= XLA_TANH_CLAMP)).any()):
+            return key
+    raise AssertionError("no key puts a sample past pre-tanh 8 alone")
+
+
+def test_pvtol_update_under_xla_squash(jax_updates):
+    """PVTOL's update 0 with the port's XLA-form squash, with a sample
+    past pre-tanh 8 (where XLA's tanh is +-1 and ``torch.tanh`` is not)
+    and none at pre-tanh 4 up to XLA's clamp, held at the unicycle's
+    bounds (metrics rtol 1e-5 / atol 1e-6; parameters, Adam moments and
+    the Lagrangian state rtol 1e-4 / atol 1e-6). Under ``torch.tanh`` the
+    same update's policy_loss leaves JAX's by over 1e-3 relative."""
+    update = jax_updates["pvtol"]
+    key = quiet_saturating_key()
+    m_j, m_t, expect, got, pre_tanh = run_update(update, "pvtol", True, key,
+                                                 squash="xla")
+    assert float(pre_tanh.abs().max()) > 8.0
+    assert_update_close(m_j, m_t, expect, got, 1e-5, 1e-6)
+    m_j, m_t, *_ = run_update(update, "pvtol", True, key)
+    gap = abs(float(m_t["policy_loss"]) / float(m_j["policy_loss"]) - 1)
+    assert gap > 1e-3, gap
+
+
+def test_pvtol_update0_under_xla_squash(jax_updates):
+    """PVTOL's update 0 of ``test_update_core_matches_reference`` with the
+    port's XLA-form squash, at the same bounds as under ``torch.tanh``
+    (metrics rtol 1e-4, parameters atol 1e-5): its policy-loss sample at
+    pre-tanh -4.96 is not a matter of the tanh (see the module note)."""
+    m_j, m_t, expect, got, pre_tanh = run_update(
+        jax_updates["pvtol"], "pvtol", True, jax.random.PRNGKey(7),
+        squash="xla")
+    assert 4.9 < float(pre_tanh.abs().max()) < 5.0
+    assert_update_close(m_j, m_t, expect, got, 1e-4, 1e-5)

@@ -1,5 +1,8 @@
-"""The tanh-squash term of the Gaussian policy's log-prob near saturation:
-a pinned, deliberate deviation of the port from the JAX package.
+"""The tanh-squash term of the Gaussian policy's log-prob near saturation
+under ``squash="torch"`` (``--squash torch``): a pinned, deliberate
+deviation of that option from the JAX package. The port's default squash
+is XLA's form (``nn/xla_float.py``; ``test_torch_port_squash_xla.py``
+holds it to JAX), and ``torch.tanh`` stays an option.
 
 Both packages compute ``log(scale * (1 - tanh(x)^2) + 1e-6)``
 (``nn/policy.py`` in each) on float32. XLA's CPU ``tanh`` returns exactly
@@ -18,7 +21,7 @@ grows with |x| as 1 - tanh^2 shrinks. On a float32 grid over |x| in
   2.098;
 - above 9.02 both have saturated and agree exactly.
 
-The port keeps ``torch.tanh``: it is the closer of the two to a float64
+The option keeps ``torch.tanh``: it is the closer of the two to a float64
 evaluation in every range (its largest error below the band 0.104 nats
 where JAX's is 1.137, inside the band 0.639 where JAX's is 2.050), XLA's
 threshold is one backend's artifact (XLA on other devices saturates
@@ -45,7 +48,8 @@ import numpy as np
 import pytest
 import torch
 
-from nlbac_tpu_torch.nn.policy import EPS
+from nlbac_tpu_torch.nn.policy import DEFAULT_SQUASH, EPS
+from nlbac_tpu_torch.nn.xla_float import squash_tanh, xla_tanh
 
 SCALES = (3.5, 12.0, 15.0)
 BAND = (7.99, 9.02)
@@ -122,3 +126,8 @@ def test_squash_gap_by_range(scale, name):
     port_err, jax_err = np.abs(t - r)[m], np.abs(j - r)[m]
     assert port_err.max() <= jax_err.max()
     assert np.all(port_err <= jax_err + slack)
+
+
+def test_torch_tanh_is_an_option_and_not_the_default():
+    assert squash_tanh("torch") is torch.tanh
+    assert squash_tanh(DEFAULT_SQUASH) is xla_tanh

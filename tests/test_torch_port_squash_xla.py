@@ -22,11 +22,17 @@ the JAX package, on the CPU.
     Adam's first step turns into whole steps on the smallest gradients.
     With ``torch.tanh`` the same update leaves JAX by 2.1e-2 and 3.0e-2
     (metrics) and 2.0 (leaves), which the case also checks.
-(d) ``--squash xla`` reaches the agent of the CLI's run, of an
-    ``--n_seeds`` worker's seeds and of the lockstep; the run's checkpoint
-    and weights record it, a ``--resume`` under the other squash is
-    refused, one under the same squash continues, and ``--mode eval``
-    refuses a squash other than the weights'.
+(d) The squash is the port's default: a CLI run without ``--squash``
+    trains under it and records it. ``--squash torch`` reaches the agent
+    of the CLI's run, of an ``--n_seeds`` worker's seeds and of the
+    lockstep; the run's checkpoint and weights record it, a ``--resume``
+    under the other squash is refused, one under the same squash
+    continues, and ``--mode eval`` refuses a squash other than the
+    weights'. An archive and a weights directory that record no squash
+    (as every one written before the default moved) read as ``torch``: the
+    archive resumes only under ``--squash torch``, and evaluation (the
+    CLI's and ``utils.evaluate``'s) and export follow the directory's
+    record, or ``torch`` without one.
 """
 
 import dataclasses
@@ -45,7 +51,7 @@ from nlbac_tpu_torch import parallel
 from nlbac_tpu_torch.agent import make_agent as t_make_agent
 from nlbac_tpu_torch.agent.update import METRIC_NAMES
 from nlbac_tpu_torch.interop import from_reference, to_reference
-from nlbac_tpu_torch.nn import gaussian_policy_forward
+from nlbac_tpu_torch.nn import DEFAULT_SQUASH, gaussian_policy_forward
 from nlbac_tpu_torch.nn.xla_float import (
     XLA_TANH_CLAMP,
     XLA_TANH_TINY,
@@ -58,6 +64,7 @@ from nlbac_tpu_torch.nn.xla_float import (
 from nlbac_tpu_torch.parallel import seeds as seeds_lib
 from nlbac_tpu_torch.train import checkpoint as ckpt
 from nlbac_tpu_torch.train import cli, driver
+from nlbac_tpu_torch.utils import evaluate, export_policy
 from test_torch_port_presets import leaves_with_paths, resample_draws
 from test_torch_port_presets import make_batch as preset_batch
 from test_torch_port_presets import tiny_cfg as preset_cfg
@@ -207,7 +214,8 @@ TINY = ["--preset", "unicycle", "--cpu", "--quiet", "--max_episode_steps",
         "8", "--replay_size", "100"]
 
 
-def test_squash_reaches_every_agent_and_the_records(tmp_path, monkeypatch):
+def watch_agents(monkeypatch):
+    """The squash of every agent the driver makes, in order."""
     made = []
     real = driver.make_agent
 
@@ -217,39 +225,115 @@ def test_squash_reaches_every_agent_and_the_records(tmp_path, monkeypatch):
         return agent
 
     monkeypatch.setattr(driver, "make_agent", watched)
-    cli.main(TINY + ["--max_episodes", "1", "--squash", "xla",
-                     "--output", str(tmp_path / "a")])
-    (run,) = (tmp_path / "a").glob("*-run*/*/*_s*")
+    return made
+
+
+def only_run(root):
+    (run,) = root.glob("*-run*/*/*_s*")
+    return run
+
+
+def test_default_squash_is_xla_and_recorded(tmp_path, monkeypatch):
+    made = watch_agents(monkeypatch)
+    assert DEFAULT_SQUASH == "xla"
+    assert t_make_agent(unicycle_cfg(tconfig), "cpu").squash == "xla"
+    cli.main(TINY + ["--max_episodes", "1", "--output", str(tmp_path)])
+    run = only_run(tmp_path)
     assert made == ["xla"]
-    assert ckpt.weights_squash(str(run)) == "xla"
+    assert json.loads((run / "squash.json").read_text()) == {"squash": "xla"}
     with np.load(run / "checkpoint.npz") as z:
         assert ckpt.checkpoint_squash(z) == "xla"
-    with pytest.raises(ValueError, match="--squash xla"):
+
+
+def test_squash_reaches_every_agent_and_the_records(tmp_path, monkeypatch):
+    made = watch_agents(monkeypatch)
+    cli.main(TINY + ["--max_episodes", "1", "--squash", "torch",
+                     "--output", str(tmp_path / "a")])
+    run = only_run(tmp_path / "a")
+    assert made == ["torch"]
+    assert ckpt.weights_squash(str(run)) == "torch"
+    with np.load(run / "checkpoint.npz") as z:
+        assert ckpt.checkpoint_squash(z) == "torch"
+    with pytest.raises(ValueError, match="--squash torch, not xla"):
         cli.main(TINY + ["--max_episodes", "2", "--output",
                          str(tmp_path / "b"), "--resume",
                          str(run / "checkpoint.npz")])
-    cli.main(TINY + ["--max_episodes", "2", "--squash", "xla", "--output",
+    cli.main(TINY + ["--max_episodes", "2", "--squash", "torch", "--output",
                      str(tmp_path / "c"), "--resume",
                      str(run / "checkpoint.npz")])
-    assert made[-1] == "xla"
-    with pytest.raises(SystemExit, match="--squash xla"):
-        cli.main(TINY + ["--mode", "eval", "--squash", "torch",
+    assert made[-1] == "torch"
+    with pytest.raises(SystemExit, match="--squash torch"):
+        cli.main(TINY + ["--mode", "eval", "--squash", "xla",
                          "--output", str(run)])
 
     # an --n_seeds worker's seeds (held in this process here) and the
     # lockstep
     cfg = cli.config_from_args(cli.build_parser().parse_args(
         TINY + ["--max_episodes", "1"]))
-    seeds_lib._Seeds(cfg, [(0, 3)], "xla").start(torch.device("cpu"))
-    assert made[-1] == "xla"
+    seeds_lib._Seeds(cfg, [(0, 3)], "torch").start(torch.device("cpu"))
+    assert made[-1] == "torch"
     lockstep = []
     real_lockstep = parallel.lockstep.make_agent
     monkeypatch.setattr(parallel.lockstep, "make_agent",
                         lambda *a, **kw: lockstep.append(kw) or
                         real_lockstep(*a, **kw))
     parallel.make_seed_parallel_runner(
-        dataclasses.replace(cfg), 2, "cpu", squash="xla")
-    assert lockstep == [{"squash": "xla"}]
+        dataclasses.replace(cfg), 2, "cpu", squash="torch")
+    assert lockstep == [{"squash": "torch"}]
     with pytest.raises(ValueError, match="squash"):
         t_make_agent(cfg, "cpu", squash="tanh")
-    assert json.loads((run / "squash.json").read_text()) == {"squash": "xla"}
+    assert json.loads((run / "squash.json").read_text()) == {
+        "squash": "torch"}
+
+
+def unrecord(run):
+    """Strip ``run``'s squash records, as a run from before they were
+    kept for ``torch`` left it."""
+    (run / "squash.json").unlink()
+    path = run / "checkpoint.npz"
+    with np.load(path) as z:
+        arrays = dict(z)
+    extra = json.loads(bytes(arrays["extra"]).decode())
+    del extra["squash"]
+    arrays["extra"] = np.frombuffer(json.dumps(extra).encode(), np.uint8)
+    np.savez(path, **arrays)
+
+
+def test_unrecorded_runs_read_as_torch(tmp_path, monkeypatch):
+    made = watch_agents(monkeypatch)
+    cli.main(TINY + ["--max_episodes", "1", "--squash", "torch",
+                     "--output", str(tmp_path / "a")])
+    run = only_run(tmp_path / "a")
+    unrecord(run)
+    assert ckpt.weights_squash(str(run)) == "torch"
+    with np.load(run / "checkpoint.npz") as z:
+        assert ckpt.checkpoint_squash(z) == "torch"
+    for args in ([], ["--squash", "xla"]):
+        with pytest.raises(ValueError, match="resume it with --squash "
+                                             "torch, not xla"):
+            cli.main(TINY + ["--max_episodes", "2", "--output",
+                             str(tmp_path / "b"), "--resume",
+                             str(run / "checkpoint.npz")] + args)
+    cli.main(TINY + ["--max_episodes", "2", "--squash", "torch", "--output",
+                     str(tmp_path / "c"), "--resume",
+                     str(run / "checkpoint.npz")])
+    assert made[-1] == "torch"
+    resumed = only_run(tmp_path / "c")
+    assert json.loads((resumed / "squash.json").read_text()) == {
+        "squash": "torch"}
+
+    # evaluation and export follow a directory's record, torch without one
+    seen = []
+    monkeypatch.setattr(evaluate, "run_policy",
+                        lambda *a, squash, **kw: seen.append(squash) or [])
+    monkeypatch.setattr(evaluate, "load_trained_state", lambda *a: None)
+    monkeypatch.setattr(export_policy, "export_policy",
+                        lambda *a, squash, **kw: seen.append(squash))
+    xla_run = tmp_path / "xla"
+    xla_run.mkdir()
+    (xla_run / "squash.json").write_text(json.dumps({"squash": "xla"}))
+    for d in (run, xla_run):
+        cli.main(TINY + ["--mode", "eval", "--output", str(d)])
+        evaluate.main([str(d), "--preset", "unicycle", "--cpu"])
+        export_policy.main([str(d), "--preset", "unicycle", "--cpu"])
+    assert seen == ["torch"] * 3 + ["xla"] * 3
