@@ -211,6 +211,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import importlib.util
 import itertools
 import json
 import math
@@ -3878,11 +3879,15 @@ def band_runs(card):
 
     c_state, c_rows, c_ckpt, c_info = kept("chunked", SEED)
     u_state, u_rows, u_ckpt, _ = kept("uncut", SEED)
-    with np.load(c_ckpt) as zc, np.load(u_ckpt) as zu:
-        differ = sorted(set(zc.files) ^ set(zu.files)) + [
-            k for k in sorted(set(zc.files) & set(zu.files))
-            if zc[k].shape != zu[k].shape
-            or zc[k].tobytes() != zu[k].tobytes()]
+    # the kept checkpoints are packed; the script's own reader unpacks them
+    spec = importlib.util.spec_from_file_location("band_torch",
+                                                  band_script()[1])
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    zc, zu = script.unpack_arrays(c_ckpt), script.unpack_arrays(u_ckpt)
+    differ = sorted(set(zc) ^ set(zu)) + [
+        k for k in sorted(set(zc) & set(zu))
+        if zc[k].shape != zu[k].shape or zc[k].tobytes() != zu[k].tobytes()]
     chunks = [c["episodes"] for c in c_state["chunks"]]
     if (c_rows != u_rows or differ
             or chunks != [[e, e] for e in range(BAND_EPISODES)]

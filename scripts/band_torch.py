@@ -15,15 +15,16 @@ seeds.
 processes a card over every card present, each pinned to its card by
 ``CUDA_VISIBLE_DEVICES``. A seed trains in chunks of ``--chunk`` episodes:
 chunk k runs ``--max_episodes k*C --resume <the last chunk's
-checkpoint.npz>``, and the CLI writes a checkpoint at a chunk's last
+checkpoint>``, and the CLI writes a checkpoint at a chunk's last
 episode. A chunk counts once its process has ended with every row and a
 checkpoint at its last episode: only then are its rows added to the seed's
 ``progress.txt`` under ``--out`` (``s<seed>/progress.txt``, the JAX CLI's
 columns, and ``s<seed>/run.json``: the card and its power limit, the
-processes a card, env steps, seconds, env-steps/s, the chunks). A chunk
+host's cores, the processes a card, env steps, seconds, env-steps/s, the
+chunks). A chunk
 that is cut (``--time_limit``, SIGTERM, a failed process) leaves no row,
 and a later ``run`` continues every seed from its last kept checkpoint,
-which lives under ``--work`` with the chunks' own run directories (a
+which lives packed under ``--work`` with the chunks' own run directories (a
 seed with no work state is done when its ``--out`` files hold every
 episode, and starts from episode 0 otherwise: its partial rows are then
 read against the rerun's, and ``run.json``'s ``rerun`` gives the first
@@ -100,7 +101,9 @@ from __future__ import annotations
 
 import argparse
 import glob
+import hashlib
 import json
+import lzma
 import os
 import re
 import shutil
@@ -203,6 +206,11 @@ THREADS = 1
 
 _TIMER = re.compile(r"time/(\w+): ([0-9.]+)s")
 
+# a kept checkpoint's packed form, and the ``.npz`` it is unpacked to for
+# the next chunk's ``--resume``
+PACKED = ".xz"
+RESUME = "resume.npz"
+
 
 # ---------------------------------------------------------------- files
 
@@ -223,6 +231,73 @@ def _write_atomic(path, text):
     with open(tmp, "w") as f:
         f.write(text)
     os.replace(tmp, path)
+
+
+def _planes(a):
+    """An array's bytes as byte planes: a 2-D array column by column, and
+    byte k of every item together (a replay column's slowly changing
+    high bytes then sit side by side, where lzma finds them)."""
+    a = np.ascontiguousarray(a.T if a.ndim == 2 else a.reshape(-1))
+    return a.view(np.uint8).reshape(-1, a.itemsize).T.tobytes()
+
+
+def _from_planes(buf, dtype, shape):
+    dtype = np.dtype(dtype)
+    flat = np.frombuffer(buf, np.uint8).reshape(dtype.itemsize, -1).T
+    flat = np.ascontiguousarray(flat).view(dtype)
+    if len(shape) == 2:
+        return np.ascontiguousarray(flat.reshape(shape[::-1]).T)
+    return flat.reshape(shape)
+
+
+def unpack_arrays(path):
+    """The arrays of a checkpoint that ``pack_checkpoint`` packed."""
+    with lzma.open(path, "rb") as f:
+        data = bytearray(f.read())  # writable arrays
+    n = int.from_bytes(data[:8], "little")
+    off, arrays = 8 + n, {}
+    for h in json.loads(data[8:off]):
+        if "same_as" in h:
+            arrays[h["name"]] = arrays[h["same_as"]]
+            continue
+        arrays[h["name"]] = _from_planes(data[off:off + h["bytes"]],
+                                         h["dtype"], h["shape"])
+        off += h["bytes"]
+    return arrays
+
+
+def pack_checkpoint(path, out):
+    """Write the checkpoint ``path`` (``.npz``) to ``out`` packed,
+    lossless: an array equal to an earlier one (the NODE replay repeats
+    the RL replay's rows) is stored once, the rest as byte planes under
+    lzma, well under the deflated ``.npz``. The packed file is read back
+    and compared before it takes the name ``out``."""
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    header, blobs, seen = [], [], {}
+    for name, a in arrays.items():
+        key = (a.dtype.str, a.shape, hashlib.sha256(a.tobytes()).digest())
+        if key in seen:
+            header.append({"name": name, "same_as": seen[key]})
+            continue
+        seen[key] = name
+        blobs.append(_planes(a))
+        header.append({"name": name, "dtype": a.dtype.str,
+                       "shape": list(a.shape), "bytes": len(blobs[-1])})
+    head = json.dumps(header).encode()
+    tmp = f"{out}.tmp{os.getpid()}"
+    with lzma.open(tmp, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for blob in blobs:
+            f.write(blob)
+    back = unpack_arrays(tmp)
+    if list(back) != list(arrays) or any(
+            b.dtype != a.dtype or b.shape != a.shape
+            or b.tobytes() != a.tobytes()
+            for a, b in zip(arrays.values(), back.values())):
+        os.remove(tmp)
+        raise RuntimeError(f"{path}: its packed form reads back unlike it")
+    os.replace(tmp, out)
 
 
 def cards_present():
@@ -264,6 +339,7 @@ class Seed:
         self.work = os.path.join(work, f"s{seed}")
         self.out = os.path.join(out, f"s{seed}")
         self.state_path = os.path.join(self.work, "state.json")
+        self.resume = os.path.join(self.work, RESUME)
         os.makedirs(self.work, exist_ok=True)
         if os.path.exists(self.state_path):
             with open(self.state_path) as f:
@@ -339,6 +415,8 @@ class Seed:
                    if train_s else None),
                "rerun": self.state.get("rerun"),
                "cards": sorted({c["card"] for c in chunks}),
+               "host_cores": sorted({c["host_cores"] for c in chunks
+                                     if "host_cores" in c}),
                "processes_per_card": sorted({c["processes_per_card"]
                                              for c in chunks}),
                "chunks": chunks}
@@ -346,16 +424,13 @@ class Seed:
                       json.dumps(run, indent=1) + "\n")
 
     def commit(self, header, rows, checkpoint, steps, record):
-        """Keep a completed chunk: its checkpoint (deflated: its replay
-        rows shrink to about 57%, so that more unfinished seeds fit what a
-        later call is handed; ``np.load`` and ``--resume`` read it as
-        before), then the state (the commit point), then the files under
-        ``--out``."""
-        name = f"checkpoint_ep{self.done + len(rows)}.npz"
-        tmp = os.path.join(self.work, f"tmp{os.getpid()}_{name}")
-        with np.load(checkpoint, allow_pickle=False) as z:
-            np.savez_compressed(tmp, **{k: z[k] for k in z.files})
-        os.replace(tmp, os.path.join(self.work, name))
+        """Keep a completed chunk: its checkpoint (packed,
+        ``pack_checkpoint``: about 5 MiB at full width against 11-14
+        deflated, so that more unfinished seeds fit what a later call is
+        handed; the next chunk resumes from it unpacked), then the state
+        (the commit point), then the files under ``--out``."""
+        name = f"checkpoint_ep{self.done + len(rows)}{PACKED}"
+        pack_checkpoint(checkpoint, os.path.join(self.work, name))
         os.remove(checkpoint)
         old = self.checkpoint()
         self.state["header"] = self.state["header"] or header
@@ -440,7 +515,7 @@ class Runner:
                "--quiet", "--max_episodes", str(end),
                "--output", os.path.join(seed.work, "chunk")]
         if seed.done:
-            cmd += ["--resume", seed.checkpoint()]
+            cmd += ["--resume", seed.resume]
         if self.args.cpu:
             cmd += list(CPU_ARGS)
         return cmd + self.args.cli_args.split()
@@ -457,6 +532,8 @@ class Runner:
         if card is not None:
             env["CUDA_VISIBLE_DEVICES"] = str(card)
         shutil.rmtree(os.path.join(seed.work, "chunk"), ignore_errors=True)
+        if seed.done:
+            np.savez(seed.resume, **unpack_arrays(seed.checkpoint()))
         log = os.path.join(seed.work, f"chunk_ep{start}-{end - 1}.log")
         t0 = time.monotonic()
         with open(log, "w") as f:
@@ -519,14 +596,20 @@ class Runner:
                   "timers": timers,
                   "card": self.card_names[card],
                   "card_index": card,
+                  "host_cores": len(os.sched_getaffinity(0)),
                   "processes_per_card": self.args.per_card,
                   "cards_in_call": len(self.card_names),
                   "call": self.call, "cli_args": self.args.cli_args}
+        t0 = time.monotonic()
         seed.commit(header, rows, ckpt, steps, record)
         shutil.rmtree(os.path.join(seed.work, "chunk"), ignore_errors=True)
+        if os.path.exists(seed.resume):
+            os.remove(seed.resume)
         print(f"s{seed.seed}: episodes {start}..{end - 1} kept, {steps} env "
               f"steps in {seconds:.1f} s on card {card} "
-              f"({self.card_names[card]})", flush=True)
+              f"({self.card_names[card]}); checkpoint packed to "
+              f"{os.path.getsize(seed.checkpoint()) / 2 ** 20:.2f} MiB, "
+              f"kept in {time.monotonic() - t0:.1f} s", flush=True)
         return True
 
     def slot_loop(self, card):

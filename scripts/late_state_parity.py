@@ -6,8 +6,8 @@ from a late training state, on the CPU.
         [--seed 0] [--xla_tanh] [--json OUT]
 
 CHECKPOINT is a unicycle ``checkpoint.npz`` written by
-``nlbac-train-torch`` at the preset's widths (for instance a band seed's
-chunk checkpoint under ``band_work/unicycle/s<seed>/``). Its state and replays are restored into
+``nlbac-train-torch`` at the preset's widths, or a band seed's kept
+chunk checkpoint, packed, under ``band_work/unicycle/s<seed>/``. Its state and replays are restored into
 the port on the CPU, and the state is carried into the JAX package by
 ``nlbac_tpu_torch.interop.to_reference``. Three runs then take the same
 updates, each carrying its own state: the JAX package, the port, and the
@@ -71,6 +71,8 @@ from nlbac_tpu_torch.replay import buffer as replay_lib  # noqa: E402
 from nlbac_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from nlbac_tpu_torch.train.driver import create_replays  # noqa: E402
 
+import band_torch  # noqa: E402  (beside this script: a band's packed checkpoints)
+
 # the preset whose draws ``draws`` takes (unicycle's constraint chain
 # resamples nothing)
 PRESET = "unicycle"
@@ -86,13 +88,16 @@ def restore(cfg, path):
     ts = create_train_state(cfg, torch.Generator("cpu").manual_seed(0),
                             "cpu")
     rl, node = create_replays(cfg, "cpu")
-    with np.load(path) as z:
-        ckpt._restore_state(z, ts)
-        for name, rep in zip(ckpt.REPLAYS, (rl, node)):
-            ckpt._restore_replay(name, z, rep)
-        ts.updates, total, episode = (int(v) for v in z["counters"])
-        squash = ckpt.checkpoint_squash(z)
-    return ts, rl, node, total, episode, squash
+    if path.endswith(band_torch.PACKED):
+        z = band_torch.unpack_arrays(path)
+    else:
+        with np.load(path) as f:
+            z = {k: f[k] for k in f.files}
+    ckpt._restore_state(z, ts)
+    for name, rep in zip(ckpt.REPLAYS, (rl, node)):
+        ckpt._restore_replay(name, z, rep)
+    ts.updates, total, episode = (int(v) for v in z["counters"])
+    return ts, rl, node, total, episode, ckpt.checkpoint_squash(z)
 
 
 def replay_rows(rep):

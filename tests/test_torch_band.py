@@ -8,25 +8,30 @@
     the set with every reward 20 lower;
 (c) ``run --cpu`` (tiny widths) gives the same ``progress.txt`` rows for
     3 episodes in chunks of 1 + 2 as for 3 episodes uncut, and the same
-    final checkpoint;
+    final checkpoint; ``run.json`` names the host's cores;
 (d) a chunk cut after its first episode (SIGTERM to ``run``) keeps no row
     past the checkpoint it resumed from, and continuing gives the uncut
     rows;
 (e) a fresh process that imports the script holds no ``jax`` and no
     ``nlbac_tpu*`` module, and ``run`` without a card raises unless given
     ``--cpu``;
-(f) ``judge`` on the card's committed seeds (``results/torch_band/
-    unicycle/``) gives the verdict that ``PERF.md`` states;
+(f) ``judge`` on each band committed from the card (``results/
+    torch_band/unicycle/``, ``unicycle_xla_squash/``, ``nbc_unicycle/``)
+    gives the verdict, the converged count and the median last-50 reward
+    (to 0.01) that ``PERF.md``'s table of the bands run states, and the
+    committed ``judge.json``'s;
 (g) with band seeds short, ``judge`` fails a band that no outcome of
     theirs can pass and otherwise tables what each number of misses
     among them leads to.
 (h) ``run --cpu --cli_args "--squash xla"`` passes the flag to every
     chunk (the second chunk resumes the first's checkpoint under it);
-(i) (f) for the committed band under ``--squash xla``
-    (``results/torch_band/unicycle_xla_squash/``);
-(j) ``judge`` names each miss's mode on the committed bands and the
+(i) ``judge`` names each miss's mode on the committed bands and the
     reference: a graze (reward and goals met, too many violation
     episodes) or a collapse (reward or goals broken).
+(j) a kept checkpoint is packed losslessly (every array back bit for
+    bit, a repeated array stored once), ``--carry_mb`` counts it packed,
+    and a later ``run`` resumes from it to the uncut rows and checkpoint,
+    leaving no unpacked copy behind.
 
 Tolerances: none; (a) compares at the printed precision (0.05), the rest
 bit for bit.
@@ -34,6 +39,7 @@ bit for bit.
 
 import importlib.util
 import json
+import lzma
 import os
 import re
 import shutil
@@ -332,10 +338,10 @@ def kept(tmp_path, name):
 
 
 def same_checkpoint(a, b):
-    with np.load(a) as za, np.load(b) as zb:
-        assert sorted(za.files) == sorted(zb.files)
-        for k in za.files:
-            np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+    za, zb = band.unpack_arrays(a), band.unpack_arrays(b)
+    assert sorted(za) == sorted(zb)
+    for k in za:
+        np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -358,7 +364,42 @@ def test_run_chunked_equals_uncut(tmp_path, uncut):
     info = json.loads((tmp_path / "chunked" / "out" / "s7" /
                        "run.json").read_text())
     assert info["episodes"] == 3 and info["cards"] == ["cpu"]
+    assert info["host_cores"] == [len(os.sched_getaffinity(0))]
     assert info["env_steps"] == uncut[0]["env_steps"]
+
+
+def test_run_packed_carry_equals_uncut(tmp_path, uncut):
+    arrays = {"a": np.arange(12, dtype=np.float32).reshape(3, 4) / 7,
+              "b": np.float32(2.5), "c": np.zeros((0, 5), np.float32),
+              "d": np.array([1, -2, 3], np.int64),
+              "e": np.frombuffer(b"xyz", np.uint8)}
+    arrays["f"] = arrays["a"].copy()
+    np.savez(tmp_path / "ck.npz", **arrays)
+    packed = str(tmp_path / "ck.xz")
+    band.pack_checkpoint(str(tmp_path / "ck.npz"), packed)
+    back = band.unpack_arrays(packed)
+    assert list(back) == list(arrays)
+    for k, a in arrays.items():
+        assert back[k].dtype == a.dtype and back[k].shape == a.shape, k
+        assert back[k].tobytes() == a.tobytes(), k
+    assert b'"same_as": "a"' in lzma.open(packed).read()
+
+    import argparse
+
+    run(tmp_path, "packed", "--episodes", "1", "--chunk", "1")
+    work, out = (str(tmp_path / "packed" / d) for d in ("work", "out"))
+    band.carry([band.Seed(7, work, out, 3)], argparse.Namespace(
+        episodes=3, carry_mb=63))
+    state, _, ckpt = kept(tmp_path, "packed")
+    assert state["checkpoint"] == "checkpoint_ep1.xz" and ckpt.exists()
+    run(tmp_path, "packed", "--episodes", "3", "--chunk", "2")
+    state, rows, ckpt = kept(tmp_path, "packed")
+    assert [c["episodes"] for c in state["chunks"]] == [[0, 0], [1, 2]]
+    assert rows == uncut[1]
+    same_checkpoint(ckpt, uncut[2])
+    assert sorted(os.listdir(work + "/s7")) == [
+        "checkpoint_ep3.xz", "chunk_ep0-0.log", "chunk_ep1-2.log",
+        "state.json"]
 
 
 def test_run_cut_chunk_then_continued(tmp_path, uncut):
@@ -464,15 +505,26 @@ def test_run_without_card_raises(tmp_path):
     assert not (tmp_path / "work").exists()
 
 
-def test_committed_band_verdict_matches_perf(tmp_path):
-    port = ROOT / "results" / "torch_band" / "unicycle"
-    stated = re.findall(r"band verdict: \*\*(\w+)\*\*",
-                        (ROOT / "PERF.md").read_text())
-    assert stated, "PERF.md states no band verdict"
-    got = judge(port, tmp_path)
-    assert got["verdict"] == stated[-1]
+# a row of PERF.md's table of the bands run: the band's directory, its
+# verdict, converged of complete seeds and median last-50 reward
+BAND_ROW = re.compile(r"^\| `results/torch_band/(\w+)/` \|.*\| \*\*(\w+)\*\* "
+                      r"\| (\d+) of (\d+) \| ([0-9.]+) \|$", re.M)
+
+
+@pytest.mark.parametrize("band_dir", ["unicycle", "unicycle_xla_squash",
+                                      "nbc_unicycle"])
+def test_committed_band_verdict_matches_perf(tmp_path, band_dir):
+    port = ROOT / "results" / "torch_band" / band_dir
+    stated = {m[0]: m[1:] for m in BAND_ROW.findall(
+        (ROOT / "PERF.md").read_text())}
+    assert band_dir in stated, f"PERF.md states no verdict of {band_dir}"
+    verdict, converged, complete, median = stated[band_dir]
     committed = json.loads((port / "judge.json").read_text())
-    assert committed["verdict"] == got["verdict"]
+    got = judge(port, tmp_path, "--preset", committed["preset"])
+    assert got["verdict"] == verdict == committed["verdict"]
+    assert (got["port_converged"], got["port_complete"]) == (
+        int(converged), int(complete))
+    assert f"{got['port_median_last50_reward']:.2f}" == median
     assert committed["port"] == got["port"]
 
 
@@ -486,23 +538,9 @@ def test_run_passes_cli_args_to_every_chunk(tmp_path):
     state, rows, ckpt = kept(tmp_path, "xla")
     assert [c["episodes"] for c in state["chunks"]] == [[0, 0], [1, 1]]
     assert [c["cli_args"] for c in state["chunks"]] == ["--squash xla"] * 2
-    with np.load(ckpt) as z:
-        assert json.loads(bytes(z["extra"]).decode())["squash"] == "xla"
+    extra = band.unpack_arrays(ckpt)["extra"]
+    assert json.loads(bytes(extra).decode())["squash"] == "xla"
     assert len(rows.splitlines()) == 3
-
-
-def test_committed_squash_band_verdict_matches_perf(tmp_path):
-    """(f) for the band under ``--squash xla``
-    (``results/torch_band/unicycle_xla_squash/``)."""
-    port = ROOT / "results" / "torch_band" / "unicycle_xla_squash"
-    stated = re.findall(r"`--squash xla` band's verdict: \*\*(\w+)\*\*",
-                        (ROOT / "PERF.md").read_text())
-    assert stated, "PERF.md states no verdict of the --squash xla band"
-    got = judge(port, tmp_path)
-    assert got["verdict"] == stated[-1]
-    committed = json.loads((port / "judge.json").read_text())
-    assert committed["verdict"] == got["verdict"]
-    assert committed["port"] == got["port"]
 
 
 @pytest.mark.parametrize("band_dir, modes", [
