@@ -87,7 +87,8 @@ Phases, one line each (any failure raises and exits nonzero):
    updates and K1 launches, the aggregate env-steps/s beside phase 5's
    one-seed run, seed 0's first episode against phase 5's); then a dp=2
    and a tp=2 gang of two ranks sharing the card over gloo
-   (``make_dp_episode_runner`` / ``make_tp_episode_runner``), each one
+   (``make_dp_episode_runner`` / ``make_tp_episode_runner``; both
+   layouts, GANG_LAYOUTS, in one spawn of the two ranks), each one
    full-width unicycle episode of GANG_STEPS steps, the policy acting
    from the first update on, against one rank from the same state and
    seed: the reward and the whole state
@@ -96,7 +97,8 @@ Phases, one line each (any failure raises and exits nonzero):
    bit-equal, K1's launches per dp rank those of one rank at half the
    rows, none under tp;
 17. ``--node_solver dopri5`` in gangs: a dp=2 and a tp=2 gang of two
-   ranks on the card over gloo, each one full-width unicycle episode per
+   ranks on the card over gloo (both in one spawn, as in phase 16), each
+   one full-width unicycle episode per
    form (``while``, ``scan``) of DOPRI5_GANG_STEPS steps whose first
    update fits the NODE on the full 32768 rows, against one rank: the
    reward, the state and the Adam moments, the ranks' bit-equality and
@@ -314,9 +316,14 @@ DOPRI5_ROWS = (128, 32768)
 # steps per episode). Updates start once the replay holds more than a
 # batch (128 rows), 2 per step; start_steps is 1000, so every action is
 # random. A dopri5 update takes 0.3-0.8 s over a fit cycle (NVIDIA H100
-# 80GB HBM3, 700 W), so those runs stop 11 steps after the first update.
-DOPRI5_RUN = (1, 140)
-HOST_RUNS = {"euler": (2, 150), "dopri5": (1, 140)}
+# 80GB HBM3, 700 W), so those runs stop 6 steps after the first update:
+# 12 updates, the NODE fitted at the first and again at the 11th (after
+# updates), the multipliers' ascent at the first and the 9th. The
+# host loop's Euler episodes were 150 steps and the dopri5 runs 140 (22
+# updates, 3 fits in the first episode) until the depth was cut to keep
+# the whole script in its time limit.
+DOPRI5_RUN = (1, 135)
+HOST_RUNS = {"euler": (2, 135), "dopri5": (1, 135)}
 # The dopri5 card-vs-CPU update fits the NODE on this many rows (the
 # CPU's dopri5 fit on 32768 rows at width 100 takes minutes).
 DOPRI5_CHECK_NODE_ROWS = 512
@@ -386,6 +393,11 @@ SEEDS = 4
 # moments the check reads, is still in it) to shorten phase 16.
 GANG_STEPS = 135
 GANG_TIMEOUT = 300
+# The gangs' layouts of the card's two ranks, (dp, tp): phase 16 runs both
+# in one spawn of the two ranks, one after the other, and so does phase
+# 17 (a spawn of two ranks costs about 20 s; a spawn per layout did until
+# the script was cut to keep it in its time limit).
+GANG_LAYOUTS = (("dp", (2, 1)), ("tp", (1, 2)))
 GANG_REWARD_RTOL, GANG_REWARD_ATOL = 2e-4, 1e-4
 GANG_STATE_RTOL, GANG_STATE_ATOL = 2e-3, 5e-4
 GANG_METRIC_RTOL = 1e-4
@@ -1850,22 +1862,23 @@ def one_episode(cfg, place, run, dev):
                 "rows": dict(node_kernel.launches_by_rows)}
 
 
-def gang_rank(rank, world, coordinator, dp, tp, device):
-    """One rank of a gang sharing ``device`` (the card) over gloo: one
-    episode, then its (under tp, the gathered) whole state to
-    OUT/gang_r<rank>.pkl."""
+def gang_rank(rank, world, coordinator, device):
+    """One rank of the gangs sharing ``device`` (the card) over gloo: in
+    each layout of GANG_LAYOUTS one episode, then its (under tp, the
+    gathered) whole state to OUT/gang_<layout>_r<rank>.pkl."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
     parallel.init_distributed(coordinator, world, rank, backend="gloo",
                               device=dev)
     cfg = gang_cfg()
-    grid = parallel.make_mesh((dp, tp))
-    place, run = parallel.make_parallel_runner(cfg, grid, dev)
-    ts, result = one_episode(cfg, place, run, dev)
-    whole = parallel.gather_state_tp(ts) if tp > 1 else ts
-    result["state"] = state_arrays(whole)
-    (OUT / f"gang_r{rank}.pkl").write_bytes(pickle.dumps(result))
+    for name, (dp, tp) in GANG_LAYOUTS:
+        grid = parallel.make_mesh((dp, tp))
+        place, run = parallel.make_parallel_runner(cfg, grid, dev)
+        ts, result = one_episode(cfg, place, run, dev)
+        whole = parallel.gather_state_tp(ts) if tp > 1 else ts
+        result["state"] = state_arrays(whole)
+        (OUT / f"gang_{name}_r{rank}.pkl").write_bytes(pickle.dumps(result))
 
 
 def relative_gap(a, b) -> float:
@@ -1894,14 +1907,15 @@ def gang_runs(dev, card):
     launches = {}
     rank_dev = "cuda:0" if dev.type == "cuda" else str(dev)
     failed = []
-    for name, (dp, tp) in (("dp", (2, 1)), ("tp", (1, 2))):
+    for name, _ in GANG_LAYOUTS:
         for r in range(2):
-            (OUT / f"gang_r{r}.pkl").unlink(missing_ok=True)
-        t0 = time.perf_counter()
-        parallel.run_gang(gang_rank, 2, (dp, tp, rank_dev),
-                          timeout=GANG_TIMEOUT)
-        wall = time.perf_counter() - t0
-        ranks = [pickle.loads((OUT / f"gang_r{r}.pkl").read_bytes())
+            (OUT / f"gang_{name}_r{r}.pkl").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    parallel.run_gang(gang_rank, 2, (rank_dev,),
+                      timeout=GANG_TIMEOUT * len(GANG_LAYOUTS))
+    wall = time.perf_counter() - t0
+    for name, (dp, tp) in GANG_LAYOUTS:
+        ranks = [pickle.loads((OUT / f"gang_{name}_r{r}.pkl").read_bytes())
                  for r in range(2)]
         got, got_updates = ranks[0]["state"]
         other, other_updates = ranks[1]["state"]
@@ -1931,8 +1945,9 @@ def gang_runs(dev, card):
             launches[f"unicycle_{name}2_rank{r}"] = res["launches"]
         phase(f"gangs: {name}=2 on one card (gloo): rank seconds "
               f"{[round(r['seconds'], 2) for r in ranks]} for the episode "
-              f"(one rank {one['seconds']:.2f}), {wall:.2f} s with the "
-              f"spawn; reward {ranks[0]['reward']:.6g} (gap "
+              f"(one rank {one['seconds']:.2f}), {wall:.2f} s for the "
+              f"gangs of {len(GANG_LAYOUTS)} layouts with their one spawn; "
+              f"reward {ranks[0]['reward']:.6g} (gap "
               f"{reward_gap:.3e}); whole state's largest gap {gap:.3e} "
               f"(rtol {GANG_STATE_RTOL} atol {GANG_STATE_ATOL}); Adam "
               f"moments' largest relative gap {moment_gap:.3e} (limit "
@@ -2034,25 +2049,28 @@ def dopri5_gang_episode(cfg, grid, dev, trials, ulp=False):
                 "launches": node_kernel.launch_counts["node_euler"]}
 
 
-def dopri5_gang_rank(rank, world, coordinator, dp, tp, device):
-    """One rank of a dopri5 gang sharing ``device`` over gloo: an episode
-    per form, then its (under tp, gathered) whole state and numbers to
-    OUT/dopri5_gang_r<rank>.pkl."""
+def dopri5_gang_rank(rank, world, coordinator, device):
+    """One rank of the dopri5 gangs sharing ``device`` over gloo: in each
+    layout of GANG_LAYOUTS an episode per form, then its (under tp,
+    gathered) whole state and numbers to
+    OUT/dopri5_gang_<layout>_r<rank>.pkl."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
     parallel.init_distributed(coordinator, world, rank, backend="gloo",
                               device=dev)
-    grid = parallel.make_mesh((dp, tp))
     trials = TrialCounter(dev)
-    out = {}
-    for impl in DOPRI5_IMPLS:
-        ts, res = dopri5_gang_episode(dopri5_gang_cfg(impl), grid, dev,
-                                      trials)
-        res["state"] = parallel.state_arrays(
-            parallel.gather_state_tp(ts) if tp > 1 else ts)
-        out[impl] = res
-    (OUT / f"dopri5_gang_r{rank}.pkl").write_bytes(pickle.dumps(out))
+    for name, (dp, tp) in GANG_LAYOUTS:
+        grid = parallel.make_mesh((dp, tp))
+        out = {}
+        for impl in DOPRI5_IMPLS:
+            ts, res = dopri5_gang_episode(dopri5_gang_cfg(impl), grid, dev,
+                                          trials)
+            res["state"] = parallel.state_arrays(
+                parallel.gather_state_tp(ts) if tp > 1 else ts)
+            out[impl] = res
+        (OUT / f"dopri5_gang_{name}_r{rank}.pkl").write_bytes(
+            pickle.dumps(out))
 
 
 def _flat(state, key):
@@ -2118,15 +2136,17 @@ def dopri5_gang_runs(dev, card):
               f"{res['reward']:.6g} on {card}")
     launches, failed = {}, []
     rank_dev = "cuda:0" if dev.type == "cuda" else str(dev)
-    for name, (dp, tp) in (("dp", (2, 1)), ("tp", (1, 2))):
+    for name, _ in GANG_LAYOUTS:
         for r in range(2):
-            (OUT / f"dopri5_gang_r{r}.pkl").unlink(missing_ok=True)
-        t0 = time.perf_counter()
-        parallel.run_gang(dopri5_gang_rank, 2, (dp, tp, rank_dev),
-                          timeout=GANG_TIMEOUT)
-        wall = time.perf_counter() - t0
-        ranks = [pickle.loads((OUT / f"dopri5_gang_r{r}.pkl").read_bytes())
-                 for r in range(2)]
+            (OUT / f"dopri5_gang_{name}_r{r}.pkl").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    parallel.run_gang(dopri5_gang_rank, 2, (rank_dev,),
+                      timeout=GANG_TIMEOUT * len(GANG_LAYOUTS))
+    wall = time.perf_counter() - t0
+    for name, _ in GANG_LAYOUTS:
+        ranks = [pickle.loads(
+            (OUT / f"dopri5_gang_{name}_r{r}.pkl").read_bytes())
+            for r in range(2)]
         for impl in DOPRI5_IMPLS:
             r0, r1 = ranks[0][impl], ranks[1][impl]
             want = one[impl]
@@ -2167,7 +2187,8 @@ def dopri5_gang_runs(dev, card):
                   f"relative gap {moment_gap:.3e} (limit "
                   f"{GANG_STATE_RTOL}); ranks bit-equal {same}; K1 "
                   f"launches {[r[impl]['launches'] for r in ranks]}; "
-                  f"{wall:.2f} s for the gang with its spawn on {card}")
+                  f"{wall:.2f} s for the gangs of {len(GANG_LAYOUTS)} "
+                  f"layouts with their one spawn on {card}")
             if not (same and ok and reward_ok and k1_ok):
                 failed.append(f"{name}=2 {impl}: state ok {ok}, reward ok "
                               f"{reward_ok}, ranks equal {same}, K1 ok "

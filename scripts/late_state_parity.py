@@ -2,12 +2,13 @@
 """The port's update against the JAX package's over a sequence of updates
 from a late training state, on the CPU.
 
-    python3 scripts/late_state_parity.py CHECKPOINT [--updates 40]
-        [--seed 0] [--xla_tanh] [--json OUT]
+    python3 scripts/late_state_parity.py CHECKPOINT [--preset unicycle]
+        [--updates 40] [--seed 0] [--xla_tanh] [--json OUT]
 
-CHECKPOINT is a unicycle ``checkpoint.npz`` written by
-``nlbac-train-torch`` at the preset's widths, or a band seed's kept
-chunk checkpoint, packed, under ``band_work/unicycle/s<seed>/``. Its state and replays are restored into
+CHECKPOINT is a ``checkpoint.npz`` of ``--preset`` (unicycle or
+nbc_unicycle) written by ``nlbac-train-torch`` at the preset's widths, or
+a band seed's kept chunk checkpoint, packed, under
+``band_work/<preset>/s<seed>/``. Its state and replays are restored into
 the port on the CPU, and the state is carried into the JAX package by
 ``nlbac_tpu_torch.interop.to_reference``. Three runs then take the same
 updates, each carrying its own state: the JAX package, the port, and the
@@ -15,7 +16,9 @@ port with every trained weight one float32 ulp up (the noise floor: how
 far float32 rounding alone moves the same updates). Every update takes
 the same RL and NODE batches, drawn with numpy from the checkpoint's
 replays, and the same standard-normal draws, taken from the JAX update's
-key as ``tests/test_torch_port_gates.py`` takes them; the gates (the NODE
+key as ``tests/test_torch_port_gates.py`` takes them (under nbc_unicycle
+also the learned barrier's resampled controls, as
+``tests/test_torch_port_episode.py`` takes them); the gates (the NODE
 fit, the targets, the multiplier ascent, the backup branch) fall where the
 checkpoint's update counter and episode put them.
 
@@ -73,12 +76,19 @@ from nlbac_tpu_torch.train.driver import create_replays  # noqa: E402
 
 import band_torch  # noqa: E402  (beside this script: a band's packed checkpoints)
 
-# the preset whose draws ``draws`` takes (unicycle's constraint chain
-# resamples nothing)
-PRESET = "unicycle"
-# the trained fields that the one-ulp run moves
+# the presets whose checkpoints the script reads: unicycle's constraint
+# chain resamples nothing, nbc_unicycle's learned barrier resamples the
+# next control
+PRESETS = ("unicycle", "nbc_unicycle")
+# the trained fields that the one-ulp run moves (and the learned barrier's
+# net where the preset trains one)
 TRAINED = ("policy", "backup_policy", "critic", "lyap", "node", "log_alpha",
            "backup_log_alpha")
+
+
+def trained_fields(cfg):
+    return TRAINED + (("barrier",)
+                      if cfg.constraint.kind == "learned_barrier" else ())
 
 
 def restore(cfg, path):
@@ -110,24 +120,38 @@ def sample(rows, layout, rng, n):
     return {k: v.numpy().copy() for k, v in got.items()}
 
 
-def draws(key, batch, n_u):
+def draws(key, batch, n_u, ccfg=None):
     """The JAX update's draws from split(key, 8): [2] the TD-target
-    sample, [3] the policy-loss sample, [5] the backup-loss sample."""
+    sample, [3] the policy-loss sample, [5] the backup-loss sample; under
+    a learned barrier (``ccfg``, the constraint config) also [4] the
+    resampled control of the policy loss's barrier term and, with a
+    backup policy, [6] the backup loss's, each (1, batch, n_u): one draw
+    a resampling step."""
     keys = jax.random.split(key, 8)
-    return {name: torch.tensor(np.asarray(
-        jax.random.normal(keys[i], (batch, n_u), jnp.float32)))
-        for name, i in (("next", 2), ("pi", 3), ("backup", 5))}
+
+    def normal(i):
+        return torch.tensor(np.asarray(
+            jax.random.normal(keys[i], (batch, n_u), jnp.float32)))
+
+    out = {name: normal(i)
+           for name, i in (("next", 2), ("pi", 3), ("backup", 5))}
+    if ccfg is not None and ccfg.kind == "learned_barrier":
+        out["resample"] = normal(4)[None]
+        if ccfg.use_backup:
+            out["backup_resample"] = normal(6)[None]
+    return out
 
 
-def pre_tanh(ts, batch, noise):
-    """The update's three samples' pre-tanh values |mean + std * noise|,
-    flattened."""
+def pre_tanh(ts, batch, noise, use_backup=True):
+    """The update's samples' pre-tanh values |mean + std * noise|,
+    flattened: the TD target's, the policy loss's and, with a backup
+    policy, the backup loss's."""
     out = []
+    samples = ((ts.policy, batch["next_obs"], "next"),
+               (ts.policy, batch["obs"], "pi"),
+               (ts.backup_policy, batch["obs"], "backup"))
     with torch.no_grad():
-        for policy, obs, name in ((ts.policy, batch["next_obs"], "next"),
-                                  (ts.policy, batch["obs"], "pi"),
-                                  (ts.backup_policy, batch["obs"],
-                                   "backup")):
+        for policy, obs, name in samples[:3 if use_backup else 2]:
             mean, log_std = gaussian_policy_forward(policy, obs)
             out.append((mean + torch.exp(log_std) * noise[name]).abs()
                        .flatten())
@@ -151,9 +175,9 @@ def ulp_jump(u):
     return jumps
 
 
-def one_ulp_up(ts):
+def one_ulp_up(ts, fields=TRAINED):
     with torch.no_grad():
-        for field in TRAINED:
+        for field in fields:
             for p in jax.tree_util.tree_leaves(getattr(ts, field)):
                 p.copy_(torch.nextafter(p, torch.full_like(p, np.inf)))
 
@@ -190,6 +214,8 @@ def part_gaps(got, want):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("checkpoint")
+    p.add_argument("--preset", default="unicycle", choices=PRESETS,
+                   help="the checkpoint's preset")
     p.add_argument("--updates", type=int, default=40)
     p.add_argument("--seed", type=int, default=0,
                    help="the batches' numpy seed and the keys' offset")
@@ -201,10 +227,11 @@ def main(argv=None):
     squash = "xla" if args.xla_tanh else "torch"
     t0 = time.monotonic()
 
-    cfg_t, cfg_j = tconfig.get_config(PRESET), jconfig.get_config(PRESET)
+    cfg_t = tconfig.get_config(args.preset)
+    cfg_j = jconfig.get_config(args.preset)
     port, rl, node, total, last, trained = restore(cfg_t, args.checkpoint)
     ulp, *_ = restore(cfg_t, args.checkpoint)
-    one_ulp_up(ulp)
+    one_ulp_up(ulp, trained_fields(cfg_t))
     episode = last + 1
     template = jax.tree.map(np.asarray,
                             j_create(cfg_j, jax.random.PRNGKey(0)))
@@ -229,8 +256,8 @@ def main(argv=None):
         tb = {n: torch.from_numpy(v) for n, v in batch.items()}
         tnb = {n: torch.from_numpy(v) for n, v in node_batch.items()}
         key = jax.random.PRNGKey(args.seed * 100000 + k)
-        noise = draws(key, batch_size, n_u)
-        u = pre_tanh(port, tb, noise)
+        noise = draws(key, batch_size, n_u, cfg_t.constraint)
+        u = pre_tanh(port, tb, noise, cfg_t.constraint.use_backup)
         tanh_in = float(u.max())
         # where the two tanh's squash terms part by over 1e-3 nats
         # (|u| 4.66-9.02, tests/test_torch_port_squash.py)

@@ -16,7 +16,8 @@
     ``nlbac_tpu*`` module, and ``run`` without a card raises unless given
     ``--cpu``;
 (f) ``judge`` on each band committed from the card (``results/
-    torch_band/unicycle/``, ``unicycle_xla_squash/``, ``nbc_unicycle/``)
+    torch_band/unicycle/``, ``unicycle_xla_squash/``, ``nbc_unicycle/``,
+    ``cars/``)
     gives the verdict, the converged count and the median last-50 reward
     (to 0.01) that ``PERF.md``'s table of the bands run states, and the
     committed ``judge.json``'s;
@@ -27,7 +28,8 @@
     chunk (the second chunk resumes the first's checkpoint under it);
 (i) ``judge`` names each miss's mode on the committed bands and the
     reference: a graze (reward and goals met, too many violation
-    episodes) or a collapse (reward or goals broken).
+    episodes) or a collapse (reward or goals broken); nbc_unicycle's
+    reference has none.
 (j) a kept checkpoint is packed losslessly (every array back bit for
     bit, a repeated array stored once), ``--carry_mb`` counts it packed,
     and a later ``run`` resumes from it to the uncut rows and checkpoint,
@@ -508,11 +510,11 @@ def test_run_without_card_raises(tmp_path):
 # a row of PERF.md's table of the bands run: the band's directory, its
 # verdict, converged of complete seeds and median last-50 reward
 BAND_ROW = re.compile(r"^\| `results/torch_band/(\w+)/` \|.*\| \*\*(\w+)\*\* "
-                      r"\| (\d+) of (\d+) \| ([0-9.]+) \|$", re.M)
+                      r"\| (\d+) of (\d+) \| ([0-9.]+|none) \|$", re.M)
 
 
 @pytest.mark.parametrize("band_dir", ["unicycle", "unicycle_xla_squash",
-                                      "nbc_unicycle"])
+                                      "nbc_unicycle", "cars"])
 def test_committed_band_verdict_matches_perf(tmp_path, band_dir):
     port = ROOT / "results" / "torch_band" / band_dir
     stated = {m[0]: m[1:] for m in BAND_ROW.findall(
@@ -524,7 +526,9 @@ def test_committed_band_verdict_matches_perf(tmp_path, band_dir):
     assert got["verdict"] == verdict == committed["verdict"]
     assert (got["port_converged"], got["port_complete"]) == (
         int(converged), int(complete))
-    assert f"{got['port_median_last50_reward']:.2f}" == median
+    got_median = got["port_median_last50_reward"]
+    # a band with no complete seed yet has no median
+    assert median == ("none" if got_median is None else f"{got_median:.2f}")
     assert committed["port"] == got["port"]
 
 
@@ -543,20 +547,27 @@ def test_run_passes_cli_args_to_every_chunk(tmp_path):
     assert len(rows.splitlines()) == 3
 
 
-@pytest.mark.parametrize("band_dir, modes", [
-    ("unicycle", {"s102": "graze", "s106": "graze", "s107": "graze",
-                  "s104": "collapse"}),
-    ("unicycle_xla_squash", {"s107": "collapse"}),
+@pytest.mark.parametrize("band_dir, modes, ref_modes", [
+    pytest.param("unicycle", {"s102": "graze", "s106": "graze",
+                              "s107": "graze", "s104": "collapse"},
+                 {"s12345": "collapse"}, id="unicycle-modes0"),
+    pytest.param("unicycle_xla_squash", {"s107": "collapse"},
+                 {"s12345": "collapse"}, id="unicycle_xla_squash-modes1"),
+    pytest.param("nbc_unicycle", {"s100": "collapse", "s106": "collapse"},
+                 {}, id="nbc_unicycle-modes2"),
 ])
-def test_judge_names_each_miss_mode(tmp_path, band_dir, modes):
+def test_judge_names_each_miss_mode(tmp_path, band_dir, modes, ref_modes):
     """(j): the ``torch.tanh`` band's three grazes and one collapse, the
-    reference's s12345 a collapse, and the ``--squash xla`` band's s107 a
-    collapse; in each seed's figures and in ``miss_modes``, and only for
-    seeds that are complete and not converged."""
-    got = judge(ROOT / "results" / "torch_band" / band_dir, tmp_path)
+    reference's s12345 a collapse, the ``--squash xla`` band's s107 a
+    collapse, and nbc_unicycle's s100 and s106 collapses (its reference
+    has no miss); in each seed's figures and in ``miss_modes``, and only
+    for seeds that are complete and not converged."""
+    port = ROOT / "results" / "torch_band" / band_dir
+    preset = json.loads((port / "judge.json").read_text())["preset"]
+    got = judge(port, tmp_path, "--preset", preset)
     assert {s: m for s, m in got["miss_modes"].items() if s in modes} == \
         modes
-    assert got["ref_miss_modes"] == {"s12345": "collapse"}
+    assert got["ref_miss_modes"] == ref_modes
     for name, st in got["port"].items():
         assert st["miss_mode"] == got["miss_modes"].get(name)
         assert (st["miss_mode"] is None) == (st["converged"]
