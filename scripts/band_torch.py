@@ -39,7 +39,8 @@ with ``safety_cost_train > 0`` in the last 100, first episode with a
 goal, env steps; ``scripts/r9_analyze.py``'s definitions; and how a
 complete seed that is not converged missed: a ``graze`` meets the reward
 and goals limits and breaks the violation limit, a ``collapse`` breaks the
-reward or goals limit; a report, which no rule reads), the verdict
+reward or goals limit, as does a short seed whose rows already break the
+goals limit; a report, which no rule reads), the verdict
 of the band rules below and two-sided Mann-Whitney U tests of the
 last-50 rewards and of the violation episodes in the last 100, port
 against reference (reported, not gates), and writes ``judge.json`` under
@@ -51,9 +52,11 @@ sides, for a reading before the budget ends (not the band). While band
 seeds are short, the verdict is ``fail`` once no outcome of theirs can
 pass (a short seed whose rows already break a count limit over the
 window that ends at the budget, as more than 5 violation episodes in
-unicycle's episodes 100-199, is a miss); otherwise it is ``incomplete``,
-and ``judge`` prints (and ``judge.json`` holds under ``short_seeds`` and
-``outcomes``) what each number of misses among them leads to: ``pass``,
+unicycle's episodes 100-199, is a miss), and ``pass`` once every short
+seed is such a miss and every last-50 reward they could end at passes;
+otherwise it is ``incomplete``, and ``judge`` prints (and ``judge.json``
+holds under ``short_seeds`` and ``outcomes``) what each number of misses
+among them leads to: ``pass``,
 ``fallback`` with the fallback seeds' converged count that a pass then
 needs, or ``fail``.
 
@@ -793,17 +796,25 @@ def seed_stats(path, episodes, rules=None):
     }
     stats["complete"] = stats["episodes"] >= episodes
     stats["converged"] = stats["complete"] and converged(stats, rules)
-    stats["miss_mode"] = miss_mode(stats, rules)
-    stats["cannot_converge"] = (not stats["complete"]
-                                and cannot_converge(c, episodes, rules))
+    doomed = not stats["complete"] and cannot_converge(c, episodes, rules)
+    # a short seed whose rows already break the goals limit has collapsed,
+    # whatever its reward ends at; one that breaks the violation limit
+    # alone may still end a graze or a collapse
+    stats["miss_mode"] = miss_mode(stats, rules) or (
+        "collapse" if doomed and cannot_converge(
+            c, episodes, rules, MISS_MODE_COLLAPSE) else None)
+    stats["cannot_converge"] = doomed
     return stats
 
 
-def cannot_converge(c, episodes, rules=None):
+def cannot_converge(c, episodes, rules=None, keys=None):
     """Whether a short seed's rows ``c`` already break a count limit of
-    ``rules`` over a window that ends at ``episodes``, whatever its
-    remaining episodes bring (a reward limit is never decided early)."""
+    ``rules`` (of those named in ``keys``, if given) over a window that
+    ends at ``episodes``, whatever its remaining episodes bring (a reward
+    limit is never decided early)."""
     limits = (rules or PRESETS["unicycle"]["rules"])["converged"]
+    if keys is not None:
+        limits = {k: v for k, v in limits.items() if k in keys}
     n = len(c["Episode"])
     if "violation_episodes_last100" in limits:
         start = max(0, episodes - LAST_VIOLATIONS)
@@ -920,19 +931,28 @@ def verdict(stats, seeds, fallback, rules=None):
     """The band rules (default: unicycle's) over the port's seeds:
     ``pass``; ``fail``, also before every seed is complete once no
     completion of the short seeds can pass; ``incomplete`` (a band seed
-    short of its episodes) or ``fallback`` (exactly ``fallback_at`` seeds
-    not converged and the fallback seeds not yet complete) while one can."""
+    short of its episodes that may still converge, or short seeds that can
+    no longer converge whose rewards decide the median) or ``fallback``
+    (exactly ``fallback_at`` seeds not converged and a fallback seed short
+    that may still converge) while one can. Short seeds that can no longer
+    converge count as misses: with every reward they could end at giving a
+    pass, the band passes before they end."""
     rules = rules or PRESETS["unicycle"]["rules"]
     reach = _reachable(stats, seeds, fallback, rules)
     if "pass" not in reach:
         return "fail"
-    if _short(stats, seeds):
+    if _open(stats, seeds):
         return "incomplete"
     missed = sum(not stats[s]["converged"] for s in seeds)
-    if missed == rules["fallback_at"] and _short(stats, fallback):
+    if missed == rules["fallback_at"] and _open(stats, fallback):
         return "fallback"
-    (result,) = reach
-    return result
+    return reach.pop() if len(reach) == 1 else "incomplete"
+
+
+def _open(stats, group):
+    """The seeds of ``group`` short of their episodes that may still
+    converge."""
+    return [s for s in _short(stats, group) if not _doomed(stats, s)]
 
 
 def outcomes(stats, seeds, fallback, rules=None):
@@ -1033,7 +1053,7 @@ def cmd_judge(args):
     result = verdict(port, seeds, fallback, preset["rules"])
     short = _short(port, seeds)
     table_out = (outcomes(port, seeds, fallback, preset["rules"])
-                 if short and result != "fail" else [])
+                 if short and result not in ("pass", "fail") else [])
 
     def table(name, stats):
         print(f"{name}: seed  episodes  last-50 reward  goals/50  "
@@ -1082,8 +1102,9 @@ def cmd_judge(args):
         "rules": rules_record(preset),
         "short_seeds": short,
         "outcomes": table_out,
-        "miss_modes": {f"s{s}": port[s]["miss_mode"] for s in band_port
-                       if port[s]["miss_mode"]},
+        "miss_modes": {f"s{s}": port[s]["miss_mode"]
+                       for s in list(seeds) + list(fallback)
+                       if s in port and port[s]["miss_mode"]},
         "ref_miss_modes": {f"s{s}": st["miss_mode"]
                            for s, st in ref.items() if st["miss_mode"]},
         "port": {f"s{s}": st for s, st in port.items()},

@@ -22,14 +22,15 @@
     (to 0.01) that ``PERF.md``'s table of the bands run states, and the
     committed ``judge.json``'s;
 (g) with band seeds short, ``judge`` fails a band that no outcome of
-    theirs can pass and otherwise tables what each number of misses
-    among them leads to.
+    theirs can pass, passes one whose short seeds are known misses (their
+    rows already break a count limit) at every reward they could end at,
+    and otherwise tables what each number of misses among them leads to.
 (h) ``run --cpu --cli_args "--squash xla"`` passes the flag to every
     chunk (the second chunk resumes the first's checkpoint under it);
 (i) ``judge`` names each miss's mode on the committed bands and the
     reference: a graze (reward and goals met, too many violation
-    episodes) or a collapse (reward or goals broken); nbc_unicycle's
-    reference has none.
+    episodes) or a collapse (reward or goals broken, or a short seed's
+    goals limit broken already); nbc_unicycle's reference has none.
 (j) a kept checkpoint is packed losslessly (every array back bit for
     bit, a repeated array stored once), ``--carry_mb`` counts it packed,
     and a later ``run`` resumes from it to the uncut rows and checkpoint,
@@ -321,6 +322,77 @@ def test_judge_outcomes_on_doctored_rows(tmp_path):
     assert got["verdict"] == "fail" and got["outcomes"] == []
 
 
+def test_judge_outcomes_on_doctored_rows_early_miss(tmp_path):
+    """A short seed goal-less in episodes 150-151 is a known miss (a
+    collapse: at most 48 goals in its last 50): beside 2 complete misses
+    (s12345's collapse, s100 made to graze) it calls the fallback seeds,
+    and with all 4 of them converged the band passes before the short
+    seed ends, whatever last-50 reward it would end at; one fallback seed
+    missed fails it. Before its second goal-less episode it is open."""
+    files = {s: p for s, p in ref_files().items()
+             if s in PRESET["seeds"] + PRESET["fallback"]}
+    port = as_port(tmp_path, files)
+
+    def doctor(seed, rewrite):
+        path = port / f"s{seed}" / "progress.txt"
+        header, lines, _ = band.read_progress(path)
+        path.write_text("\n".join([header] + rewrite(header, lines)) + "\n")
+
+    def set_cell(column, value, rows):
+        def rewrite(header, lines):
+            i = header.split("\t").index(column)
+            return ["\t".join(c[:i] + [value] + c[i + 1:]) if n in rows
+                    else ln for n, ln in enumerate(lines)
+                    for c in [ln.split("\t")]]
+        return rewrite
+
+    doctor(100, set_cell("safety_cost_train", "0.5", range(190, 200)))
+    doctor(105, lambda h, lines: set_cell("goal_met", "0", {150})(
+        h, lines[:151]))
+    got = judge(port, tmp_path)
+    assert got["short_seeds"] == [105]
+    assert not got["port"]["s105"]["cannot_converge"]
+    assert got["port"]["s105"]["miss_mode"] is None
+    assert got["verdict"] == "incomplete"
+    assert [r["verdict"] for r in got["outcomes"]] == ["pass", "fallback"]
+    # a second goal-less episode in the last 50: a miss, so the fallback's
+    # 13 of 16 decide (the median of the 16 is over 684 with s105 at
+    # either end)
+    shutil.copy(files[105], port / "s105" / "progress.txt")
+    doctor(105, lambda h, lines: set_cell("goal_met", "0", {150, 151})(
+        h, lines[:152]))
+    got = judge(port, tmp_path)
+    assert got["port"]["s105"]["cannot_converge"]
+    assert got["port"]["s105"]["miss_mode"] == "collapse"
+    assert got["miss_modes"] == {"s12345": "collapse", "s100": "graze",
+                                 "s105": "collapse"}
+    assert got["verdict"] == "pass" and got["outcomes"] == []
+    assert (got["port_converged"], got["port_complete"]) == (13, 15)
+    # one fallback seed missed: 12 of 16
+    doctor(108, set_cell("safety_cost_train", "0.5", range(190, 200)))
+    got = judge(port, tmp_path)
+    assert got["verdict"] == "fail" and got["outcomes"] == []
+    # on the rules' own terms: a fallback seed still open keeps the
+    # verdict at the fallback; a known miss whose reward decides the
+    # median keeps it open
+    ok = {"complete": True, "converged": True, "last50_reward": 690.0}
+    low = {"complete": True, "converged": False, "last50_reward": 520.0}
+    doomed = {"complete": False, "converged": False, "cannot_converge": True,
+              "last50_reward": -500.0}
+    seeds, fallback = PRESET["seeds"], PRESET["fallback"]
+    stats = {s: dict(ok) for s in seeds + fallback}
+    stats.update({seeds[0]: dict(low), seeds[1]: dict(low),
+                  seeds[2]: dict(doomed)})
+    assert band.verdict(stats, seeds, fallback) == "pass"
+    del stats[fallback[0]]
+    assert band.verdict(stats, seeds, fallback) == "fallback"
+    stats = {s: {**ok, "last50_reward": 700.0} for s in seeds}
+    for s in seeds[:5]:
+        stats[s] = {**ok, "last50_reward": 645.0}
+    stats[seeds[-1]] = dict(doomed)
+    assert band.verdict(stats, seeds, fallback) == "incomplete"
+
+
 def run(tmp_path, name, *args, check=True):
     out = subprocess.run(
         [sys.executable, str(SCRIPT), "run", "--cpu", "--seeds", "7",
@@ -513,6 +585,11 @@ BAND_ROW = re.compile(r"^\| `results/torch_band/(\w+)/` \|.*\| \*\*(\w+)\*\* "
                       r"\| (\d+) of (\d+) \| ([0-9.]+|none) \|$", re.M)
 
 
+# the bands whose verdict is final: no later run changes it
+DECIDED = {"unicycle": "fail", "unicycle_xla_squash": "pass",
+           "nbc_unicycle": "pass"}
+
+
 @pytest.mark.parametrize("band_dir", ["unicycle", "unicycle_xla_squash",
                                       "nbc_unicycle", "cars"])
 def test_committed_band_verdict_matches_perf(tmp_path, band_dir):
@@ -524,6 +601,7 @@ def test_committed_band_verdict_matches_perf(tmp_path, band_dir):
     committed = json.loads((port / "judge.json").read_text())
     got = judge(port, tmp_path, "--preset", committed["preset"])
     assert got["verdict"] == verdict == committed["verdict"]
+    assert verdict == DECIDED.get(band_dir, "incomplete")
     assert (got["port_converged"], got["port_complete"]) == (
         int(converged), int(complete))
     got_median = got["port_median_last50_reward"]
@@ -553,15 +631,17 @@ def test_run_passes_cli_args_to_every_chunk(tmp_path):
                  {"s12345": "collapse"}, id="unicycle-modes0"),
     pytest.param("unicycle_xla_squash", {"s107": "collapse"},
                  {"s12345": "collapse"}, id="unicycle_xla_squash-modes1"),
-    pytest.param("nbc_unicycle", {"s100": "collapse", "s106": "collapse"},
+    pytest.param("nbc_unicycle", {"s100": "collapse", "s106": "collapse",
+                                  "s105": "collapse"},
                  {}, id="nbc_unicycle-modes2"),
 ])
 def test_judge_names_each_miss_mode(tmp_path, band_dir, modes, ref_modes):
     """(j): the ``torch.tanh`` band's three grazes and one collapse, the
     reference's s12345 a collapse, the ``--squash xla`` band's s107 a
-    collapse, and nbc_unicycle's s100 and s106 collapses (its reference
-    has no miss); in each seed's figures and in ``miss_modes``, and only
-    for seeds that are complete and not converged."""
+    collapse, and nbc_unicycle's s100 and s106 collapses and s105, short
+    at 152 episodes with no goal in 150-151 (its reference has no miss); in each seed's figures and in ``miss_modes``, for seeds
+    that are complete and not converged and for short seeds whose goals
+    limit is broken already (a collapse)."""
     port = ROOT / "results" / "torch_band" / band_dir
     preset = json.loads((port / "judge.json").read_text())["preset"]
     got = judge(port, tmp_path, "--preset", preset)
@@ -570,5 +650,9 @@ def test_judge_names_each_miss_mode(tmp_path, band_dir, modes, ref_modes):
     assert got["ref_miss_modes"] == ref_modes
     for name, st in got["port"].items():
         assert st["miss_mode"] == got["miss_modes"].get(name)
-        assert (st["miss_mode"] is None) == (st["converged"]
-                                             or not st["complete"])
+        if st["complete"]:
+            assert (st["miss_mode"] is None) == st["converged"]
+        else:
+            # a short seed has a mode only once it is a known collapse
+            assert st["miss_mode"] in (None, "collapse")
+            assert st["miss_mode"] is None or st["cannot_converge"]
