@@ -5,7 +5,8 @@
 
 Phases, one line each (any failure raises and exits nonzero):
 
-1. the card's name and power limit; TF32 off for matmuls and cuDNN;
+1. the card's name and power limit; the host's CPU model, its cores and a
+   fixed host-only probe (``host_info``); TF32 off for matmuls and cuDNN;
 2. build the NODE Euler kernel (csrc/node_euler.cu) with nvcc, printing
    ptxas's registers, shared memory and spills per kernel, and count the
    tensor-core (HMMA) instructions in its SASS; then find where
@@ -522,6 +523,12 @@ LOCKSTEP_DOPRI5_STEPS = 131
 LOCKSTEP_DOPRI5_TIMED = 2
 
 
+# the host probe: a pure Python loop of HOST_PROBE_ITERS iterations, timed
+# HOST_PROBE_REPEATS times (about 0.1 s each on a current server core)
+HOST_PROBE_ITERS = 1_000_000
+HOST_PROBE_REPEATS = 3
+
+
 def phase(msg: str) -> None:
     print(msg, flush=True)
 
@@ -531,6 +538,31 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def host_info() -> dict:
+    """The host beside the card: its CPU model (``/proc/cpuinfo``), the
+    cores this process may run on and a fixed host-only probe, the best of
+    HOST_PROBE_REPEATS timings of HOST_PROBE_ITERS iterations of a pure
+    Python loop (ms; well under 2 s), so that a slow run can be told from
+    a slow host."""
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), None)
+    except OSError:
+        pass
+    best = math.inf
+    for _ in range(HOST_PROBE_REPEATS):
+        t0 = time.perf_counter()
+        acc = 0
+        for i in range(HOST_PROBE_ITERS):
+            acc += i * i % 7
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return {"cpu_model": model,
+            "affinity": sorted(os.sched_getaffinity(0)),
+            "probe_ms": round(best, 2), "probe_iters": HOST_PROBE_ITERS}
 
 
 def node_params(n_s, n_u, gen, dev):
@@ -3965,6 +3997,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase(card)
+    host = host_info()
+    phase(f"host: {host['cpu_model']}; cores {host['affinity']} "
+          f"({len(host['affinity'])}); probe {host['probe_ms']} ms (best of "
+          f"{HOST_PROBE_REPEATS}, {HOST_PROBE_ITERS} iterations of a pure "
+          f"Python loop)")
     phase(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
           f"{torch.backends.cudnn.allow_tf32}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -4074,7 +4111,7 @@ def main() -> int:
         "seed_batched_calls": lockstep_calls,
         "launches_by_path": by_path}], "tanh": tanh, "levers": levers,
         "startup": startup, "lockstep": lockstep, "band": band,
-        "squash": squash,
+        "squash": squash, "host": host,
         "phase_end_seconds": dict(marks)}), flush=True)
     phase(f"total: {time.perf_counter() - start:.2f} s from the build to "
           f"the end on {card}; seconds since the start at each phase's "

@@ -20,16 +20,22 @@ episode. A chunk counts once its process has ended with every row and a
 checkpoint at its last episode: only then are its rows added to the seed's
 ``progress.txt`` under ``--out`` (``s<seed>/progress.txt``, the JAX CLI's
 columns, and ``s<seed>/run.json``: the card and its power limit, the
-host's cores, the processes a card, env steps, seconds, env-steps/s, the
-chunks). A chunk
+host's cores and CPU model, the processes a card, env steps, seconds,
+env-steps/s, the chunks). A chunk
 that is cut (``--time_limit``, SIGTERM, a failed process) leaves no row,
 and a later ``run`` continues every seed from its last kept checkpoint,
 which lives packed under ``--work`` with the chunks' own run directories (a
 seed with no work state is done when its ``--out`` files hold every
 episode, and starts from episode 0 otherwise: its partial rows are then
 read against the rerun's, and ``run.json``'s ``rerun`` gives the first
-episode whose row differs, or null). Under ``--time_limit`` each chunk is
-shortened to end before it. Without
+episode whose row differs, or null). Under ``--time_limit`` each chunk,
+a seed's first too, is shortened to end before it: every episode counted
+at the preset's ``max_episode_steps``, at the seconds an env step of the
+seed's own last kept chunk (else of the newest chunk any seed of the run
+kept; with neither the chunk stays as asked), a quarter to spare, plus
+that chunk's start-up; where not one episode fits, no chunk starts and
+its slot stays idle. Several ``run``s of one preset may share ``--work``
+and ``--out`` at once when their seeds differ. Without
 a card it raises unless ``--cpu`` is given; ``--cpu`` trains at tiny
 widths and only checks the script.
 
@@ -160,37 +166,43 @@ def _ref(preset, run):
             f"results/r10/{preset}_seeds")
 
 
-# preset -> its budget (nlbac_tpu_torch/config.py), the band's seeds (the
-# r9 seed numbers; the port's Philox streams differ from the reference's
-# threefry ones, so the numbers match only by convention), the fallback
-# seeds, the reference's recorded seed directories (each holds
-# s<seed>/progress.txt) and the band rules (see the module docstring)
+# preset -> its budget and its longest episode (nlbac_tpu_torch/config.py),
+# the band's seeds (the r9 seed numbers; the port's Philox streams differ
+# from the reference's threefry ones, so the numbers match only by
+# convention), the fallback seeds, the reference's recorded seed
+# directories (each holds s<seed>/progress.txt) and the band rules (see the
+# module docstring)
 PRESETS = {
     "unicycle": {
-        "episodes": 200, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "episodes": 200, "max_episode_steps": 1200,
+        "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
         "ref": _ref("unicycle", "unicycle"),
         "rules": _rules({"last50_reward": 640.0, "goals_last50": 49,
                          "violation_episodes_last100": 5}, 684.0),
     },
     "cars": {
-        "episodes": 200, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "episodes": 200, "max_episode_steps": 300,
+        "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
         "ref": _ref("cars", "cars"),
         "rules": _rules({"last50_reward": 80.0}, 130.0),
     },
     "pvtol": {
-        "episodes": 400, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "episodes": 400, "max_episode_steps": 2000,
+        "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
         "ref": _ref("pvtol", "pvtol"),
         "rules": _rules({"last50_reward": 1490.0, "goals_last50": 50},
                         1498.1),
     },
     "nbc_unicycle": {
-        "episodes": 200, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "episodes": 200, "max_episode_steps": 1200,
+        "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
         "ref": _ref("nbc_unicycle", "unicycle"),
         "rules": _rules({"last50_reward": 490.0, "goals_last50": 49},
                         659.0),
     },
     "nbc_pvtol": {
-        "episodes": 210, "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
+        "episodes": 210, "max_episode_steps": 2000,
+        "seeds": BAND_SEEDS, "fallback": FALLBACK_SEEDS,
         "ref": _ref("nbc_pvtol", "pvtol"),
         "rules": _rules({"last50_reward": 1390.0, "goals_last50": 47},
                         1497.0),
@@ -325,6 +337,19 @@ def card_line(index):
     return out.stdout.strip().splitlines()[0]
 
 
+def cpu_model():
+    """The host's CPU model, as ``/proc/cpuinfo`` names it (None where it
+    names none), so that a slow run can be told from a slow host."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return None
+
+
 # ---------------------------------------------------------------- run
 
 
@@ -420,6 +445,8 @@ class Seed:
                "cards": sorted({c["card"] for c in chunks}),
                "host_cores": sorted({c["host_cores"] for c in chunks
                                      if "host_cores" in c}),
+               "cpu_models": sorted({c["cpu_model"] for c in chunks
+                                     if c.get("cpu_model")}),
                "processes_per_card": sorted({c["processes_per_card"]
                                              for c in chunks}),
                "chunks": chunks}
@@ -480,37 +507,69 @@ def _chunk_timers(log_path):
 
 class Runner:
     """Runs the seeds' chunks on card slots until every seed has its
-    episodes, the time limit passes or a stop is asked for."""
+    episodes, the time limit passes or a stop is asked for. ``clock`` gives
+    the seconds the time limit is read on."""
 
-    def __init__(self, args, seeds, slots, card_names, call):
+    def __init__(self, args, seeds, slots, card_names, call,
+                 clock=time.monotonic):
         self.args = args
         self.queue = list(seeds)
         self.slots = slots
         self.card_names = card_names
         self.call = call
+        self.clock = clock
         self.lock = threading.Lock()
         self.stop = threading.Event()
-        self.deadline = (time.monotonic() + args.time_limit
+        self.deadline = (clock() + args.time_limit
                          if args.time_limit else None)
         self.failed = []
         self.cut = []
+        # (seed, episode) of each chunk not started for want of time
+        self.idle = []
+        # the records of the chunks this run kept, oldest first
+        self.kept = []
 
     def expired(self):
         return self.stop.is_set() or (
-            self.deadline is not None and time.monotonic() > self.deadline)
+            self.deadline is not None and self.clock() > self.deadline)
+
+    def episode_steps(self):
+        """The most env steps an episode of this run's processes takes: the
+        preset's ``max_episode_steps``, or the last ``--max_episode_steps``
+        that ``--cpu`` or ``--cli_args`` passes them."""
+        flags = ((list(CPU_ARGS) if self.args.cpu else [])
+                 + self.args.cli_args.split())
+        steps = PRESETS[self.args.preset]["max_episode_steps"]
+        for flag, value in zip(flags, flags[1:]):
+            if flag == "--max_episode_steps":
+                steps = int(value)
+        return steps
+
+    def rate(self, seed):
+        """(train seconds an env step, start-up seconds) of the seed's own
+        last kept chunk, else of the newest chunk that any seed of this run
+        kept; None where neither has one."""
+        with self.lock:
+            newest = self.kept[-1:]
+        for c in seed.state["chunks"][-1:] + newest:
+            if c["train_seconds"] > 0 and c["env_steps"] > 0:
+                return (c["train_seconds"] / c["env_steps"],
+                        max(0.0, c["seconds"] - c["train_seconds"]))
+        return None
 
     def fit(self, seed, start, end):
-        """Under a time limit, shorten the chunk so that it ends before
-        the deadline at the seed's last chunk's seconds an episode (with
-        a quarter to spare) and its start-up; at least one episode."""
-        last = seed.state["chunks"][-1] if seed.state["chunks"] else None
-        if self.deadline is None or not last or last["train_seconds"] <= 0:
+        """Under a time limit, shorten the chunk so that it ends before the
+        deadline: each episode bounded by ``episode_steps`` at ``rate``'s
+        seconds an env step with a quarter to spare, plus its process's
+        start-up. Returns ``start`` (start no chunk) when not one such
+        episode fits; without a rate the chunk stays as asked."""
+        rate = self.rate(seed) if self.deadline is not None else None
+        if rate is None:
             return end
-        n = last["episodes"][1] - last["episodes"][0] + 1
-        per_episode = 1.25 * last["train_seconds"] / n
-        left = (self.deadline - time.monotonic()
-                - (last["seconds"] - last["train_seconds"]))
-        return start + max(1, min(end - start, int(left / per_episode)))
+        per_step, startup = rate
+        per_episode = 1.25 * per_step * self.episode_steps()
+        left = self.deadline - self.clock() - startup
+        return start + max(0, min(end - start, int(left / per_episode)))
 
     def command(self, seed, end):
         cmd = [sys.executable, "-m", "nlbac_tpu_torch.train.cli",
@@ -525,10 +584,15 @@ class Runner:
 
     def chunk(self, seed, card):
         """Run seed's next chunk on ``card`` (None: the CPU). Returns True
-        when the chunk was kept."""
+        when the chunk was kept, False when it was not, and None when no
+        episode fits before the deadline (no chunk started)."""
         start, end = seed.done, min(seed.done + self.args.chunk,
                                     self.args.episodes)
         end = self.fit(seed, start, end)
+        if end <= start:
+            with self.lock:
+                self.idle.append((seed.seed, start))
+            return None
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
             OMP_NUM_THREADS=str(THREADS))
@@ -600,11 +664,14 @@ class Runner:
                   "card": self.card_names[card],
                   "card_index": card,
                   "host_cores": len(os.sched_getaffinity(0)),
+                  "cpu_model": cpu_model(),
                   "processes_per_card": self.args.per_card,
                   "cards_in_call": len(self.card_names),
                   "call": self.call, "cli_args": self.args.cli_args}
         t0 = time.monotonic()
         seed.commit(header, rows, ckpt, steps, record)
+        with self.lock:
+            self.kept.append(record)
         shutil.rmtree(os.path.join(seed.work, "chunk"), ignore_errors=True)
         if os.path.exists(seed.resume):
             os.remove(seed.resume)
@@ -622,7 +689,11 @@ class Runner:
                     return
                 seed = self.queue.pop(0)
             while seed.done < self.args.episodes and not self.expired():
-                if not self.chunk(seed, card):
+                kept = self.chunk(seed, card)
+                if kept is None:
+                    # the slot stays idle, its core left to the others
+                    return
+                if not kept:
                     break
 
     def run(self):
@@ -668,6 +739,12 @@ def cmd_run(args):
             raise SystemExit(f"s{seed.seed}: {seed.done} episodes kept and "
                              "no checkpoint to continue from")
         seed.tidy()
+    if args.carry_only:
+        if args.carry_mb is None:
+            raise SystemExit("band_torch.py run: --carry_only needs "
+                             "--carry_mb")
+        carry(band, args)
+        return 0
     todo = [s for s in band if s.done < args.episodes]
     # a slot is a card; each card appears --per_card times
     slots = [c for _ in range(args.per_card) for c in cards]
@@ -689,16 +766,28 @@ def cmd_run(args):
         signal.signal(signal.SIGTERM, old)
     seconds = time.monotonic() - t0
     steps = sum(c["env_steps"] for s in band for c in s.state["chunks"]
-                if c["call"] == len(calls))
+                if c["call"] == runner.call)
+    # read again: another run of the same work directory (other seeds) may
+    # have ended meanwhile
+    if os.path.exists(call_path):
+        with open(call_path) as f:
+            calls = json.load(f)
     calls.append({"seconds": round(seconds, 2), "env_steps": steps,
                   "env_steps_per_s": round(steps / seconds, 3),
                   "cards": [names[c] for c in cards],
+                  "host_cores": len(os.sched_getaffinity(0)),
+                  "cpu_model": cpu_model(), "call": runner.call,
+                  "seeds": [s.seed for s in band],
                   "per_card": args.per_card, "chunk": args.chunk,
-                  "cut": runner.cut, "failed": runner.failed})
+                  "cut": runner.cut, "failed": runner.failed,
+                  "idle": runner.idle})
     _write_atomic(call_path, json.dumps(calls, indent=1) + "\n")
     for s, a, b, why, log in runner.failed:
         print(f"s{s}: episodes {a}..{b - 1} failed: {why} (log {log})",
               flush=True)
+    for s, a in runner.idle:
+        print(f"s{s}: no chunk from episode {a}: not one episode fits "
+              f"before the deadline (its slot left idle)", flush=True)
     if args.carry_mb is not None:
         carry(band, args)
     left = [s.seed for s in band if s.done < args.episodes]
@@ -1175,6 +1264,9 @@ def build_parser():
                    help="the directory a later call is handed back, whose "
                         "other files count against --carry_mb (default: "
                         "none; only the checkpoints count)")
+    r.add_argument("--carry_only", action="store_true",
+                   help="train nothing: only the carry of the seeds, after "
+                        "the call's other runs have ended")
     r.add_argument("--cpu", action="store_true",
                    help="train on the CPU at tiny widths (a check of the "
                         "script, not a band)")

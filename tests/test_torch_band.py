@@ -17,7 +17,7 @@
     ``--cpu``;
 (f) ``judge`` on each band committed from the card (``results/
     torch_band/unicycle/``, ``unicycle_xla_squash/``, ``nbc_unicycle/``,
-    ``cars/``)
+    ``cars/``, ``nbc_pvtol/``)
     gives the verdict, the converged count and the median last-50 reward
     (to 0.01) that ``PERF.md``'s table of the bands run states, and the
     committed ``judge.json``'s;
@@ -35,6 +35,13 @@
     bit, a repeated array stored once), ``--carry_mb`` counts it packed,
     and a later ``run`` resumes from it to the uncut rows and checkpoint,
     leaving no unpacked copy behind.
+(k) ``Runner.fit`` on a fixed clock, with no process: a fresh seed's
+    chunk is sized from the newest chunk another seed of the run kept
+    (its own last chunk first), each episode counted at the preset's
+    ``max_episode_steps`` and not at the last chunk's mean, no chunk
+    starts (its slot idle) where one such episode cannot end before the
+    deadline, and with no rate anywhere the chunk stays as asked; each
+    kept chunk and ``run.json`` name the host's CPU model.
 
 Tolerances: none; (a) compares at the printed precision (0.05), the rest
 bit for bit.
@@ -442,6 +449,125 @@ def test_run_chunked_equals_uncut(tmp_path, uncut):
     assert info["env_steps"] == uncut[0]["env_steps"]
 
 
+# fit's fixed clock, and a chunk's start-up seconds (its process's seconds
+# beyond its episodes')
+NOW, STARTUP = 5000.0, 25.0
+FIT_PRESET = "nbc_pvtol"
+# seconds of one FIT_PRESET episode of max_episode_steps at 0.1 s an env
+# step, a quarter to spare
+LONG_EPISODE = 1.25 * 0.1 * band.PRESETS[FIT_PRESET]["max_episode_steps"]
+
+
+def chunk_record(first, last, env_steps, train_seconds):
+    return {"episodes": [first, last], "env_steps": env_steps,
+            "train_seconds": train_seconds,
+            "seconds": train_seconds + STARTUP}
+
+
+def fit_runner(tmp_path, left, seeds=(), *flags):
+    """A Runner of FIT_PRESET with ``--chunk 5`` whose clock stands at NOW
+    and whose deadline is ``left`` seconds later (None: no time limit)."""
+    argv = ["run", "--preset", FIT_PRESET, "--chunk", "5",
+            "--out", str(tmp_path / "out"), "--work", str(tmp_path / "work")]
+    if left is not None:
+        argv += ["--time_limit", str(left)]
+    args = band.build_parser().parse_args(argv + list(flags))
+    args.episodes = band.PRESETS[FIT_PRESET]["episodes"]
+    return band.Runner(args, list(seeds), [0], {0: "card"}, 0,
+                       clock=lambda: NOW)
+
+
+def fit_seed(tmp_path, seed, chunks=()):
+    s = band.Seed(seed, str(tmp_path / "work"), str(tmp_path / "out"),
+                  band.PRESETS[FIT_PRESET]["episodes"])
+    s.state["chunks"] = list(chunks)
+    s.state["rows"] = ["row"] * sum(c["episodes"][1] - c["episodes"][0] + 1
+                                    for c in chunks)
+    return s
+
+
+def test_fit_sizes_a_fresh_seed_from_the_call(tmp_path):
+    """A seed with no kept chunk takes its rate from the newest chunk that
+    another seed of the run kept: 0.1 s an env step and 25 s of start-up
+    leave room for 3 whole episodes of max_episode_steps, not the 5 asked;
+    the seed's own last chunk, where it has one, comes first."""
+    runner = fit_runner(tmp_path, STARTUP + 3.5 * LONG_EPISODE)
+    runner.kept = [chunk_record(0, 4, 1000, 500.0),  # 0.5 s an env step
+                   chunk_record(0, 4, 9000, 900.0)]  # 0.1, the newest
+    fresh = fit_seed(tmp_path, 1)
+    assert runner.rate(fresh) == (0.1, STARTUP)
+    assert runner.fit(fresh, 0, 5) == 3
+    # its own chunk (0.2 s an env step) over the call's newest
+    own = fit_seed(tmp_path, 2, [chunk_record(0, 4, 9000, 1800.0)])
+    assert runner.rate(own) == (0.2, STARTUP)
+    assert runner.fit(own, 5, 10) == 5 + 1
+
+
+def test_fit_bounds_each_episode_by_max_episode_steps(tmp_path):
+    """The seed's last chunk held 5 short episodes (200 env steps each, 20
+    s at 0.1 s an env step): at that mean all 5 asked would fit, but each
+    episode is counted at max_episode_steps, so only 2 are started."""
+    left = STARTUP + 2.5 * LONG_EPISODE
+    seed = fit_seed(tmp_path, 1, [chunk_record(0, 4, 1000, 100.0)])
+    runner = fit_runner(tmp_path, left, [seed])
+    mean_episode = 1.25 * 100.0 / 5
+    assert int((left - STARTUP) / mean_episode) >= 5
+    assert runner.episode_steps() == 2000
+    assert runner.fit(seed, 5, 10) == 5 + 2
+    # a cut of the episodes' length reaches the bound
+    cut = fit_runner(tmp_path, left, [seed], "--cli_args",
+                     "--max_episode_steps 500")
+    assert cut.episode_steps() == 500
+    assert cut.fit(seed, 5, 10) == 10
+    assert fit_runner(tmp_path, left, [seed], "--cpu").episode_steps() == 40
+
+
+def test_fit_starts_no_chunk_that_cannot_hold_an_episode(tmp_path,
+                                                          monkeypatch):
+    """Less than one max_episode_steps episode (and the start-up) before
+    the deadline: ``fit`` gives no episode, ``chunk`` starts no process and
+    records the seed as idle, and the slot stays idle (its seed short)."""
+    seed = fit_seed(tmp_path, 1, [chunk_record(0, 4, 9000, 900.0)])
+    other = fit_seed(tmp_path, 2)
+    runner = fit_runner(tmp_path, STARTUP + 0.9 * LONG_EPISODE,
+                        [seed, other])
+    assert runner.fit(seed, 5, 10) == 5
+
+    def no_process(*args, **kwargs):
+        raise AssertionError("a chunk process was started")
+
+    monkeypatch.setattr(band.subprocess, "Popen", no_process)
+    runner.slot_loop(0)
+    assert runner.idle == [(1, 5)]
+    # the slot left the queue's next seed alone and kept nothing
+    assert runner.queue == [other] and runner.kept == []
+    assert (runner.failed, runner.cut) == ([], [])
+    assert seed.done == 5 and not os.path.exists(
+        os.path.join(seed.work, "chunk_ep5-4.log"))
+
+
+def test_fit_without_a_rate_keeps_the_chunk_asked(tmp_path):
+    """No chunk kept by the seed or by any seed of the run (the band's very
+    first chunk), or no time limit: the chunk stays as asked, however close
+    the deadline."""
+    fresh = fit_seed(tmp_path, 1)
+    runner = fit_runner(tmp_path, 10.0, [fresh])
+    assert runner.rate(fresh) is None
+    assert runner.fit(fresh, 0, 5) == 5
+    seed = fit_seed(tmp_path, 2, [chunk_record(0, 4, 9000, 900.0)])
+    assert fit_runner(tmp_path, None, [seed]).fit(seed, 5, 10) == 10
+
+
+def test_chunk_records_name_the_cpu_model(uncut):
+    """Each kept chunk and ``run.json`` name the host's CPU model beside its
+    cores, as ``/proc/cpuinfo`` gives it."""
+    model = band.cpu_model()
+    assert model
+    assert [c["cpu_model"] for c in uncut[0]["chunks"]] == [model]
+    info = json.loads((uncut[3] / "run.json").read_text())
+    assert info["cpu_models"] == [model]
+
+
 def test_run_packed_carry_equals_uncut(tmp_path, uncut):
     arrays = {"a": np.arange(12, dtype=np.float32).reshape(3, 4) / 7,
               "b": np.float32(2.5), "c": np.zeros((0, 5), np.float32),
@@ -587,11 +713,11 @@ BAND_ROW = re.compile(r"^\| `results/torch_band/(\w+)/` \|.*\| \*\*(\w+)\*\* "
 
 # the bands whose verdict is final: no later run changes it
 DECIDED = {"unicycle": "fail", "unicycle_xla_squash": "pass",
-           "nbc_unicycle": "pass"}
+           "nbc_unicycle": "pass", "cars": "pass"}
 
 
 @pytest.mark.parametrize("band_dir", ["unicycle", "unicycle_xla_squash",
-                                      "nbc_unicycle", "cars"])
+                                      "nbc_unicycle", "cars", "nbc_pvtol"])
 def test_committed_band_verdict_matches_perf(tmp_path, band_dir):
     port = ROOT / "results" / "torch_band" / band_dir
     stated = {m[0]: m[1:] for m in BAND_ROW.findall(

@@ -205,6 +205,8 @@ def test_run_passes_the_preset_defaults(tmp_path, name):
                                      max_episodes=want.run.max_episodes,
                                      output=want.run.output)) == want
     assert want.run.max_episodes == band.PRESETS[name]["episodes"]
+    # the longest episode that ``Runner.fit`` counts a chunk's episodes at
+    assert runner.episode_steps() == want.env.max_episode_steps
 
 
 def run(tmp_path, name, *args, seeds=("7",)):
